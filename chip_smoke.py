@@ -16,14 +16,19 @@
 5. Times each P-256 kernel at the main path's shapes against its plain
    version.
 6. Idemix at the idemix MSP's own credential (4 attributes, OU and Role
-   disclosed, one issuer key): holds the BN254 Schnorr-commitment kernel
+   disclosed, one issuer key): times the build of the shared bases' comb
+   (once per issuer key); holds the BN254 Schnorr-commitment kernel
    against its plain version, word for word, and against the host
-   recomputation on 256 lanes of edge cases and a custom term layout;
-   verifies a 1024-signature batch through `IdemixCSP.verify_batch` on the
-   card with the launch count set to 0 just before and read just after,
-   and a 16-signature batch with a forged pairing; splits the batch's
-   wall time by stage; times both paths at 1 to 256 signatures (the
-   crossover); times the kernel at 1024 lanes.
+   recomputation on 256 lanes of edge cases and a custom term layout
+   whose partials meet in the reduction's doubling and infinity
+   branches; verifies a 1024-signature batch through
+   `IdemixCSP.verify_batch` on the card with the launch counts (calls and
+   kernel launches) set to 0 just before and read just after, and a
+   16-signature batch with a forged pairing; splits the batch's wall time
+   by stage; times both paths at 1 to 256 signatures (the crossover);
+   times the kernel at 1024 lanes, prints its own count of field
+   multiplications beside the bound's, and sweeps it over 32 to 4096
+   lanes.
 7. Prints one JSON line of kernels, then `{"ok": true, "device": {...}}`
    as its last line.
 
@@ -112,6 +117,11 @@ IDEMIX_LANES = 1024
 B3_EDGE_LANES = 256
 FORGED_BATCH = 16
 CROSSOVER_SIZES = (1, 4, 16, 64, 256)
+B3_SWEEP = (32, 256, 1024, 4096)
+# The previous design of the kernel, one thread per signature, on the same
+# card type (H100 80GB HBM3, 700 W; PERF.md, CUDA events, median of 5):
+# ms per 1024-lane launch, printed beside this run's time.
+B3_ONE_THREAD_MS = (30.712, 31.350)
 B3_NAME = "bn254_commitments"
 B3_SOURCE = "fabric_tpu_torch/csp/cuda/csrc/bn254_commit.cu"
 B3_REPLACES = "fabric_tpu/csp/tpu/pallas_bn254.py:408"
@@ -571,9 +581,11 @@ def compare_b3(t: dict, errs: dict) -> torch.Tensor:
 
 
 def crafted_lanes(world: IdemixWorld, rng):
-    """A custom layout and 4 lanes that force the degenerate branches: T3
-    = h_attrs[1]^s . a_bar^s with a_bar = h_attrs[1] (the doubling) and
-    a_bar = -h_attrs[1] (infinity), a generic lane and a bad lane."""
+    """A custom layout and 4 lanes that force the degenerate branches of
+    the reduction: T3 = h_attrs[1]^s . a_bar^s, a comb partial beside a
+    ladder partial, with a_bar = h_attrs[1] (equal partials: the
+    doubling) and a_bar = -h_attrs[1] (opposite: infinity), a generic
+    lane and a bad lane."""
     n_shared = 3 + len(MSP_ATTRS)
     layout = ((0, 4, n_shared + 1, n_shared + 1, 0), (0, 2, 2, 0, 2))
     g = bn.G1_GEN
@@ -608,7 +620,14 @@ def phase_b3_edges(world: IdemixWorld, device, errs: dict,
     pts, scs, ok = bb.prepare_sigs(sigs, n_attrs)
     check(ok[:5] == [True, True, False, False, False] and all(ok[5:]),
           f"host prep marked {[j for j, v in enumerate(ok) if not v]} bad")
-    shared = bk.shared_table(bb.shared_multiples(bb.shared_points(ipk)))
+    key = bb.shared_points(ipk)
+    bb.shared_comb.cache_clear()
+    t0 = time.perf_counter()
+    shared = bb.shared_comb(key)
+    print(f"shared_comb: {len(key)} shared bases x {bk.NWINDOWS} windows x "
+          f"{bk.TABLE} entries ({shared['xy'].nbytes + shared['inf'].nbytes}"
+          f" B) built in {time.perf_counter() - t0:.3f} s, once per issuer "
+          f"key")
     t = bk.upload(bk.pack(pts, scs, ok, *layout, lanes=n), shared, device)
     out = compare_b3(t, errs)
     aff = bb.to_affine(bk.unpack(out, n_sigs), ok)
@@ -662,17 +681,22 @@ def phase_idemix_main(world: IdemixWorld, device,
              for j, (s, m) in enumerate(lanes)]
     csp = IdemixCSP(rng=random.Random(SEED), device=device, use_device=True)
     bk.launches_bn254 = 0
+    bk.kernel_launches_bn254 = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mask = csp.verify_batch(items, ipk)
     wall = time.perf_counter() - t0
     launches = bk.launches_bn254
+    kernel_launches = bk.kernel_launches_bn254
     rejected = [j for j, v in enumerate(mask) if not v]
     check(rejected == sorted(bad), f"idemix batch: rejected {rejected[:8]}, "
           f"expected {sorted(bad)}")
-    check(launches > 0, f"{B3_NAME} did not launch on the main path")
+    check(launches > 0 and kernel_launches > 0,
+          f"{B3_NAME} did not launch on the main path")
     print(f"idemix main path: {n} signatures in {wall:.3f} s = "
-          f"{n / wall:.1f} sigs/s; {launches} launches of {B3_NAME}")
+          f"{n / wall:.1f} sigs/s; {launches} launches of {B3_NAME} "
+          f"({kernel_launches} CUDA kernel launches: term phase and "
+          f"reduction)")
 
     forged_cred = dataclasses.replace(world.cred,
                                       a=bn.g1_mul(bn.G1_GEN, 5))
@@ -698,8 +722,7 @@ def phase_idemix_main(world: IdemixWorld, device,
     t0 = time.perf_counter()
     pts, scs, ok = bb.prepare_sigs(sigs, n_attrs)
     packed = bk.pack(pts, scs, ok, *layout)
-    shared = bk.shared_table(bb.shared_multiples(bb.shared_points(ipk)))
-    t = bk.upload(packed, shared, device)
+    t = bk.upload(packed, bb.shared_comb(bb.shared_points(ipk)), device)
     torch.cuda.synchronize()
     stages["host prep + packing + upload"] = time.perf_counter() - t0
     kernel_ms = cuda_ms(lambda: bk.commitments(t), TIMING_REPS)
@@ -792,6 +815,44 @@ def b3_bound(packed: dict, n_shared: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def b3_kernel_muls(packed: dict, n_shared: int) -> tuple[float, int, int]:
+    """The field multiplications the kernel itself does on `packed`, as
+    (per lane over all its threads, the longest term thread, the longest
+    reduction thread): a shared-base term one mixed add per nonzero digit
+    after its first; a lane-base term of a finite base its table chain,
+    then, once its partial is finite, 4 doublings a window and one full
+    add per nonzero digit; an accumulator one full add per finite partial
+    after its first.  Unlike `b3_bound`, this is the design's count, not
+    the function's."""
+    meta = np.asarray(packed["termmeta"])
+    n_terms = meta.shape[0]
+    words = np.asarray(packed["digits"], np.uint32).reshape(n_terms, 8, 1, -1)
+    shifts = (4 * np.arange(8, dtype=np.uint32))[None, None, :, None]
+    nz = ((words >> shifts) & 0xF).reshape(n_terms, bk.NWINDOWS, -1) != 0
+    lanes = nz.shape[-1]
+    laneinf = np.asarray(packed["laneinf"]) != 0
+    nnz = nz.sum(axis=1)  # (T, lanes)
+    first = np.argmax(nz, axis=1)  # the first nonzero window
+    finite = np.zeros((n_terms, lanes), bool)
+    term_muls = np.zeros((n_terms, lanes), np.int64)
+    for t, (tab, _) in enumerate(meta):
+        if tab < n_shared:
+            finite[t] = nnz[t] > 0
+            term_muls[t] = BN_MULS_MIXED * np.maximum(nnz[t] - 1, 0)
+            continue
+        base = ~laneinf[tab - n_shared]
+        finite[t] = base & (nnz[t] > 0)
+        ladder = (4 * BN_MULS_DBL * (bk.NWINDOWS - 1 - first[t])
+                  + BN_MULS_FULL * (nnz[t] - 1))
+        term_muls[t] = np.where(base, (bk.TABLE - 2) * BN_MULS_MIXED, 0)
+        term_muls[t] += np.where(finite[t], ladder, 0)
+    reduce_muls = np.stack([
+        BN_MULS_FULL * np.maximum(finite[meta[:, 1] == a].sum(axis=0) - 1, 0)
+        for a in range(bk.N_ACCS)])
+    total = int(term_muls.sum() + reduce_muls.sum())
+    return total / lanes, int(term_muls.max()), int(reduce_muls.max())
+
+
 def phase_b3_kernel(main: dict, errs: dict, reps: int = TIMING_REPS,
                     plain_reps: int = PLAIN_REPS) -> dict:
     t = main["tensors"]
@@ -799,13 +860,23 @@ def phase_b3_kernel(main: dict, errs: dict, reps: int = TIMING_REPS,
     ms = cuda_ms(lambda: bk.commitments(t), reps)
     plain_ms = cuda_ms(lambda: bk.commitments_plain(t), plain_reps)
     bound_ms, bound_by = b3_bound(main["packed"], main["n_shared"])
+    per_lane, longest, longest_reduce = b3_kernel_muls(main["packed"],
+                                                       main["n_shared"])
+    print(f"{B3_NAME} kernel's own work: {per_lane:.0f} field "
+          f"multiplications per lane over all its threads; the longest "
+          f"thread {longest} (a term), then {longest_reduce} (a reduction)")
     lanes = t["lanes"].shape[-1]
     seen = errs[B3_NAME]
     print(f"{B3_NAME}: {lanes} lanes, kernel {ms:.3f} ms "
           f"({lanes / ms * 1e3:.0f} sigs/s), plain {plain_ms:.1f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}); {main['launches']} "
-          f"launches on the main path; {seen['mismatches']} mismatches in "
-          f"{seen['lanes']} lanes against the plain version")
+          f"bound {bound_ms:.4f} ms ({bound_by}, {ms / bound_ms:.0f}x); "
+          f"{main['launches']} launches on the main path; "
+          f"{seen['mismatches']} mismatches in {seen['lanes']} lanes "
+          f"against the plain version")
+    lo, hi = B3_ONE_THREAD_MS
+    print(f"{B3_NAME}: the one-thread-per-signature design took {lo:.3f}-"
+          f"{hi:.3f} ms at 1024 lanes on an H100 80GB HBM3 at 700 W "
+          f"(PERF.md); this run {ms:.3f} ms ({lo / ms:.1f}-{hi / ms:.1f}x)")
     busy = main["launches"] * ms
     print(f"{B3_NAME}: device busy ~{busy:.1f} ms of the "
           f"{main['wall'] * 1e3:.1f} ms idemix wall "
@@ -823,6 +894,20 @@ def phase_b3_kernel(main: dict, errs: dict, reps: int = TIMING_REPS,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes a BN254 MSM
     }
+
+
+def phase_b3_sweep(t: dict, sizes=B3_SWEEP, reps: int = TIMING_REPS):
+    """B3's time against the batch size: the main path's lanes, cut or
+    repeated to each size (the same issuer key and terms)."""
+    n = t["lanes"].shape[-1]
+    for size in sizes:
+        copies = -(-size // n)
+        sub = {k: v if k in ("termmeta", "comb_xy", "comb_inf") else
+               torch.cat([v] * copies, dim=-1)[..., :size].contiguous()
+               for k, v in t.items()}
+        ms = cuda_ms(lambda sub=sub: bk.commitments(sub), reps)
+        print(f"{B3_NAME} lanes sweep: {size} lanes, kernel {ms:.3f} ms "
+              f"({size / ms * 1e3:.0f} sigs/s)")
 
 
 def main() -> int:
@@ -865,6 +950,7 @@ def main() -> int:
     main_b3 = phase_idemix_main(world, device)
     phase_crossover(world, device)
     rows.append(phase_b3_kernel(main_b3, errs))
+    phase_b3_sweep(main_b3["tensors"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,10 +10,11 @@ MSMs: y1^(-c) = a_bar^(-c) b_prime^c, y2^(-c) = G1^c prod h_attrs[i]^(c m_i)):
          . b_prime^{z_neg_r3}         s_i = c m_i (disclosed) | z_mi (hidden)
   T3 = nym^{-c} . h_sk^{z_sk} . h_rand^{z_r_nym}
 
-One launch of the hand-written ladder (`bn254_kernel.commitments`)
-computes every signature's three MSMs; the Jacobian results are
-normalised on the host with one batched inversion.  There is no other
-engine and no fallback: a device error propagates.  The TPU's bucket
+One call of the hand-written kernel (`bn254_kernel.commitments`)
+computes every signature's three MSMs, the shared bases through a
+fixed-base comb built once per issuer key (`shared_comb`); the Jacobian
+results are normalised on the host with one batched inversion.  There is
+no other engine and no fallback: a device error propagates.  The TPU's bucket
 padding is gone (a CUDA kernel masks its own ragged edge); batches above
 `MAX_LANES` go in chunks.
 """
@@ -36,19 +37,82 @@ MAX_LANES = 1024
 LANE_BASES = ("a_prime", "a_bar", "b_prime", "nym")
 
 
-@functools.lru_cache(maxsize=8)
-def shared_multiples(ipk_key: tuple) -> tuple:
-    """k P for k in 0..15 per shared base (None = infinity); ipk_key is
-    the hashable ((x, y), ...) tuple of (G1, h_sk, h_rand, *h_attrs)."""
-    return tuple(
-        tuple(bn.g1_mul(pt, k) if k else None for k in range(TABLE))
-        for pt in ipk_key
-    )
+def _jac_dbl(p):
+    """Jacobian doubling over Python ints (a = 0); None is infinity."""
+    if p is None:
+        return None
+    x, y, z = p
+    if y == 0:
+        return None
+    a, b = x * x % bn.P, y * y % bn.P
+    c = b * b % bn.P
+    d = 2 * ((x + b) ** 2 - a - c) % bn.P
+    e = 3 * a % bn.P
+    x3 = (e * e - 2 * d) % bn.P
+    return (x3, (e * (d - x3) - 8 * c) % bn.P, 2 * y * z % bn.P)
+
+
+def _jac_add(p, q):
+    """Jacobian addition over Python ints, with the doubling and the
+    opposite-point cases; None is infinity."""
+    if p is None:
+        return q
+    if q is None:
+        return p
+    (x1, y1, z1), (x2, y2, z2) = p, q
+    z1z1, z2z2 = z1 * z1 % bn.P, z2 * z2 % bn.P
+    u1, u2 = x1 * z2z2 % bn.P, x2 * z1z1 % bn.P
+    s1, s2 = y1 * z2 * z2z2 % bn.P, y2 * z1 * z1z1 % bn.P
+    h, r = (u2 - u1) % bn.P, (s2 - s1) % bn.P
+    if h == 0:
+        return _jac_dbl(p) if r == 0 else None
+    hh = h * h % bn.P
+    hhh = h * hh % bn.P
+    v = u1 * hh % bn.P
+    x3 = (r * r - hhh - 2 * v) % bn.P
+    return (x3, (r * (v - x3) - s1 * hhh) % bn.P, z1 * z2 * h % bn.P)
+
+
+def comb_multiples(points: tuple) -> tuple:
+    """The fixed-base comb of affine points (None = infinity): per point,
+    per window k < 64, the 16 multiples d 16^k P (d < 16) as affine int
+    points or None.  Built in Jacobian coordinates (16^k P by 4 doublings
+    a window, d 16^k P by a chain of adds) and made affine with one
+    batched inversion."""
+    jac = []
+    for pt in points:
+        base = None if pt is None else (pt[0], pt[1], 1)
+        for _ in range(bn254_kernel.NWINDOWS):
+            row = [None, base]
+            for _ in range(2, TABLE):
+                row.append(_jac_add(row[-1], base))
+            jac.append(row)
+            for _ in range(4):
+                base = _jac_dbl(base)
+    finite = [q for row in jac for q in row if q is not None]
+    invs = iter(batch_inverse([q[2] for q in finite], bn.P))
+    rows = []
+    for row in jac:
+        out = []
+        for q in row:
+            if q is None:
+                out.append(None)
+                continue
+            zi = next(invs)
+            zi2 = zi * zi % bn.P
+            out.append((q[0] * zi2 % bn.P, q[1] * zi2 * zi % bn.P))
+        rows.append(tuple(out))
+    return tuple(rows)
 
 
 @functools.lru_cache(maxsize=8)
-def _shared_table(ipk_key: tuple) -> dict:
-    return bn254_kernel.shared_table(shared_multiples(ipk_key))
+def shared_comb(ipk_key: tuple) -> dict:
+    """The kernel's comb of the shared bases, once per issuer key:
+    `bn254_kernel.shared_table` of `comb_multiples`, (1024 S, 16) words
+    and (1024 S,) flags on the host (uploaded with each batch).  ipk_key
+    is the hashable ((x, y), ...) tuple of (G1, h_sk, h_rand,
+    *h_attrs)."""
+    return bn254_kernel.shared_table(comb_multiples(ipk_key))
 
 
 def shared_points(ipk) -> tuple:
@@ -178,7 +242,7 @@ def schnorr_commitments_batch(sigs, ipk, device="cuda",
     pts_l, scalars_l, ok = prepare_sigs(sigs, n_attrs)
     packed = bn254_kernel.pack(pts_l, scalars_l, ok, term_table, term_acc)
     t = bn254_kernel.upload(
-        packed, _shared_table(shared_points(ipk)), torch.device(device)
+        packed, shared_comb(shared_points(ipk)), torch.device(device)
     )
     jac = bn254_kernel.unpack(bn254_kernel.commitments(t))
     return to_affine(jac, ok)
@@ -200,7 +264,8 @@ def batch_inverse(vals: list[int], m: int) -> list[int]:
 __all__ = [
     "LANE_BASES",
     "MAX_LANES",
-    "shared_multiples",
+    "comb_multiples",
+    "shared_comb",
     "shared_points",
     "term_layout",
     "prepare_sigs",

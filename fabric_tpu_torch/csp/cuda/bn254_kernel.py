@@ -1,13 +1,16 @@
 """Batched idemix Schnorr commitments on BN254 G1: host packing, the plain
 PyTorch version, and the wrapper that launches the CUDA kernel.
 
-Counterpart of `fabric_tpu/csp/tpu/pallas_bn254.py`.  Per lane the ladder
+Counterpart of `fabric_tpu/csp/tpu/pallas_bn254.py`.  Per lane it
 computes T1, T2, T3 as three multi-scalar multiplications over 4 per-lane
 bases (a', a_bar, b', nym) and the issuer key's shared bases (G1, h_sk,
 h_rand, h_attrs), with a term layout of [table, accumulator] pairs (see
-`bn254_batch.term_layout`).  The packed layout is the JAX package's,
-with field elements in Montgomery form at R = 2^256 (the kernel's)
-instead of R = 2^272:
+`bn254_batch.term_layout`): each term's scalar multiple s_t B_t as a
+partial (a fixed-base comb for a shared base, a variable-base ladder for
+a lane base), then each accumulator's partials added in term order.  The
+packed layout is the JAX package's, with field elements in Montgomery
+form at R = 2^256 (the kernel's) instead of R = 2^272, and the shared
+bases as combs instead of 16-entry tables:
 
   lanes    (64, B)  base b's x words at rows 16 b .. 16 b + 7, y at
                     16 b + 8 .. 16 b + 15, 32-bit words, least significant
@@ -16,13 +19,17 @@ instead of R = 2^272:
   digits   (8 T, B) term t's 64 MSB-first 4-bit digits, 8 per word
   termmeta (T, 2)   [table, accumulator]; tables 0 .. S - 1 shared,
                     S .. S + 3 the lane bases
-  shared_xy (16 S, 16) affine x then y words of the shared window tables
-  shared_inf (16 S,)   1 where a shared entry is infinity
+  comb_xy  (1024 S, 16) affine x then y words of d 16^k B_s at row
+                    1024 s + 16 k + d (`shared_table` of
+                    `bn254_batch.comb_multiples`)
+  comb_inf (1024 S,)    1 where a comb entry is infinity
 
 On the device every word array is int32 (the bits are the same).  The
-output is (75, B) int32: rows 8 (3 k + a) .. + 7 hold the canonical
-Montgomery words of coordinate k (x, y, z) of accumulator a (zeros for a
-point at infinity), rows 72..74 the infinity flags.
+per-term partials are (25 T, B) int32: rows 25 t + 8 c .. + 7 the
+canonical Montgomery words of coordinate c (x, y, z) of term t's partial
+(zeros at infinity), row 25 t + 24 its infinity flag.  The output is
+(75, B) int32: rows 8 (3 k + a) .. + 7 hold the canonical words of
+coordinate k of accumulator a, rows 72..74 the infinity flags.
 
 `commitments` launches `bn254_commitments` from `csrc/bn254_commit.cu`
 (replacing `pallas_bn254._make_kernel`) for CUDA tensors and runs
@@ -48,10 +55,15 @@ N_LANE_BASES = 4  # a', a_bar, b', nym
 N_ACCS = 3  # T1, T2, T3
 OUT_ROWS = 9 * 8 + N_ACCS
 INF_ROW = 9 * 8
+PART_ROWS = 3 * 8 + 1  # x, y, z words and the flag of one term's partial
+COMB_ENTRIES = NWINDOWS * TABLE  # comb rows of one shared base
 
-# Kernel launches by the wrapper (plain-version calls on CPU tensors do
-# not count).
+# Launches by the wrapper: `launches_bn254` counts `commitments` calls
+# that launched, `kernel_launches_bn254` the CUDA kernels they launched
+# (the term phase and the reduction).  Plain-version calls on CPU tensors
+# do not count.
 launches_bn254 = 0
+kernel_launches_bn254 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,13 +104,14 @@ def digits_from_ints(vals) -> np.ndarray:
     )
 
 
-def shared_table(multiples) -> dict:
-    """The shared window tables from `bn254_batch.shared_multiples`
-    (per shared base, the 16 multiples 0..15 as affine int points, None
-    for infinity): {"xy": (16 S, 16) uint32 Montgomery words of x then y,
-    "inf": (16 S,) uint32}."""
+def shared_table(rows) -> dict:
+    """Rows of 16 affine int points (None for infinity) -> {"xy": (16 N,
+    16) uint32 Montgomery words of x then y, "inf": (16 N,) uint32}, row
+    by row.  The rows of `bn254_batch.comb_multiples` (per shared base,
+    its 64 windows) give the kernel's comb; its window 0, the multiples
+    0..15 of each base, is the JAX package's 16-entry shared table."""
     xs, ys, infs = [], [], []
-    for row in multiples:
+    for row in rows:
         for q in row:
             xs.append(0 if q is None else fp254.to_mont(q[0]))
             ys.append(0 if q is None else fp254.to_mont(q[1]))
@@ -157,11 +170,12 @@ def pack(lane_pts, scalars, ok, term_table, term_acc,
     }
 
 
-def upload(packed: dict, shared: dict, device) -> dict:
-    """A packed numpy dict and a `shared_table` -> the kernel's int32
-    tensors on `device` (through pinned memory with non_blocking copies
-    for a CUDA device).  Term metadata out of range raises here."""
-    n_shared = shared["inf"].shape[0] // TABLE
+def upload(packed: dict, comb: dict, device) -> dict:
+    """A packed numpy dict and the shared bases' comb
+    (`bn254_batch.shared_comb`) -> the kernel's int32 tensors on `device`
+    (through pinned memory with non_blocking copies for a CUDA device).
+    Term metadata out of range raises here."""
+    n_shared = comb["inf"].shape[0] // COMB_ENTRIES
     meta = np.asarray(packed["termmeta"])
     if meta.size and (
         meta[:, 0].min() < 0 or meta[:, 0].max() >= n_shared + N_LANE_BASES
@@ -174,8 +188,8 @@ def upload(packed: dict, shared: dict, device) -> dict:
         "laneinf": packed["laneinf"],
         "digits": packed["digits"],
         "termmeta": meta,
-        "shared_xy": shared["xy"],
-        "shared_inf": shared["inf"],
+        "comb_xy": comb["xy"],
+        "comb_inf": comb["inf"],
     }
     out = {}
     for k, v in host.items():
@@ -219,78 +233,131 @@ def _digits(words: torch.Tensor, n_terms: int) -> torch.Tensor:
     return d.reshape(n_terms, NWINDOWS, -1)
 
 
-def commitments_plain(t: dict) -> torch.Tensor:
-    """The ladder of `pallas_bn254._make_kernel` in plain PyTorch, on the
-    device of the tensors: (75, B) int32, word for word the kernel's.
-
-    Per lane: four 16-entry Jacobian window tables by a 14-step mixed-add
-    chain, then 64 MSB-first windows of 4 doublings of the 3
-    accumulators followed by the term adds in the order of `termmeta`,
-    then canonical Montgomery words.  The accumulators are stacked on a
-    leading axis: the doublings run once for all three, and each round of
-    term adds takes the next term of every accumulator at once (terms of
-    different accumulators commute).  Every term is a full add, against
-    z = 1 for a shared base, which gives the same coordinates mod p as the
-    kernel's mixed add."""
-    dev = t["lanes"].device
-    fp = FpBN254(dev)
-    n = t["lanes"].shape[-1]
-    n_shared = t["shared_inf"].shape[0] // TABLE
-    meta = t["termmeta"].cpu().tolist()
-    n_terms = len(meta)
-
-    lw = t["lanes"].reshape(N_LANE_BASES, 2, 8, n)
-    px = fp.from_words(lw[:, 0].transpose(0, 1))  # (4, B, 16)
-    py = fp.from_words(lw[:, 1].transpose(0, 1))
-    pinf = t["laneinf"] != 0
-    ltab = ec.lane_window_table(fp, px, py, pinf)  # (4, B, 16, 16) ...
-    sxy = t["shared_xy"].reshape(n_shared, TABLE, 2, 8)
-    sx = fp.from_words(sxy[:, :, 0].permute(2, 0, 1))  # (S, 16, 16)
-    sy = fp.from_words(sxy[:, :, 1].permute(2, 0, 1))
-    sinf = t["shared_inf"].reshape(n_shared, TABLE) != 0
-    digits = _digits(t["digits"], n_terms)
-    lanes = torch.arange(n, device=dev)
-
-    order: list[list[int]] = [[] for _ in range(N_ACCS)]
+def _check_meta(meta: list, n_shared: int) -> None:
     for i, (tab, a) in enumerate(meta):
         if not (0 <= tab < n_shared + N_LANE_BASES and 0 <= a < N_ACCS):
             raise ValueError(f"term {i} out of range: {(tab, a)}")
+
+
+def _canonical_rows(fp: FpBN254, pt) -> torch.Tensor:
+    """Points (x, y, z (..., B, 16), inf (..., B)) -> (..., 25, B) int32:
+    canonical words of x, y, z (zeros at infinity), then the flag."""
+    x, y, z, inf = pt
+    coords = torch.stack([x, y, z], dim=-3)  # (..., 3, B, 16)
+    coords = torch.where(inf[..., None, :, None], 0, fp.canon(coords))
+    words = fp.to_words(coords)  # (8, ..., 3, B)
+    words = words.movedim(0, -2).flatten(-3, -2)  # (..., 24, B)
+    return torch.cat([words, inf[..., None, :].to(torch.int32)], dim=-2)
+
+
+def term_partials_plain(t: dict) -> torch.Tensor:
+    """Each term's partial s_t B_t for every lane, in plain PyTorch on the
+    device of the tensors: (25 T, B) int32, word for word the kernel's
+    scratch (`term_lane` of `csrc/bn254_commit.cuh`).
+
+    Shared-base terms: 64 MSB-first windows, each a mixed add of comb
+    entry d 16^(63 - w) B, starting at infinity, no doublings.  Lane-base
+    terms: the base's 16-entry Jacobian table by a 14-step mixed-add
+    chain, then 64 MSB-first windows of 4 doublings and a full add of
+    entry d.  The terms of each kind are stacked on a leading axis and
+    take each step at once."""
+    dev = t["lanes"].device
+    fp = FpBN254(dev)
+    n = t["lanes"].shape[-1]
+    n_shared = t["comb_inf"].shape[0] // COMB_ENTRIES
+    meta = t["termmeta"].cpu().tolist()
+    _check_meta(meta, n_shared)
+    n_terms = len(meta)
+    digits = _digits(t["digits"], n_terms)  # (T, 64, B)
+    lanes = torch.arange(n, device=dev)
+    part = torch.empty((n_terms, PART_ROWS, n), dtype=torch.int32,
+                       device=dev)
+
+    def at_inf(k: int):
+        zero = torch.zeros((k, n, fp254.NLIMBS), dtype=torch.int64,
+                           device=dev)
+        return (zero, zero, zero,
+                torch.ones((k, n), dtype=torch.bool, device=dev))
+
+    comb_terms = [i for i, (tab, _) in enumerate(meta) if tab < n_shared]
+    if comb_terms:
+        cw = t["comb_xy"].reshape(n_shared, NWINDOWS, TABLE, 2, 8)
+        # (S, 64, 16, 16): base, window, digit, limb
+        cx = fp.from_words(cw[:, :, :, 0].permute(3, 0, 1, 2))
+        cy = fp.from_words(cw[:, :, :, 1].permute(3, 0, 1, 2))
+        cinf = t["comb_inf"].reshape(n_shared, NWINDOWS, TABLE) != 0
+        base = torch.tensor([meta[i][0] for i in comb_terms],
+                            device=dev)[:, None]
+        d = digits[comb_terms]  # (k, 64, B)
+        acc = at_inf(len(comb_terms))
+        for w in range(NWINDOWS):
+            e = (base, NWINDOWS - 1 - w, d[:, w])
+            acc = ec.add_mixed(fp, acc, (cx[e], cy[e], cinf[e]))
+        part[comb_terms] = _canonical_rows(fp, acc)
+
+    ladder_terms = [i for i in range(n_terms) if i not in comb_terms]
+    if ladder_terms:
+        lw = t["lanes"].reshape(N_LANE_BASES, 2, 8, n)
+        px = fp.from_words(lw[:, 0].transpose(0, 1))  # (4, B, 16)
+        py = fp.from_words(lw[:, 1].transpose(0, 1))
+        ltab = ec.lane_window_table(fp, px, py, t["laneinf"] != 0)
+        b = torch.tensor([meta[i][0] - n_shared for i in ladder_terms],
+                         device=dev)[:, None]
+        d = digits[ladder_terms]
+        acc = at_inf(len(ladder_terms))
+        for w in range(NWINDOWS):
+            for _ in range(4):
+                acc = ec.dbl(fp, acc)
+            acc = ec.add_full(fp, acc,
+                              tuple(c[b, lanes, d[:, w]] for c in ltab))
+        part[ladder_terms] = _canonical_rows(fp, acc)
+    return part.reshape(n_terms * PART_ROWS, n)
+
+
+def reduce_plain(part: torch.Tensor, termmeta: torch.Tensor) -> torch.Tensor:
+    """Each accumulator's sum of its terms' partials (`part` as
+    `term_partials_plain` returns it), added in term order by the full
+    add from infinity: (75, B) int32, word for word the kernel's
+    (`reduce_lane`).  The accumulators are stacked on a leading axis;
+    round r adds the r-th term of each at once."""
+    dev = part.device
+    fp = FpBN254(dev)
+    n = part.shape[-1]
+    meta = termmeta.cpu().tolist()
+    rows = part.reshape(len(meta), PART_ROWS, n)
+    coords = [fp.from_words(rows[:, 8 * c:8 * c + 8].transpose(0, 1))
+              for c in range(3)]  # (T, B, 16) each
+    pinf = rows[:, 24] != 0
+    order: list[list[int]] = [[] for _ in range(N_ACCS)]
+    for i, (_, a) in enumerate(meta):
+        if not 0 <= a < N_ACCS:
+            raise ValueError(f"term {i} out of range: {tuple(meta[i])}")
         order[a].append(i)
     zero = torch.zeros((n, fp254.NLIMBS), dtype=torch.int64, device=dev)
-    one = fp.one(zero)
     at_inf = torch.ones(n, dtype=torch.bool, device=dev)
     acc = (torch.zeros((N_ACCS, n, fp254.NLIMBS), dtype=torch.int64,
                        device=dev),) * 3 + (
         torch.ones((N_ACCS, n), dtype=torch.bool, device=dev),)
-
-    def term_point(i: int, w: int):
-        tab = meta[i][0]
-        d = digits[i, w]
-        if tab < n_shared:
-            return (sx[tab][d], sy[tab][d], one, sinf[tab][d])
-        b = tab - n_shared
-        return tuple(c[b, lanes, d] for c in ltab)
-
-    for w in range(NWINDOWS):
-        for _ in range(4):
-            acc = ec.dbl(fp, acc)
-        for r in range(max(len(o) for o in order)):
-            qs = [term_point(o[r], w) if r < len(o)
-                  else (zero, zero, zero, at_inf) for o in order]
-            acc = ec.add_full(
-                fp, acc, tuple(torch.stack([q[k] for q in qs])
-                               for k in range(4))
-            )
-
-    x, y, z, inf = acc
-    coords = torch.stack([x, y, z])  # (3 coords, 3 accs, B, 16)
-    coords = torch.where(inf[None, :, :, None], 0, fp.canon(coords))
+    for r in range(max(len(o) for o in order)):
+        qs = [(coords[0][o[r]], coords[1][o[r]], coords[2][o[r]], pinf[o[r]])
+              if r < len(o) else (zero, zero, zero, at_inf) for o in order]
+        acc = ec.add_full(fp, acc, tuple(torch.stack([q[k] for q in qs])
+                                         for k in range(4)))
+    rows = _canonical_rows(fp, acc)  # (3 accs, 25, B)
     out = torch.empty((OUT_ROWS, n), dtype=torch.int32, device=dev)
-    # (8, 3, 3, B) words -> rows 8 (3 k + a) + word
-    out[:INF_ROW] = fp.to_words(coords).permute(1, 2, 0, 3).reshape(
-        INF_ROW, n)
-    out[INF_ROW:] = inf.to(torch.int32)
+    # (accumulator a, coordinate k, word) -> row 8 (3 k + a) + word
+    out[:INF_ROW] = rows[:, :24].reshape(N_ACCS, 3, 8, n).transpose(
+        0, 1).reshape(INF_ROW, n)
+    out[INF_ROW:] = rows[:, 24]
     return out
+
+
+def commitments_plain(t: dict) -> torch.Tensor:
+    """The kernel in plain PyTorch, on the device of the tensors: (75, B)
+    int32, word for word the kernel's -- the term partials, then their
+    sums.  Every value agrees with the kernel's mod p, so every branch
+    and every canonical word does too."""
+    return reduce_plain(term_partials_plain(t), t["termmeta"])
 
 
 # ---------------------------------------------------------------------------
@@ -302,14 +369,14 @@ def _check(t: dict, device: torch.device) -> tuple[int, int, int]:
     """Validate what the kernel reads; returns (n_terms, n_shared, B)."""
     n = t["lanes"].shape[-1]
     n_terms = t["termmeta"].shape[0]
-    n_shared = t["shared_inf"].shape[0] // TABLE
+    n_shared = t["comb_inf"].shape[0] // COMB_ENTRIES
     shapes = {
         "lanes": (16 * N_LANE_BASES, n),
         "laneinf": (N_LANE_BASES, n),
         "digits": (8 * n_terms, n),
         "termmeta": (n_terms, 2),
-        "shared_xy": (TABLE * n_shared, 16),
-        "shared_inf": (TABLE * n_shared,),
+        "comb_xy": (COMB_ENTRIES * n_shared, 16),
+        "comb_inf": (COMB_ENTRIES * n_shared,),
     }
     for k, shape in shapes.items():
         v = t[k]
@@ -325,10 +392,11 @@ def _check(t: dict, device: torch.device) -> tuple[int, int, int]:
 def commitments(t: dict) -> torch.Tensor:
     """(75, B) int32 commitments for the tensors `t` (see `upload`).
 
-    CUDA tensors launch the hand-written kernel on the current stream and
+    CUDA tensors launch the hand-written kernel's two phases on the
+    current stream, with the term partials in a scratch tensor, and
     return without synchronising; CPU tensors run `commitments_plain`.  A
     launch error raises."""
-    global launches_bn254
+    global launches_bn254, kernel_launches_bn254
     dev = t["lanes"].device
     if dev.type == "cpu":
         return commitments_plain(t)
@@ -341,17 +409,20 @@ def commitments(t: dict) -> torch.Tensor:
     out = torch.empty((OUT_ROWS, n), dtype=torch.int32, device=dev)
     if n == 0:
         return out
+    part = torch.empty((PART_ROWS * n_terms, n), dtype=torch.int32,
+                       device=dev)
     ptr = ctypes.c_void_p
     rc = lib.bn254_commitments(
         ptr(t["lanes"].data_ptr()), ptr(t["laneinf"].data_ptr()),
         ptr(t["digits"].data_ptr()), ptr(t["termmeta"].data_ptr()),
         ctypes.c_int(n_terms),
-        ptr(t["shared_xy"].data_ptr()), ptr(t["shared_inf"].data_ptr()),
-        ctypes.c_int(n_shared),
+        ptr(t["comb_xy"].data_ptr()), ptr(t["comb_inf"].data_ptr()),
+        ctypes.c_int(n_shared), ptr(part.data_ptr()),
         ptr(out.data_ptr()), ctypes.c_int(n),
         ptr(torch.cuda.current_stream(dev).cuda_stream),
     )
     launches_bn254 += 1
+    kernel_launches_bn254 += 2 if n_terms else 1
     if rc != 0:
         raise RuntimeError(
             f"bn254 commitments kernel launch failed: CUDA error {rc} "
@@ -369,6 +440,8 @@ __all__ = [
     "pack",
     "upload",
     "unpack",
+    "term_partials_plain",
+    "reduce_plain",
     "commitments_plain",
     "commitments",
 ]

@@ -49,7 +49,8 @@ _SIGNATURES = {
     },
     "bn254_commit": {
         "bn254_commitments": (
-            [_VOID] * 4 + [_INT] + [_VOID] * 2 + [_INT, _VOID, _INT, _VOID],
+            [_VOID] * 4 + [_INT] + [_VOID] * 2 + [_INT] + [_VOID] * 2
+            + [_INT, _VOID],
             _INT,
         ),
         "bn254_error_string": ([_INT], ctypes.c_char_p),

@@ -72,7 +72,8 @@ def _jax_mont_to_port(limbs) -> int:
 
 def bn254_shared_from_jax(sx, sy, sz, sinf) -> dict:
     """`pallas_bn254._shared_limbs(...)` ((16 S, 17) limb arrays x, y, z
-    and (16 S, 1) inf) -> the port's `bn254_kernel.shared_table` dict.
+    and (16 S, 1) inf) -> the port's `bn254_kernel.shared_table` dict,
+    which is window 0 of the port's comb (`bn254_batch.shared_comb`).
     The port's tables are affine: z must be the JAX Montgomery 1 on every
     finite entry."""
     inf = np.asarray(sinf).reshape(-1).astype(np.uint32)

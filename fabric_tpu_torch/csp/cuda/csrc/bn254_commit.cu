@@ -1,34 +1,54 @@
 // Batched idemix Schnorr commitments on Hopper (sm_90a): per signature the
 // three G1 multi-scalar multiplications T1, T2, T3 on BN254, one thread per
-// signature.
+// (signature, term), then one per (signature, accumulator).
 //
 // Replaces the Pallas TPU kernel fabric_tpu/csp/tpu/pallas_bn254.py
 // `_make_kernel(n_terms, n_tables)` (launched by `_build_call`, driven by
-// `commitments`).  The lane body is commit_lane of bn254_commit.cuh.
+// `commitments`).  The thread bodies are term_lane and reduce_lane of
+// bn254_commit.cuh.
 //
-// What bounds it: integer multiply-add throughput.  At 4 attributes
-// (15 terms, 11 tables) a signature costs at most 18,152 field
-// multiplications: 4 x 14 table mixed adds of 11 (616), then per window 12
-// doublings of 7, 10 shared-base mixed adds of 11 and 5 lane-base full
-// adds of 16 (274), over 64 windows (fewer where a digit is 0 or an
-// accumulator is still infinity).  A CIOS multiplication is 64 32x32->64-bit
-// multiply-adds for the product and 72 for the reduction.  The bytes moved
-// are about 1 KB per signature.  The work is one long dependent chain per
-// signature, with no shape for tensor cores.
+// What bounds it: the latency of one lane-base term's dependent chain.
+// Each term is its own thread, so the kernel takes as long as its longest
+// thread: a lane-base term's variable-base ladder, ~3,000 dependent field
+// multiplications (its table's 14 mixed adds of 11, then 64 windows of 4
+// doublings of 7 and one full add of 16), each a CIOS product of 64
+// 32x32-bit multiply-adds and 72 for the reduction.  The card runs about
+// one such warp per scheduler, so the latency of every instruction of the
+// chain shows; a shared-base term's comb (64 mixed adds, ~700
+// multiplications) and the reduction (at most a few full adds) hide under
+// it.  The bytes moved are ~1 KB per signature plus the comb tables.
 //
-// What the design does about it: a field element is 8 32-bit words in
-// Montgomery form at R = 2^256 with CIOS multiplication (the TPU's 17
-// 16-bit limbs and R = 2^272 existed only because its vector unit has no
-// 32x32->64 multiply); BN254's p < 2^254 leaves room to keep operands
-// lazily in [0, 2p) with no final subtraction per product and one
-// conditional correction per add or sub.  The shared-base tables (affine,
-// the same for every lane, n_shared x 16 x 64 B, 7 KB at 4 attributes) sit
-// in shared memory, loaded once per block, and their terms take the mixed
-// add (11 multiplications instead of 16).  The four per-lane Jacobian
-// tables (6 KB per thread) sit in local memory, which L2 holds at the
-// batch sizes of the main path.  Window selection is an indexed load, not
-// the TPU's one-hot sums.  Blocks are one warp, so that the 32 warps of a
-// 1024-signature batch spread over the SMs; filling each SM is later work.
+// What the design does about it:
+//  1. Term-parallel MSMs.  term_kernel gives each (signature, term) its own
+//     thread, which computes the term's scalar multiple s_t B_t as a
+//     Jacobian partial into a scratch buffer (canonical words);
+//     reduce_kernel then gives each (signature, accumulator) a thread that
+//     adds its terms' partials in termmeta order with the full add
+//     (add-2007-bl: equal partials double, opposite ones cancel, an
+//     infinity partial passes the other through).
+//  2. Fixed-base combs for the shared bases (G1, h_sk, h_rand, h_attrs),
+//     which depend only on the issuer key: d 16^k B for d < 16 and each of
+//     the 64 windows k, affine Montgomery words built once per issuer key
+//     on the host (bn254_batch.shared_comb) and uploaded with each batch,
+//     n_shared x 64 KB (448 KB at 4 attributes) in device memory, which the
+//     50 MB L2 holds.  A shared-base term is then 64 mixed adds and no
+//     doublings.
+//  3. Lane-base terms keep the variable-base ladder; its 16-entry Jacobian
+//     table (1.5 KB a thread) sits in local memory, read once a window.
+//     Shared memory would be reserved for every block of the launch, comb
+//     blocks included, and cap how many are resident for a read that is a
+//     few hundred cycles of a window's tens of thousands.
+//  4. No warp runs both programs: a block is 4 warps of 32 consecutive
+//     signatures of one term (blockIdx.y), with lane-base terms ranked
+//     first so that their blocks come first in the grid and spread one to
+//     an SM; a warp reads consecutive lanes of `digits` and `lanes`.  At
+//     1024 signatures and 15 terms that is 120 blocks of 4 warps for the
+//     132 SMs, 40 of them of ladders.
+//  5. The device field arithmetic is PTX carry chains (mad.lo.cc /
+//     madc.hi.cc / add.cc / addc / sub.cc / subc) on 8 32-bit words in
+//     Montgomery form at R = 2^256, kept lazily in [0, 2p): BN254's
+//     p < 2^254 leaves room for no final subtraction per product and one
+//     conditional correction per add or sub.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,61 +56,76 @@
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kThreads = 128;
+
+// The term of rank r: lane-base terms first, then the rest, each in
+// termmeta order.
+__device__ int term_of_rank(const int32_t* termmeta, int n_terms,
+                            int n_shared, int r) {
+  int k = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int t = 0; t < n_terms; ++t) {
+      const int tab = termmeta[2 * t];
+      const bool lane_base =
+          tab >= n_shared && tab < n_shared + bn254::kLaneBases;
+      if (lane_base == (pass == 0) && k++ == r) return t;
+    }
+  }
+  return -1;
+}
 
 __global__ void __launch_bounds__(kThreads)
-    commit_kernel(const uint32_t* __restrict__ lanes,
-                  const uint32_t* __restrict__ laneinf,
-                  const uint32_t* __restrict__ digits,
-                  const int32_t* __restrict__ termmeta, int n_terms,
-                  const uint32_t* __restrict__ shared_xy,
-                  const uint32_t* __restrict__ shared_inf, int n_shared,
-                  uint32_t* __restrict__ out, int n) {
-  extern __shared__ uint32_t smem[];
-  const int entries = bn254::kTable * n_shared;
-  uint32_t* sxy = smem;
-  uint32_t* sinf = smem + bn254::kSharedWords * entries;
-  for (int i = threadIdx.x; i < bn254::kSharedWords * entries;
-       i += blockDim.x) {
-    sxy[i] = shared_xy[i];
-  }
-  for (int i = threadIdx.x; i < entries; i += blockDim.x) {
-    sinf[i] = shared_inf[i];
-  }
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    term_kernel(const uint32_t* __restrict__ lanes,
+                const uint32_t* __restrict__ laneinf,
+                const uint32_t* __restrict__ digits,
+                const int32_t* __restrict__ termmeta, int n_terms,
+                const uint32_t* __restrict__ comb_xy,
+                const uint32_t* __restrict__ comb_inf, int n_shared,
+                uint32_t* __restrict__ part, int n) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
   if (lane >= n) return;
-  bn254::commit_lane(lanes, laneinf, digits, termmeta, n_terms, sxy, sinf,
-                     n_shared, out, n, lane);
+  const int t = term_of_rank(termmeta, n_terms, n_shared, blockIdx.y);
+  bn254::term_lane(lanes, laneinf, digits, termmeta, comb_xy, comb_inf,
+                   n_shared, part, n, lane, t);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    reduce_kernel(const uint32_t* __restrict__ part,
+                  const int32_t* __restrict__ termmeta, int n_terms,
+                  uint32_t* __restrict__ out, int n) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= n) return;
+  bn254::reduce_lane(part, termmeta, n_terms, out, n, lane, blockIdx.y);
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes).  lanes is (64, n), laneinf (4, n),
-// digits (8 n_terms, n), termmeta (n_terms, 2) int32, shared_xy
-// (16 n_shared, 16), shared_inf (16 n_shared), out (bn254::kOutRows, n);
-// lanes on the last axis.  Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError().
+// digits (8 n_terms, n), termmeta (n_terms, 2) int32, comb_xy
+// (1024 n_shared, 16), comb_inf (1024 n_shared), part (25 n_terms, n)
+// scratch, out (bn254::kOutRows, n); lanes on the last axis.  Launches
+// term_kernel (when there are terms) and then reduce_kernel on `stream`,
+// does not synchronise, and returns cudaGetLastError().
 extern "C" int bn254_commitments(const void* lanes, const void* laneinf,
                                  const void* digits, const void* termmeta,
-                                 int n_terms, const void* shared_xy,
-                                 const void* shared_inf, int n_shared,
-                                 void* out, int n_lanes, void* stream) {
+                                 int n_terms, const void* comb_xy,
+                                 const void* comb_inf, int n_shared,
+                                 void* part, void* out, int n_lanes,
+                                 void* stream) {
   if (n_lanes > 0) {
-    const size_t smem = sizeof(uint32_t) * bn254::kTable * n_shared *
-                        (bn254::kSharedWords + 1);
-    if (smem > kDefaultSmem) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+    const unsigned blocks = (unsigned)((n_lanes + kThreads - 1) / kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n_terms > 0) {
+      term_kernel<<<dim3(blocks, (unsigned)n_terms), kThreads, 0, s>>>(
+          (const uint32_t*)lanes, (const uint32_t*)laneinf,
+          (const uint32_t*)digits, (const int32_t*)termmeta, n_terms,
+          (const uint32_t*)comb_xy, (const uint32_t*)comb_inf, n_shared,
+          (uint32_t*)part, n_lanes);
+      const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
     }
-    const int blocks = (n_lanes + kThreads - 1) / kThreads;
-    commit_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)lanes, (const uint32_t*)laneinf,
-        (const uint32_t*)digits, (const int32_t*)termmeta, n_terms,
-        (const uint32_t*)shared_xy, (const uint32_t*)shared_inf, n_shared,
+    reduce_kernel<<<dim3(blocks, (unsigned)bn254::kAccs), kThreads, 0, s>>>(
+        (const uint32_t*)part, (const int32_t*)termmeta, n_terms,
         (uint32_t*)out, n_lanes);
   }
   return (int)cudaGetLastError();

@@ -1,27 +1,56 @@
-// The arithmetic, point operations and lane body of bn254_commit.cu,
-// compiled for the host with a plain C++ compiler, so that tests on a
-// machine without a GPU can hold the kernel's code against Python ints and
-// the plain PyTorch version:
+// The arithmetic, point operations and thread bodies of bn254_commit.cu,
+// compiled for the host with a plain C++ compiler (the header's portable
+// field), so that tests on a machine without a GPU can hold the kernel's
+// code against Python ints and the plain PyTorch version:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libbn254host.so bn254_host_check.cpp
 //
-// bn254_host_commitments takes the kernel's arguments (without the stream;
-// the shared tables are read where they lie) and loops over the lanes.
+// bn254_host_terms and bn254_host_reduce run the bodies of the kernel's
+// two phases over every (term, lane) and (accumulator, lane);
+// bn254_host_commitments runs both, with the kernel's arguments (the
+// scratch buffer is its own, there is no stream).
 #include <stdint.h>
 
+#include <vector>
+
 #include "bn254_commit.cuh"
+
+extern "C" void bn254_host_terms(const uint32_t* lanes,
+                                 const uint32_t* laneinf,
+                                 const uint32_t* digits,
+                                 const int32_t* termmeta, int n_terms,
+                                 const uint32_t* comb_xy,
+                                 const uint32_t* comb_inf, int n_shared,
+                                 uint32_t* part, int n) {
+  for (int t = 0; t < n_terms; ++t) {
+    for (int lane = 0; lane < n; ++lane) {
+      bn254::term_lane(lanes, laneinf, digits, termmeta, comb_xy, comb_inf,
+                       n_shared, part, n, lane, t);
+    }
+  }
+}
+
+extern "C" void bn254_host_reduce(const uint32_t* part,
+                                  const int32_t* termmeta, int n_terms,
+                                  uint32_t* out, int n) {
+  for (int a = 0; a < bn254::kAccs; ++a) {
+    for (int lane = 0; lane < n; ++lane) {
+      bn254::reduce_lane(part, termmeta, n_terms, out, n, lane, a);
+    }
+  }
+}
 
 extern "C" void bn254_host_commitments(const uint32_t* lanes,
                                        const uint32_t* laneinf,
                                        const uint32_t* digits,
                                        const int32_t* termmeta, int n_terms,
-                                       const uint32_t* shared_xy,
-                                       const uint32_t* shared_inf,
+                                       const uint32_t* comb_xy,
+                                       const uint32_t* comb_inf,
                                        int n_shared, uint32_t* out, int n) {
-  for (int lane = 0; lane < n; ++lane) {
-    bn254::commit_lane(lanes, laneinf, digits, termmeta, n_terms, shared_xy,
-                       shared_inf, n_shared, out, n, lane);
-  }
+  std::vector<uint32_t> part((size_t)bn254::kPartRows * n_terms * n);
+  bn254_host_terms(lanes, laneinf, digits, termmeta, n_terms, comb_xy,
+                   comb_inf, n_shared, part.data(), n);
+  bn254_host_reduce(part.data(), termmeta, n_terms, out, n);
 }
 
 // Field operation op (0 add, 1 sub, 2 mul) on n pairs of 8-word operands
@@ -46,7 +75,7 @@ extern "C" void bn254_host_field(int op, const uint32_t* a,
 
 // Point operation op (0 double p1, 1 full add p1 + p2, 2 mixed add p1 +
 // affine (x2, y2)) on n pairs of points given as 25 words (x, y, z, then
-// the infinity flag); r[k] as store_point writes it, in 25 words.
+// the infinity flag); r[k] in the same 25 words, canonical.
 extern "C" void bn254_host_point(int op, const uint32_t* p1,
                                  const uint32_t* p2, uint32_t* r, int n) {
   for (int k = 0; k < n; ++k) {
@@ -67,12 +96,10 @@ extern "C" void bn254_host_point(int op, const uint32_t* p1,
     } else {
       o = bn254::jac_add_mixed(a, b.x, b.y, b.inf);
     }
-    // one point, one accumulator slot: rows 0..7 x, 8..15 y, 16..23 z, 24
-    uint32_t tmp[bn254::kOutRows];
-    bn254::store_point(tmp, 1, 0, 0, o);
-    for (int c = 0; c < 3; ++c) {
-      for (int i = 0; i < 8; ++i) r[25 * k + 8 * c + i] = tmp[24 * c + i];
-    }
-    r[25 * k + 24] = tmp[72];
+    uint32_t* row = r + 25 * k;
+    bn254::store_fe(row, 1, o.x, o.inf);
+    bn254::store_fe(row + 8, 1, o.y, o.inf);
+    bn254::store_fe(row + 16, 1, o.z, o.inf);
+    row[24] = o.inf ? 1u : 0u;
   }
 }

@@ -7,6 +7,6 @@
 - credential: credential request, issuance and verification
 - signature:  presentation proofs with selective disclosure and
               pseudonyms, single and batched verification; its
-              `verify_batch_device` runs the Schnorr ladder on the card
+              `verify_batch_device` runs the Schnorr commitments on the card
               (`fabric_tpu_torch/csp/cuda/bn254_batch.py`)
 """

@@ -15,7 +15,7 @@ yet, so every function here takes the Python path.
 Tower: Fp2 = Fp[i]/(i^2+1), Fp6 = Fp2[v]/(v^3-xi) with xi = 9+i,
 Fp12 = Fp6[w]/(w^2-v).  The Miller loop runs in affine coordinates over
 Fp12 (clarity over speed: this is the host parity oracle; the batched
-Schnorr ladder on the card lives in fabric_tpu_torch/csp/cuda/).
+Schnorr commitments on the card live in fabric_tpu_torch/csp/cuda/).
 
 Elements of Fp2/Fp6/Fp12 are nested tuples of ints; points are affine
 (x, y) tuples with None for the identity.

@@ -1,6 +1,6 @@
 """Idemix presentation signatures (reference idemix/signature.go; the
 port's copy of `fabric_tpu/idemix/signature.py`, whose
-`verify_batch_device` runs the Schnorr ladder on the CUDA card).
+`verify_batch_device` runs the Schnorr commitments on the CUDA card).
 
 A signature proves, in zero knowledge: "I hold a credential (A, B, e, s)
 from this issuer over attributes (m_1..m_L) and secret key sk; I disclose
@@ -331,8 +331,8 @@ def verify_batch_device(
     device="cuda",
 ) -> list[bool]:
     """verify_batch with the Schnorr commitment recomputation batched on
-    `device` (csp/cuda/bn254_batch.py: one launch of the hand-written
-    ladder re-derives every signature's T1/T2/T3 G1 MSMs; a CPU device
+    `device` (csp/cuda/bn254_batch.py: one call of the hand-written
+    kernel re-derives every signature's T1/T2/T3 G1 MSMs; a CPU device
     runs its plain PyTorch version); challenge re-hash and the
     RLC-collapsed pairings stay on host.  A device error propagates:
     there is no fallback to host verify."""

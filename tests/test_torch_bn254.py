@@ -1,14 +1,15 @@
-"""The PyTorch port's BN254 Schnorr ladder (fabric_tpu_torch) held against
-the JAX package, exactly.
+"""The PyTorch port's BN254 Schnorr commitments (fabric_tpu_torch) held
+against the JAX package, exactly.
 
 The same inputs go through both packages: an issuer key and signatures of
 the JAX package (native host backend), and lanes crafted from them.  The
 JAX side runs the Pallas kernel in interpret mode on the CPU, once, as
 tests/test_pallas_bn254.py does; the port runs its plain PyTorch version
-on the CPU.  Jacobian triples are not unique (the Pallas kernel adds
-shared bases with a full add at z = 1 and works at R = 2^272), so the
-two are compared at the affine level; every other case is held against
-the host oracles (`schnorr.recompute_commitments` and `bn254.g1_msm`).
+on the CPU.  Jacobian triples are not unique (the Pallas kernel runs one
+interleaved ladder at R = 2^272, the port sums per-term partials, the
+shared bases' from a fixed-base comb, at R = 2^256), so the two are
+compared at the affine level; every other case is held against the host
+oracles (`schnorr.recompute_commitments`, `bn254.g1_msm`, `g1_mul`).
 Every comparison is exact.
 """
 
@@ -215,8 +216,7 @@ def port_out(world, batch):
     _, pts, sc, ok = batch
     tt, ta = bb.term_layout(N_ATTRS)
     packed = bk.pack(pts, sc, ok, tt, ta, lanes=PAD_LANES)
-    shared = bk.shared_table(bb.shared_multiples(bb.shared_points(ipk)))
-    t = bk.upload(packed, shared, "cpu")
+    t = bk.upload(packed, bb.shared_comb(bb.shared_points(ipk)), "cpu")
     before = bk.launches_bn254
     out = bk.commitments(t)
     assert bk.launches_bn254 == before  # plain-version calls do not count
@@ -243,14 +243,47 @@ def test_prepare_sigs_matches_jax(world, batch):
 
 
 def test_shared_tables_match_jax(world):
+    """Window 0 of the port's comb, the multiples 0..15 of each shared
+    base, is the JAX package's 16-entry shared table."""
     ipk, _, _ = world
     key = bb.shared_points(ipk)
     assert key == (jbn.G1_GEN, ipk.h_sk, ipk.h_rand, *ipk.h_attrs)
     got = convert.bn254_shared_from_jax(*pallas_bn254._shared_limbs(key))
-    want = bk.shared_table(bb.shared_multiples(key))
+    comb = bb.shared_comb(key)
+    n_shared = len(key)
+    want = {
+        "xy": comb["xy"].reshape(n_shared, bk.NWINDOWS, bk.TABLE, 16)[:, 0]
+        .reshape(n_shared * bk.TABLE, 16),
+        "inf": comb["inf"].reshape(n_shared, bk.NWINDOWS, bk.TABLE)[:, 0]
+        .reshape(-1),
+    }
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_shared_comb_matches_g1_mul(world):
+    """Comb entry (s, k, d) is d 16^k B_s, in Montgomery words, on
+    sampled windows and digits of every shared base (d = 0 at
+    infinity)."""
+    ipk, _, _ = world
+    key = bb.shared_points(ipk)
+    comb = bb.shared_comb(key)
+    assert comb["xy"].shape == (len(key) * bk.COMB_ENTRIES, 16)
+    assert comb["xy"].dtype == np.uint32
+    rng = random.Random(11)
+    picks = [(s, k, d) for s in range(len(key))
+             for k, d in ((0, 1), (63, 15), (rng.randrange(64), 0),
+                          (rng.randrange(64), rng.randrange(1, 16)))]
+    for s, k, d in picks:
+        row = bk.COMB_ENTRIES * s + bk.TABLE * k + d
+        want = jbn.g1_mul(key[s], d * 16**k)
+        if want is None:
+            assert comb["inf"][row] == 1 and not comb["xy"][row].any()
+            continue
+        assert comb["inf"][row] == 0
+        got = fp254.words_to_ints(comb["xy"][row].reshape(2, 8).T)
+        assert [fp254.from_mont(v) for v in got] == list(want), (s, k, d)
 
 
 def test_plain_matches_pallas_interpret(batch, port_out, pallas_jac):
@@ -304,8 +337,9 @@ def test_plain_matches_host_oracle(world, batch, port_out):
 def test_custom_layout_matches_host_oracle(world):
     """A layout of the caller's own: T2 left empty (it stays at
     infinity), a lane base used twice, a shared base on two accumulators,
-    and a lane whose T3 doubles: its a_bar equals h_attrs[1], with the
-    same scalar, right after the h_attrs[1] term."""
+    and a lane whose T3 doubles in the reduction: its a_bar equals
+    h_attrs[1], with the same scalar, right after the h_attrs[1] term, so
+    the comb partial and the ladder partial are equal."""
     ipk, _, rng = world
     n_shared = 3 + N_ATTRS
     layout = ((0, 4, n_shared + 1, n_shared + 1, 0), (0, 2, 2, 0, 2))
@@ -321,8 +355,8 @@ def test_custom_layout_matches_host_oracle(world):
         lanes.append(pts)
         scs.append(sc)
     packed = bk.pack(lanes, scs, [True] * 3, *layout)
-    shared = bk.shared_table(bb.shared_multiples(bb.shared_points(ipk)))
-    out = bk.commitments(bk.upload(packed, shared, "cpu"))
+    comb = bb.shared_comb(bb.shared_points(ipk))
+    out = bk.commitments(bk.upload(packed, comb, "cpu"))
     got = bb.to_affine(bk.unpack(out), [True] * 3)
     for j in range(3):
         assert got[j] == _oracle(ipk, lanes[j], scs[j], layout), j
@@ -332,7 +366,7 @@ def test_custom_layout_matches_host_oracle(world):
 
 def test_upload_rejects_bad_term_metadata(world):
     ipk, _, _ = world
-    shared = bk.shared_table(bb.shared_multiples(bb.shared_points(ipk)))
+    shared = bb.shared_comb(bb.shared_points(ipk))
     packed = bk.pack([], [], [], (3 + N_ATTRS + 4,), (0,))
     with pytest.raises(ValueError, match="out of range"):
         bk.upload(packed, shared, "cpu")
@@ -343,7 +377,7 @@ def test_upload_rejects_bad_term_metadata(world):
 
 def test_wrapper_refuses_other_devices():
     t = {k: torch.zeros((8, 4), dtype=torch.int32, device="meta")
-         for k in ("lanes", "laneinf", "digits", "termmeta", "shared_xy",
-                   "shared_inf")}
+         for k in ("lanes", "laneinf", "digits", "termmeta", "comb_xy",
+                   "comb_inf")}
     with pytest.raises(ValueError, match="unsupported device"):
         bk.commitments(t)

@@ -2,7 +2,8 @@
 `cryptography` or `protobuf`; the card by default, and no silent CPU or
 build fallback.  Also the BN254 kernel's own source, compiled for the host
 by g++ (csrc/bn254_host_check.cpp), against Python ints and the plain
-PyTorch version.
+PyTorch version, and its device field's PTX carry chains, run by a small
+interpreter of the instructions they use, against Python ints.
 
 The import check runs in a subprocess: tests/conftest.py imports jax for
 the whole session.
@@ -15,6 +16,7 @@ torch = pytest.importorskip("torch")
 import ast  # noqa: E402
 import ctypes  # noqa: E402
 import random  # noqa: E402
+import re  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -246,6 +248,9 @@ def bn254_host_lib(tmp_path_factory):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bn254_host_commitments.argtypes = (
         [vp] * 4 + [i32] + [vp] * 2 + [i32, vp, i32])
+    lib.bn254_host_terms.argtypes = (
+        [vp] * 4 + [i32] + [vp] * 2 + [i32, vp, i32])
+    lib.bn254_host_reduce.argtypes = [vp, vp, i32, vp, i32]
     lib.bn254_host_field.argtypes = [i32, vp, vp, vp, i32]
     lib.bn254_host_point.argtypes = [i32, vp, vp, vp, i32]
     return lib
@@ -358,10 +363,41 @@ def test_bn254_kernel_points_on_host_match_plain(bn254_host_lib):
                                     True]
 
 
+def _host_run(lib, t: dict, n_terms: int, n_shared: int):
+    """The kernel's two phases built for the host, on the plain version's
+    inputs: (partials, output) as uint32 arrays."""
+    a = {k: np.ascontiguousarray(v.numpy()) for k, v in t.items()}
+    n = a["lanes"].shape[1]
+    part = np.zeros((bk.PART_ROWS * n_terms, n), np.uint32)
+    lib.bn254_host_terms(
+        _ptr(a["lanes"]), _ptr(a["laneinf"]), _ptr(a["digits"]),
+        _ptr(a["termmeta"]), n_terms, _ptr(a["comb_xy"]),
+        _ptr(a["comb_inf"]), n_shared, _ptr(part), n)
+    out = np.zeros((bk.OUT_ROWS, n), np.uint32)
+    lib.bn254_host_reduce(_ptr(part), _ptr(a["termmeta"]), n_terms,
+                          _ptr(out), n)
+    whole = np.zeros_like(out)
+    lib.bn254_host_commitments(
+        _ptr(a["lanes"]), _ptr(a["laneinf"]), _ptr(a["digits"]),
+        _ptr(a["termmeta"]), n_terms, _ptr(a["comb_xy"]),
+        _ptr(a["comb_inf"]), n_shared, _ptr(whole), n)
+    np.testing.assert_array_equal(whole, out)
+    return part, out
+
+
+def _plain_run(t: dict):
+    part = bk.term_partials_plain(t)
+    out = bk.reduce_plain(part, t["termmeta"])
+    np.testing.assert_array_equal(out.numpy(),
+                                  bk.commitments_plain(t).numpy())
+    return part.numpy().view(np.uint32), out.numpy().view(np.uint32)
+
+
 def test_bn254_kernel_ladder_on_host_matches_plain(bn254_host_lib):
-    """The kernel's lane body (bn254_commit.cuh) on a small layout of one
-    term per accumulator (a shared base, a lane base, both), with a bad
-    lane, word for word against the plain version."""
+    """The kernel's term and reduction bodies (bn254_commit.cuh) on a
+    small layout of one term per accumulator (a shared base, a lane base,
+    both), with a bad lane and a padding lane, word for word against the
+    plain version: every term's partial, then the output."""
     rng = random.Random(23)
     g = bn.G1_GEN
     shared_pts = (g, bn.g1_mul(g, 2), bn.g1_mul(g, 3))
@@ -370,18 +406,173 @@ def test_bn254_kernel_ladder_on_host_matches_plain(bn254_host_lib):
              for j in range(3)]
     scs = [[rng.randrange(bn.R) for _ in layout[0]] for _ in range(3)]
     packed = bk.pack(lanes, scs, [True, False, True], *layout, lanes=4)
-    shared = bk.shared_table(bb.shared_multiples(shared_pts))
-    t = bk.upload(packed, shared, "cpu")
-    want = bk.commitments_plain(t).numpy().view(np.uint32)
-    a = {k: np.ascontiguousarray(v.numpy()) for k, v in t.items()}
-    got = np.zeros_like(want)
-    bn254_host_lib.bn254_host_commitments(
-        _ptr(a["lanes"]), _ptr(a["laneinf"]), _ptr(a["digits"]),
-        _ptr(a["termmeta"]), len(layout[0]), _ptr(a["shared_xy"]),
-        _ptr(a["shared_inf"]), len(shared_pts), _ptr(got), 4)
+    t = bk.upload(packed, bb.shared_comb(shared_pts), "cpu")
+    want_part, want = _plain_run(t)
+    got_part, got = _host_run(bn254_host_lib, t, len(layout[0]),
+                              len(shared_pts))
+    np.testing.assert_array_equal(got_part, want_part)
     np.testing.assert_array_equal(got, want)
     aff = bb.to_affine(bk.unpack(want), [True] * 4)
     assert aff[0] == (bn.g1_mul(shared_pts[1], scs[0][0]),
                       bn.g1_mul(lanes[0][2], scs[0][1]),
                       bn.g1_mul(g, scs[0][2]))
     assert aff[1] == aff[3] == (None, None, None)
+
+
+def test_bn254_kernel_reduction_on_host_takes_degenerate_branches(
+        bn254_host_lib):
+    """Two terms over the same shared base, side by side in T1, and in T3
+    a shared base beside a lane base that equals it or its negation:
+    equal partials meet in the reduction and double, opposite ones cancel
+    to infinity, and the infinity passes the next partial through.  The
+    host-built bodies equal the plain version word for word, and every
+    lane the host MSM."""
+    rng = random.Random(24)
+    g = bn.G1_GEN
+    shared_pts = (g, bn.g1_mul(g, 2), bn.g1_mul(g, 3))
+    layout = ((1, 1, 3 + 2, 0, 3 + 1), (0, 0, 0, 2, 2))
+    lanes, scs = [], []
+    for j in range(6):
+        pts = [bn.g1_mul(g, 7 * j + b + 1) for b in range(4)]
+        sc = [rng.randrange(1, bn.R) for _ in layout[0]]
+        if j == 1:
+            sc[1] = sc[0]  # T1: s 2G + s 2G doubles
+        elif j == 2:
+            sc[1] = bn.R - sc[0]  # T1: s 2G - s 2G cancels, then + s' B
+        elif j in (3, 4):
+            pts[1] = g if j == 3 else bn.g1_neg(g)  # T3: s G +- s G
+            sc[4] = sc[3]
+        lanes.append(tuple(pts))
+        scs.append(sc)
+    ok = [True] * 5 + [False]
+    packed = bk.pack(lanes, scs, ok, *layout, lanes=7)
+    t = bk.upload(packed, bb.shared_comb(shared_pts), "cpu")
+    want_part, want = _plain_run(t)
+    got_part, got = _host_run(bn254_host_lib, t, len(layout[0]),
+                              len(shared_pts))
+    np.testing.assert_array_equal(got_part, want_part)
+    np.testing.assert_array_equal(got, want)
+    aff = bb.to_affine(bk.unpack(want), [True] * 7)
+    for j in range(5):
+        tables = (*shared_pts, *lanes[j])
+        assert aff[j] == tuple(
+            bn.g1_msm([(tables[tab], s) for tab, acc, s in
+                       zip(*layout, scs[j]) if acc == a]) for a in range(3)
+        ), j
+    assert aff[1][0] == bn.g1_add(bn.g1_mul(g, 4 * scs[1][0]),
+                                  bn.g1_mul(lanes[1][2], scs[1][2]))
+    assert aff[2][0] == bn.g1_mul(lanes[2][2], scs[2][2])
+    assert aff[3][2] == bn.g1_mul(g, 2 * scs[3][3])
+    assert aff[4][2] is None
+    assert aff[5] == aff[6] == (None, None, None)
+    # the partials that meet are finite: the branches came from the sums
+    rows = want_part.reshape(len(layout[0]), bk.PART_ROWS, 7)
+    assert not rows[:, 24, :5].any()
+
+
+# -- the device field's PTX, interpreted --------------------------------------
+
+_M32 = (1 << 32) - 1
+
+
+def _device_asm(func: str) -> list[str]:
+    """The PTX templates of the asm statements of `func` in the header's
+    __CUDA_ARCH__ branch, in order."""
+    src = (CSRC / "bn254_commit.cuh").read_text()
+    start = src.index("#if defined(__CUDA_ARCH__)")
+    dev = src[start:src.index("\n#else", start)]
+    body = dev[dev.index(f"BN_FN void {func}("):]
+    body = body[:body.index("\n}\n")]
+    stmts = re.findall(r"asm\((.*?)\);", body, re.S)
+    return ["".join(re.findall(r'"((?:[^"\\]|\\.)*)"', st.split(":")[0]))
+            .replace("\\n", "\n").replace("\\t", "") for st in stmts]
+
+
+def _run_ptx(template: str, ops: list[int]) -> list[int]:
+    """Run one asm template on its operands (%0, %1, ...): add, sub and
+    mad with .cc carry-out and the c forms' carry-in (a borrow for sub),
+    .lo/.hi halves of mad, 32-bit registers."""
+    v = list(ops)
+    cf = 0
+
+    def get(x):
+        return v[int(x[1:])] if x.startswith("%") else int(x, 0)
+
+    for line in template.split("\n"):
+        line = line.strip().rstrip(";")
+        if not line:
+            continue
+        op, args = line.split(None, 1)
+        a = [x.strip() for x in args.split(",")]
+        kind, *mods = op.split(".")
+        cin = cf if kind.endswith("c") else 0
+        if kind in ("add", "addc"):
+            r = get(a[1]) + get(a[2]) + cin
+            carry = r >> 32
+        elif kind in ("sub", "subc"):
+            r = get(a[1]) - get(a[2]) - cin
+            carry = int(r < 0)
+        elif kind in ("mad", "madc"):
+            prod = get(a[1]) * get(a[2])
+            prod = prod >> 32 if "hi" in mods else prod & _M32
+            r = prod + get(a[3]) + cin
+            carry = r >> 32
+        else:
+            raise ValueError(f"unexpected PTX {op}")
+        assert mods[-1] == "u32", op
+        v[int(a[0][1:])] = r & _M32
+        if "cc" in mods:
+            cf = carry
+    return v
+
+
+def _w(x: int) -> list[int]:
+    return [(x >> (32 * i)) & _M32 for i in range(8)]
+
+
+def _device_field(op: str, x: int, y: int) -> int:
+    """The header's device fe_add / fe_sub / fe_mul on x, y: its asm
+    statements interpreted, with the C between them."""
+    a, b, p2 = _w(x), _w(y), _w(2 * P)
+    if op == "add":
+        t_sum, t_sub = _device_asm("fe_add")
+        s = _run_ptx(t_sum, [0] * 8 + a + b)[:8]
+        r = _run_ptx(t_sub, [0] * 9 + s + p2)
+        keep = r[8]
+        out = [(s[i] & keep) | (r[i] & ~keep & _M32) for i in range(8)]
+    elif op == "sub":
+        t_sub, t_add = _device_asm("fe_sub")
+        r = _run_ptx(t_sub, [0] * 9 + a + b)
+        out = _run_ptx(t_add, r[:8] + [m & r[8] for m in p2])[:8]
+    else:
+        t_prod, t_redc = _device_asm("fe_mul")
+        t = [0] * 9
+        for i in range(8):
+            t = _run_ptx(t_prod, t[:8] + [0] + a + [b[i]])[:9]
+            m = t[0] * 0xE4866389 & _M32
+            t = _run_ptx(t_redc, t + [m] + _w(P))[:9]
+            assert t[0] == 0
+            t = t[1:]
+        out = t[:8]
+    return sum(w << (32 * i) for i, w in enumerate(out))
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_bn254_device_field_chains_match_python_ints(op):
+    """The device branch's carry chains give exactly the portable field's
+    words: a sum or difference corrected into [0, 2p), and the Montgomery
+    product (a b + m p) / R with m = -a b p^-1 mod R."""
+    rng = random.Random(25)
+    edges = [0, 1, P - 1, P, P + 1, 2 * P - 1]
+    pairs = [(x, y) for x in edges for y in edges]
+    pairs += [(rng.randrange(2 * P), rng.randrange(2 * P))
+              for _ in range(300)]
+    r = fp254.R
+    for x, y in pairs:
+        if op == "add":
+            want = x + y - 2 * P if x + y >= 2 * P else x + y
+        elif op == "sub":
+            want = x - y + 2 * P if x < y else x - y
+        else:
+            want = (x * y + (-x * y * pow(P, -1, r) % r) * P) // r
+        assert _device_field(op, x, y) == want, (x, y)
