@@ -4,17 +4,30 @@
     python3 chip_smoke.py
 
 1. Prints the card's name, and its name and power limit from nvidia-smi.
-2. Builds the kernels from `fabric_tpu_torch/csp/cuda/csrc` and prints the
-   build time and the compiler's register/spill summary.
+2. Builds the kernels from `fabric_tpu_torch/csp/cuda/csrc`, one nvcc
+   each, all at once, and prints the build time and the compiler's
+   register/spill/stack summary.
 3. Holds both entry points of the P-256 verify kernel against their plain
    PyTorch versions and the pure-Python reference (`hostref`) on 256 lanes
-   of edge cases.
+   of edge cases, among them lanes crafted for the key-table kernel's
+   split ladders: Q = G with u1 = u2 (its reduction doubles), Q = -G with
+   equal digits (its partials cancel), a zero key, an off-curve key and a
+   key index outside the table.
 4. Verifies 8 block-shaped batches (1000 transactions x (1 creator + 3
    endorsers), 4 keys of a 5-org world) through `CUDACSP.verify_batch_async`
    up to 6 deep, then one 4000-lane batch over 300 keys (the per-lane-key
-   kernel), with launch counts set to 0 just before and read just after.
+   kernel), with launch counts set to 0 just before and read just after
+   (the first flush enters the block's keys into the key table and builds
+   their quarter tables inside the timed run).
 5. Times each P-256 kernel at the main path's shapes against its plain
-   version.
+   version, the key-table kernel with its tables already on the card as
+   the provider holds them, beside the previous design's recorded time;
+   prints the quarter tables' host build per key, the key-table kernel's
+   own multiplication count on its longest chain beside the bound's, and
+   sweeps it over 1000 to 16000 lanes.  Then times flushes whose keys
+   churn past the key table (every flush an overflow reset, to keys seen
+   before and to keys never seen) against the same flushes over keys the
+   table holds.
 6. Idemix at the idemix MSP's own credential (4 attributes, OU and Role
    disclosed, one issuer key): times the build of the shared bases' comb
    (once per issuer key); holds the BN254 Schnorr-commitment kernel
@@ -54,16 +67,23 @@ import torch
 from fabric_tpu_torch.csp import hostref
 from fabric_tpu_torch.csp.api import (
     P256_B,
+    P256_GX,
+    P256_GY,
     P256_N,
     P256_P,
+    P256PrivateKey,
+    P256PublicKey,
     VerifyBatchItem,
     marshal_ecdsa_signature,
+    on_curve,
+    to_low_s,
     unmarshal_ecdsa_signature,
 )
 from fabric_tpu_torch.csp.cuda import bn254_batch as bb
 from fabric_tpu_torch.csp.cuda import bn254_kernel as bk
 from fabric_tpu_torch.csp.cuda import build
 from fabric_tpu_torch.csp.cuda import p256_kernel as pk
+from fabric_tpu_torch.csp.cuda.limbs import int_to_words
 from fabric_tpu_torch.csp.cuda.provider import CUDACSP
 from fabric_tpu_torch.csp.idemix_provider import IdemixCSP, IdemixVerifyItem
 from fabric_tpu_torch.idemix import bn254 as bn
@@ -85,10 +105,22 @@ N_BLOCKS = 8
 DEPTH = 6  # batches in flight before the oldest is collected
 EDGE_LANES = 256
 MANY_KEYS = 300  # distinct keys of the batch that overflows the key table
+# key churn: flushes of CHURN_LANES lanes over CHURN_KEYS keys; two
+# working sets that share half their keys hold 1.5 x CHURN_KEYS distinct
+# keys, more than the key table's 256
+CHURN_KEYS = 200
+CHURN_LANES = 2000
+CHURN_FLUSHES = 6
 TIMING_REPS = 5
 PLAIN_REPS = 3
 
 SOURCE = "fabric_tpu_torch/csp/cuda/csrc/p256_verify.cu"
+B1_NAME = "p256_verify_keytab"
+B1_SWEEP = (1000, 4000, 8000, 16000)
+# The previous design of B1, one thread per signature, on the same card
+# type (H100 80GB HBM3, 700 W; PERF.md, CUDA events, median of 5): ms per
+# 8000-lane launch, printed beside this run's time.
+B1_ONE_THREAD_MS = (5.360, 5.601)
 REPLACES = {
     "p256_verify_keytab": "fabric_tpu/csp/tpu/pallas_ec.py:562",
     "p256_verify_lanekeys": "fabric_tpu/csp/tpu/pallas_ec.py:547",
@@ -108,6 +140,7 @@ FIELD_MULS_TABLE = 14 * 11
 FIELD_MULS_DBL = 64 * 4 * 8
 FIELD_MULS_FINAL = 3
 WORD_PRODUCTS = 64
+MULS_DBL, MULS_MIXED, MULS_FULL = 8, 11, 16
 
 # Idemix: the idemix MSP's credential (fabric_tpu/msp/idemixmsp.py:41, :98)
 MSP_ATTRS = ("OU", "Role", "EnrollmentID", "RevocationHandle")
@@ -158,9 +191,31 @@ def cand1_lane():
     return (x, y, P256_N.to_bytes(32, "big"), r, r)
 
 
+def q_eq_g_lane(rng):
+    """Q = G (private key 1) with a digest equal to r, so that u1 = u2 =
+    k / 2: the key-table kernel's partials u1_j G and u2_j Q are equal
+    and its reduction takes the doubling branch.  Valid."""
+    while True:
+        k = int.from_bytes(rng.bytes(32), "big") % P256_N
+        r = hostref.mul_g(k)[0] % P256_N if k else 0
+        s = 2 * r * pow(k, -1, P256_N) % P256_N
+        if r and s:
+            return (P256_GX, P256_GY, r.to_bytes(32, "big"), r,
+                    to_low_s(s))
+
+
+def off_curve_point(rng):
+    while True:
+        x, y = (int.from_bytes(rng.bytes(32), "big") % P256_P
+                for _ in range(2))
+        if not on_curve(x, y):
+            return x, y
+
+
 def edge_lanes(rng, n: int):
     """n lanes of (x, y, digest, r, s) and their kernel layouts, with one
-    lane of each edge case; returns (lanes, out_of_table lane index)."""
+    lane of each edge case; returns (lanes, out_of_table lane index,
+    the lane of Q = -G that the caller gives u2 = u1)."""
     keys = [hostref.key_gen(rng) for _ in range(4)]
     lanes = []
     for i in range(n):
@@ -178,7 +233,16 @@ def edge_lanes(rng, n: int):
     lanes[7][2] = lanes[7][2][:31]  # short digest
     lanes[8] = list(cand1_lane())
     lanes[9][3] += 1  # wrong r, valid range
-    return [tuple(v) for v in lanes], 10
+    # lane 10: its key index goes outside the table
+    lanes[11] = list(q_eq_g_lane(rng))
+    neg_g = P256PrivateKey(P256_N - 1, P256PublicKey(P256_GX,
+                                                     P256_P - P256_GY))
+    digest = hashlib.sha256(b"edge-neg-g").digest()
+    lanes[12] = [P256_GX, P256_P - P256_GY, digest,
+                 *unmarshal_ecdsa_signature(hostref.sign(neg_g, digest, rng))]
+    lanes[13][:2] = [0, 0]  # the zero point as a key
+    lanes[14][:2] = off_curve_point(rng)
+    return [tuple(v) for v in lanes], 10, 12
 
 
 def block_world(rng):
@@ -249,25 +313,30 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(packed: dict, keytab: bool) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") for verifying `packed`: each
-    input read once and the mask written once over the HBM rate, against
-    the multiply-adds its valid lanes need over the 32-bit peak."""
+def bound_muls(packed: dict) -> int:
+    """The field multiplications the valid lanes of `packed` need, as one
+    joint ladder each (the function's work, whatever computes it)."""
     valid = np.asarray(packed["valid"], bool)
-    lanes = valid.shape[0]
 
     def nonzero_digits(words):
         w = np.asarray(words, np.uint32)[:, valid]
         return sum(int(((w >> (4 * k)) & 0xF).astype(bool).sum())
                    for k in range(8))
 
-    muls = (
+    return (
         int(valid.sum()) * (FIELD_MULS_TABLE + FIELD_MULS_DBL
                             + FIELD_MULS_FINAL)
         + 11 * nonzero_digits(packed["d1"])
         + 16 * nonzero_digits(packed["d2"])
     )
-    ops = muls * WORD_PRODUCTS * 2
+
+
+def bound(packed: dict, keytab: bool) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for verifying `packed`: each
+    input read once and the mask written once over the HBM rate, against
+    the multiply-adds its valid lanes need over the 32-bit peak."""
+    lanes = np.asarray(packed["valid"]).shape[0]
+    ops = bound_muls(packed) * WORD_PRODUCTS * 2
     per_lane = 3 * 32 + 8 + 1  # d1, d2, cand0, flags, the verdict
     per_lane += 4 if keytab else 64  # key index, or the key
     nbytes = lanes * per_lane + 2 * 16 * 32  # + the G table
@@ -294,7 +363,7 @@ def phase_build() -> None:
     for name in libs:
         print(f"nvcc {name}: {build.build_seconds(name) or 0.0:.1f} s")
         for line in build.build_log(name).splitlines():
-            if any(w in line for w in ("registers", "spill",
+            if any(w in line for w in ("registers", "spill", "stack frame",
                                        "Compiling entry")):
                 print(f"ptxas {name}: {line.strip()}")
 
@@ -321,24 +390,30 @@ def compare(name: str, packed_np: dict, device, errs: dict) -> list[bool]:
 
 
 def phase_edges(rng, device, errs: dict, n: int = EDGE_LANES) -> None:
-    lanes, out_of_table = edge_lanes(rng, n)
+    lanes, out_of_table, neg_g = edge_lanes(rng, n)
     expect = [hostref.verify_rs(*lane) for lane in lanes]
     expect[out_of_table] = hostref.verify_rs(0, 0, *lanes[out_of_table][2:])
+    check(expect[neg_g] and expect[11], "the Q = +-G lanes do not verify")
+    expect[neg_g] = False  # u2 = u1 below: R = u1 G - u1 G, infinity
     per_lane = pk.prepare_packed(lanes)
     per_lane["qx"][:, out_of_table] = 0  # the zero point, as a key
     per_lane["qy"][:, out_of_table] = 0
     table = pk.dedup_keys(pk.prepare_packed(lanes))
     check("kidx" in table, "edge lanes did not fit the key table")
     table["kidx"][out_of_table] = pk.KEYTAB + 44  # outside the table
+    bad = table["keybad"][table["kidx"][[0, 11, 12, 13, 14]]].tolist()
+    check(bad == [0, 0, 0, 1, 1], f"bad-key flags of the edge keys: {bad}")
+    for packed in (per_lane, table):
+        packed["d2"][:, neg_g] = packed["d1"][:, neg_g]
     got_k = compare("p256_verify_keytab", table, device, errs)
     got_l = compare("p256_verify_lanekeys", per_lane, device, errs)
     check(got_k == expect, f"keytab kernel vs hostref: "
           f"{[i for i, (a, b) in enumerate(zip(got_k, expect)) if a != b]}")
     check(got_l == expect, f"lanekeys kernel vs hostref: "
           f"{[i for i, (a, b) in enumerate(zip(got_l, expect)) if a != b]}")
-    # lanes 1-7, 9 and the one outside the table fail; the cand1 lane 8
-    # passes
-    check(sum(expect) == n - 9, f"edge cases: {n - sum(expect)} rejected")
+    # lanes 1-7, 9, the one outside the table, Q = -G, the zero key and
+    # the off-curve key fail; the cand1 lane 8 and Q = G (11) pass
+    check(sum(expect) == n - 12, f"edge cases: {n - sum(expect)} rejected")
     print(f"edges: {n} lanes, both entry points == plain == hostref "
           f"({n - sum(expect)} rejected)")
 
@@ -432,7 +507,7 @@ def phase_kernels(device, launches: dict, shapes: dict, errs: dict,
         bound_ms, bound_by = bound(packed, name.endswith("keytab"))
         lanes = packed["d1"].shape[1]
         half = pk.upload(
-            {k: (v if k in ("ktabx", "ktaby") else v[..., : lanes // 2])
+            {k: (v if k in pk.TABLE_KEYS else v[..., : lanes // 2])
              for k, v in packed.items()}, device)
         half_ms = cuda_ms(lambda: pk.verify_packed(half), reps)
         print(f"{name}: {lanes // 2} lanes, kernel {half_ms:.3f} ms")
@@ -455,7 +530,89 @@ def phase_kernels(device, launches: dict, shapes: dict, errs: dict,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call verifies ECDSA
         })
+        if name == B1_NAME:
+            phase_b1(t, packed, ms, reps)
     return rows
+
+
+def b1_kernel_muls(packed: dict) -> tuple[float, int]:
+    """The field multiplications the key-table kernel itself does on
+    `packed`, as (per lane over all its threads, the longest chain: a
+    lane's longest part, then its reduction and check).  A part copies
+    its first nonzero digit's entry, then does 4 doublings a window and a
+    mixed add per nonzero digit; the reduction one full add per finite
+    partial after the first, and the check 3.  Lanes the guard rejects do
+    none.  Unlike `bound`, this is the design's count, not the
+    function's."""
+    kidx = np.asarray(packed["kidx"]).astype(np.int64)
+    inside = kidx < pk.KEYTAB
+    ok = (np.asarray(packed["valid"], bool) & inside
+          & (np.asarray(packed["keybad"])[np.where(inside, kidx, 0)] == 0))
+    shifts = 4 * np.arange(8, dtype=np.uint32)
+    per = 64 // pk.QUARTERS
+    ladders, finite = [], []
+    for words in (packed["d1"], packed["d2"]):  # parts over G, then Q
+        w = np.asarray(words, np.uint32)[:, ok]
+        d = ((w[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(64, -1)
+        for j in range(pk.QUARTERS):
+            nz = d[64 - (j + 1) * per:64 - j * per] != 0  # (per, lanes)
+            live = nz.any(axis=0)
+            first = np.argmax(nz, axis=0)
+            ladders.append(np.where(
+                live, 4 * MULS_DBL * (per - 1 - first)
+                + MULS_MIXED * (nz.sum(axis=0) - 1), 0))
+            finite.append(live)
+    ladders = np.stack(ladders)
+    reduce = (MULS_FULL * np.maximum(np.stack(finite).sum(axis=0) - 1, 0)
+              + FIELD_MULS_FINAL)
+    total = int(ladders.sum() + reduce.sum())
+    return total / int(ok.sum()), int((ladders.max(axis=0) + reduce).max())
+
+
+def phase_b1(t: dict, packed: dict, ms: float, reps: int = TIMING_REPS):
+    """B1 beyond its row, on the main path's flush with its tables already
+    on the card: the previous design's recorded time, the kernel's own
+    multiplication count beside the bound's, the quarter tables' host
+    build per key, and the lanes sweep."""
+    lanes = t["kidx"].shape[0]
+    lo, hi = B1_ONE_THREAD_MS
+    print(f"{B1_NAME}: the one-thread-per-signature design took {lo:.3f}-"
+          f"{hi:.3f} ms at 8000 lanes on an H100 80GB HBM3 at 700 W "
+          f"(PERF.md); this run {ms:.3f} ms at {lanes} lanes "
+          f"({lo / ms:.1f}-{hi / ms:.1f}x)")
+    per_lane, longest = b1_kernel_muls(packed)
+    valid = int(np.asarray(packed["valid"]).sum())
+    print(f"{B1_NAME} kernel's own work: {per_lane:.0f} field "
+          f"multiplications per lane over all its threads, the longest "
+          f"chain {longest}; the bound counts "
+          f"{bound_muls(packed) / valid:.0f} per lane (one joint ladder)")
+
+    keys = int(np.asarray(packed["keybad"]).size
+               - np.asarray(packed["keybad"]).sum())
+    t0 = time.perf_counter()
+    pk.key_quarter_tables(packed["ktabx"], packed["ktaby"])
+    flush_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 5)
+    many = [hostref.key_gen(rng).public_key() for _ in range(pk.KEYTAB)]
+    kx = np.stack([int_to_words(k.x) for k in many], axis=1)
+    ky = np.stack([int_to_words(k.y) for k in many], axis=1)
+    t0 = time.perf_counter()
+    pk.key_quarter_tables(kx, ky)
+    full_s = time.perf_counter() - t0
+    print(f"quarter tables, host build: {keys} keys of the flush in "
+          f"{flush_s * 1e3:.1f} ms ({flush_s * 1e3 / keys:.2f} ms per key); "
+          f"a full {pk.KEYTAB}-key table (an overflow reset) in "
+          f"{full_s * 1e3:.1f} ms ({full_s * 1e3 / pk.KEYTAB:.2f} ms per "
+          f"key); {np.prod(pk.QTAB_SHAPE) * 4} B per key")
+
+    for size in B1_SWEEP:
+        copies = -(-size // lanes)
+        sub = {k: v if k in pk.TABLE_KEYS else
+               torch.cat([v] * copies, dim=-1)[..., :size].contiguous()
+               for k, v in t.items()}
+        sweep_ms = cuda_ms(lambda sub=sub: pk.verify_packed(sub), reps)
+        print(f"{B1_NAME} lanes sweep: {size} lanes, kernel {sweep_ms:.3f} "
+              f"ms ({size / sweep_ms * 1e3:.0f} sigs/s)")
 
 
 # ---------------------------------------------------------------------------
@@ -910,6 +1067,57 @@ def phase_b3_sweep(t: dict, sizes=B3_SWEEP, reps: int = TIMING_REPS):
               f"({size / ms * 1e3:.0f} sigs/s)")
 
 
+def phase_churn(rng, device, n_keys: int = CHURN_KEYS,
+                lanes: int = CHURN_LANES, flushes: int = CHURN_FLUSHES):
+    """Traffic whose keys churn past the key table (many client
+    identities), as ms per flush of `lanes` lanes over n_keys keys:
+    "held", every flush over the keys of A, which the table holds;
+    "revisit", A and B in turns, two working sets sharing half their
+    keys, so that every flush overflows the table and resets it to keys
+    seen before; "fresh", every flush over n_keys keys never seen, each
+    flush a reset too.  Each run starts from a fresh provider whose first
+    flushes are not timed: over A, and for "revisit" over B as well, so
+    that its timed resets meet only keys seen before.  Uses only
+    `CUDACSP`'s public API."""
+    keys = [hostref.key_gen(rng)
+            for _ in range(n_keys * 3 // 2 + flushes * n_keys)]
+
+    def batch(working, tag: bytes):
+        out = []
+        for i in range(lanes):
+            key = working[i % n_keys]
+            digest = hashlib.sha256(b"%s-%d" % (tag, i)).digest()
+            out.append(VerifyBatchItem(
+                key.public_key(), digest, hostref.sign(key, digest, rng)))
+        return out
+
+    a = batch(keys[:n_keys], b"churn-a")
+    b = batch(keys[n_keys // 2:n_keys * 3 // 2], b"churn-b")
+    fresh = [batch(keys[n_keys * (3 + 2 * f) // 2:][:n_keys],
+                   b"churn-fresh-%d" % f) for f in range(flushes)]
+    ms = {}
+    for name, warm, seq in (("held", [a], [a] * flushes),
+                            ("revisit", [a, b], [a, b] * (flushes // 2)),
+                            ("fresh", [a], fresh)):
+        csp = CUDACSP(device=device, min_device_batch=1)
+        for items in warm:
+            check(all(csp.verify_batch(items)),
+                  f"key churn ({name}): untimed flush")
+        t0 = time.perf_counter()
+        for i, items in enumerate(seq):
+            mask = csp.verify_batch(items)
+            check(all(mask), f"key churn ({name}), flush {i}: "
+                  f"{mask.count(False)} lanes rejected")
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(seq)
+        csp.close()
+    print(f"key churn: {lanes}-lane flushes over {n_keys} keys, ms per "
+          f"flush: keys held {ms['held']:.1f}; every flush an overflow "
+          f"reset to keys seen before {ms['revisit']:.1f}, to keys never "
+          f"seen {ms['fresh']:.1f} ({(ms['fresh'] - ms['held']) / n_keys:.2f}"
+          f" ms per new key over held)")
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -937,6 +1145,7 @@ def main() -> int:
         wall = walls[row["name"]] * 1e3
         print(f"{row['name']}: device busy ~{busy:.1f} ms of the "
               f"{wall:.1f} ms wall ({busy / wall:.1%}; launches x kernel ms)")
+    phase_churn(rng, device)
 
     t0 = time.perf_counter()
     world = idemix_world(SEED)

@@ -26,6 +26,7 @@ import functools
 import torch
 
 from fabric_tpu_torch.csp.cuda import bn254_kernel
+from fabric_tpu_torch.csp.cuda.limbs import batch_inverse
 from fabric_tpu_torch.idemix import bn254 as bn
 
 TABLE = bn254_kernel.TABLE
@@ -248,19 +249,6 @@ def schnorr_commitments_batch(sigs, ipk, device="cuda",
     return to_affine(jac, ok)
 
 
-def batch_inverse(vals: list[int], m: int) -> list[int]:
-    """Montgomery's trick: one pow for the whole list."""
-    pre = [1] * (len(vals) + 1)
-    for i, v in enumerate(vals):
-        pre[i + 1] = pre[i] * v % m
-    inv = pow(pre[-1], -1, m)
-    out = [0] * len(vals)
-    for i in range(len(vals) - 1, -1, -1):
-        out[i] = inv * pre[i] % m
-        inv = inv * vals[i] % m
-    return out
-
-
 __all__ = [
     "LANE_BASES",
     "MAX_LANES",
@@ -271,5 +259,4 @@ __all__ = [
     "prepare_sigs",
     "to_affine",
     "schnorr_commitments_batch",
-    "batch_inverse",
 ]

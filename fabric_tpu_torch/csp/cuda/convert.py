@@ -48,7 +48,12 @@ def consts_from_jax(c: dict) -> dict:
 
 def packed_from_jax(packed: dict, device) -> dict:
     """A packed numpy dict of `pallas_ec.prepare_packed`, `dedup_keys` or
-    `native.marshal_batch` -> the port's kernel tensors on `device`."""
+    `native.marshal_batch` -> the port's kernel tensors on `device`; a
+    key table gets its quarter tables (`p256_kernel.key_quarter_tables`),
+    which the JAX package does not build."""
+    if "ktabx" in packed and "qtab" not in packed:
+        packed = {**packed, **p256_kernel.key_quarter_tables(
+            packed["ktabx"], packed["ktaby"])}
     return p256_kernel.upload(packed, torch.device(device))
 
 

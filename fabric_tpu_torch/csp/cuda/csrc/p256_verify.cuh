@@ -1,6 +1,7 @@
-// ECDSA-P256 verification of one signature per thread: field arithmetic,
-// Jacobian point operations and the lane body shared by the two kernels
-// of p256_verify.cu.
+// ECDSA-P256 verification: field arithmetic, Jacobian point operations
+// and the one-thread-per-signature lane body of p256_verify_lanekeys (B2).
+// p256_split.cuh builds the lane pieces of p256_verify_keytab (B1) on the
+// same field and point functions.
 //
 // Every function here is __host__ __device__: the header compiles as
 // plain C++ too (p256_host_check.cpp), so the arithmetic of the kernel
@@ -386,25 +387,6 @@ P256_FN uint8_t verify_lane(const Fe& qx, const Fe& qy, const uint32_t* d1,
   fe_add(cand1, cand0, fe_order());
   fe_mul(t, cand1, z2);
   return fe_eq(r.x, t) ? 1 : 0;
-}
-
-// The key-table layout: Q is entry kidx[lane] of the (8, kKeyTab) word
-// tables; an index outside the table selects the zero point, which the
-// z == 0 guard rejects.  flags is (2, n): [cand1_ok; valid].
-P256_FN uint8_t verify_keytab(const uint32_t* ktabx, const uint32_t* ktaby,
-                              const uint32_t* kidx, const uint32_t* d1,
-                              const uint32_t* d2, const uint32_t* cand0,
-                              const uint32_t* flags, const uint32_t* g,
-                              int n, int lane) {
-  if (flags[n + lane] == 0u) return 0;  // invalid or padding lane
-  const uint32_t k = kidx[lane];
-  Fe qx = fe_small(0u), qy = fe_small(0u);
-  if (k < (uint32_t)kKeyTab) {
-    qx = fe_load(ktabx, kKeyTab, (int)k);
-    qy = fe_load(ktaby, kKeyTab, (int)k);
-  }
-  return verify_lane(qx, qy, d1, d2, fe_load(cand0, n, lane),
-                     flags[lane] != 0u, g, n, lane);
 }
 
 // The per-lane key layout: Q from the (8, n) word arrays qx, qy.

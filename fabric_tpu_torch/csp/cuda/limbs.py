@@ -86,6 +86,19 @@ def words_to_int(w) -> int:
     return sum(int(v) << (32 * i) for i, v in enumerate(w))
 
 
+def batch_inverse(vals: list[int], m: int) -> list[int]:
+    """Montgomery's trick: one pow for the whole list."""
+    pre = [1] * (len(vals) + 1)
+    for i, v in enumerate(vals):
+        pre[i + 1] = pre[i] * v % m
+    inv = pow(pre[-1], -1, m)
+    out = [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        out[i] = inv * pre[i] % m
+        inv = inv * vals[i] % m
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch field arithmetic mod p.
 # ---------------------------------------------------------------------------
@@ -266,4 +279,5 @@ __all__ = [
     "limbs_to_ints",
     "int_to_words",
     "words_to_int",
+    "batch_inverse",
 ]

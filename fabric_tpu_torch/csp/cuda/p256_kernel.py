@@ -11,6 +11,14 @@ per-lane index `kidx`.  On the device every word array is int32 (CPU
 torch has few uint32 kernels; the bits are the same) and the two
 per-lane flags travel as one (2, B) int32 `flags` = [cand1_ok; valid].
 
+The key-table layout also carries, per key of the table, its quarter
+tables `qtab` (KEYTAB, 4, 16, 2, 8): the affine multiples d 2^(64 j) Q
+for the quarters j = 0..3 and d = 0..15, entry 0 at infinity, built on
+the host by `key_quarter_tables` once per key; and `keybad` (KEYTAB,),
+1 for a key that is not on P-256 (a padding entry's zero point among
+them), which gets no tables and whose lanes the kernel rejects.
+The plain version reads `ktabx`/`ktaby` only.
+
 `verify_packed` launches `p256_verify_keytab` (replacing
 `pallas_ec._kernel_dedup`) or `p256_verify_lanekeys` (replacing
 `pallas_ec._kernel`) from `csrc/p256_verify.cu` for CUDA tensors, and
@@ -25,20 +33,34 @@ import functools
 import numpy as np
 import torch
 
+from fabric_tpu_torch.csp import hostref
 from fabric_tpu_torch.csp.api import (
     P256_GX,
     P256_GY,
     P256_N,
     P256_P,
+    on_curve,
     unmarshal_ecdsa_signature,
 )
 from fabric_tpu_torch.csp.cuda import ec
-from fabric_tpu_torch.csp.cuda.limbs import FpP256, int_to_words, solinas_matrix
+from fabric_tpu_torch.csp.cuda.limbs import (
+    FpP256,
+    batch_inverse,
+    int_to_words,
+    solinas_matrix,
+    words_to_int,
+)
 
 KEYTAB = 256  # key-table entries of the key-table kernel
+QUARTERS = 4  # 64-bit quarters of a scalar, one table each
+# per base: quarter, entry, coordinate (x, y), word
+QTAB_SHAPE = (QUARTERS, ec.TABLE, 2, 8)
 
 # the packed arrays of uint32 words, int32 on the device
-U32_KEYS = ("qx", "qy", "ktabx", "ktaby", "kidx", "d1", "d2", "cand0")
+U32_KEYS = ("qx", "qy", "ktabx", "ktaby", "qtab", "keybad", "kidx", "d1",
+            "d2", "cand0")
+# the arrays of the key table, shared by every lane (not sliced by lane)
+TABLE_KEYS = ("ktabx", "ktaby", "qtab", "keybad")
 
 # Kernel launches by the wrapper, one per launch of each entry point
 # (plain-version calls on CPU tensors do not count).
@@ -68,6 +90,75 @@ def _gtab(device: str) -> torch.Tensor:
     """(2, 16, 8) int32 words of the G window table on `device`."""
     c = consts()
     g = np.stack([c["gx"], c["gy"]]).astype(np.uint32).view(np.int32)
+    return torch.as_tensor(g, device=device).contiguous()
+
+
+def _quarter_multiples(x: int, y: int) -> list:
+    """The Jacobian multiples d 2^(64 j) (x, y) for j = 0..3 and d =
+    1..15, quarter-major: 192 doublings and 56 additions."""
+    out = []
+    base = (x, y, 1)
+    for j in range(QUARTERS):
+        if j:
+            for _ in range(64):
+                base = hostref._jdbl(base)
+        acc = base
+        out.append(acc)
+        for _ in range(ec.TABLE - 2):
+            acc = hostref._jadd(acc, base)
+            out.append(acc)
+    return out
+
+
+def key_quarter_tables(ktabx, ktaby) -> dict:
+    """The quarter tables of the keys of (8, K) word tables: {"qtab":
+    (K, 4, 16, 2, 8) uint32 affine words, "keybad": (K,) uint32}.
+
+    Coordinates are read mod p, as the kernel's loads reduce them.  A key
+    that is not on P-256 (the zero point included) gets keybad = 1 and
+    zero tables.  One batched inversion serves every key of the call."""
+    kx = np.asarray(ktabx, np.uint32)
+    ky = np.asarray(ktaby, np.uint32)
+    k = kx.shape[1]
+    qtab = np.zeros((k, *QTAB_SHAPE), np.uint32)
+    keybad = np.ones(k, np.uint32)
+    good, pts = [], []
+    for i in range(k):
+        x = words_to_int(kx[:, i]) % P256_P
+        y = words_to_int(ky[:, i]) % P256_P
+        if on_curve(x, y):
+            keybad[i] = 0
+            good.append(i)
+            pts.extend(_quarter_multiples(x, y))
+    if not good:
+        return {"qtab": qtab, "keybad": keybad}
+    invs = batch_inverse([pt[2] for pt in pts], P256_P)
+    coords = []
+    for (x, y, _), zi in zip(pts, invs):
+        zi2 = zi * zi % P256_P
+        coords.append((x * zi2 % P256_P).to_bytes(32, "little"))
+        coords.append((y * zi2 * zi % P256_P).to_bytes(32, "little"))
+    words = np.frombuffer(b"".join(coords), np.uint32).reshape(
+        len(good), QUARTERS, ec.TABLE - 1, 2, 8)
+    qtab[good, :, 1:] = words
+    return {"qtab": qtab, "keybad": keybad}
+
+
+@functools.lru_cache(maxsize=None)
+def g_quarter_table() -> np.ndarray:
+    """(4, 16, 2, 8) uint32, read-only: G's quarter tables, d 2^(64 j)
+    G."""
+    gx = int_to_words(P256_GX)[:, None]
+    gy = int_to_words(P256_GY)[:, None]
+    tab = key_quarter_tables(gx, gy)["qtab"][0]
+    tab.flags.writeable = False
+    return tab
+
+
+@functools.lru_cache(maxsize=None)
+def _gqtab(device: str) -> torch.Tensor:
+    """G's quarter tables as int32 words on `device`."""
+    g = g_quarter_table().view(np.int32).copy()
     return torch.as_tensor(g, device=device).contiguous()
 
 
@@ -180,8 +271,9 @@ def prepare_packed(items) -> dict:
 
 
 def dedup_keys(packed: dict) -> dict:
-    """The key-table layout of a packed dict when the batch uses at most
-    KEYTAB distinct public keys; otherwise the dict unchanged."""
+    """The key-table layout of a packed dict, with the table's quarter
+    tables, when the batch uses at most KEYTAB distinct public keys;
+    otherwise the dict unchanged."""
     qx, qy = packed["qx"], packed["qy"]
     cols = np.concatenate([qx, qy]).T  # (B, 16) words per key
     uniq, idx = np.unique(cols, axis=0, return_inverse=True)
@@ -193,6 +285,7 @@ def dedup_keys(packed: dict) -> dict:
     out["ktabx"] = np.ascontiguousarray(ktab[:, :8].T)
     out["ktaby"] = np.ascontiguousarray(ktab[:, 8:].T)
     out["kidx"] = idx.reshape(-1).astype(np.uint32)
+    out.update(key_quarter_tables(out["ktabx"], out["ktaby"]))
     return out
 
 
@@ -310,7 +403,8 @@ def _check(t: dict, keytab: bool, device: torch.device) -> int:
     b = t["d1"].shape[-1]
     shapes = {"d1": (8, b), "d2": (8, b), "cand0": (8, b), "flags": (2, b)}
     if keytab:
-        shapes.update(ktabx=(8, KEYTAB), ktaby=(8, KEYTAB), kidx=(b,))
+        shapes.update(qtab=(KEYTAB, *QTAB_SHAPE), keybad=(KEYTAB,),
+                      kidx=(b,))
     else:
         shapes.update(qx=(8, b), qy=(8, b))
     for k, shape in shapes.items():
@@ -350,20 +444,23 @@ def verify_packed(t: dict) -> torch.Tensor:
         ptr(t["d2"].data_ptr()),
         ptr(t["cand0"].data_ptr()),
         ptr(t["flags"].data_ptr()),
-        ptr(_gtab(str(dev)).data_ptr()),
+    ]
+    tail = [
         ptr(out.data_ptr()),
         ctypes.c_int(b),
         ptr(torch.cuda.current_stream(dev).cuda_stream),
     ]
     if keytab:
         rc = lib.p256_verify_keytab(
-            ptr(t["ktabx"].data_ptr()), ptr(t["ktaby"].data_ptr()),
+            ptr(t["qtab"].data_ptr()), ptr(t["keybad"].data_ptr()),
             ptr(t["kidx"].data_ptr()), *common,
+            ptr(_gqtab(str(dev)).data_ptr()), *tail,
         )
         launches_keytab += 1
     else:
         rc = lib.p256_verify_lanekeys(
             ptr(t["qx"].data_ptr()), ptr(t["qy"].data_ptr()), *common,
+            ptr(_gtab(str(dev)).data_ptr()), *tail,
         )
         launches_lanekeys += 1
     if rc != 0:
@@ -376,7 +473,12 @@ def verify_packed(t: dict) -> torch.Tensor:
 
 __all__ = [
     "KEYTAB",
+    "QUARTERS",
+    "QTAB_SHAPE",
+    "TABLE_KEYS",
     "consts",
+    "key_quarter_tables",
+    "g_quarter_table",
     "lane_tuples",
     "prepare_packed",
     "dedup_keys",

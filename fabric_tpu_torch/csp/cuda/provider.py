@@ -62,17 +62,31 @@ class _KeyTable:
     key-table kernel.
 
     Blocks reuse a handful of client and endorser keys, so each lane
-    carries a u32 index instead of its key, and the (8, KEYTAB) word
-    tables live on the device across flushes, uploaded again only when a
-    key is added.  On overflow the table resets to the current batch's
-    keys; a batch with more than KEYTAB distinct keys gets None."""
+    carries a u32 index instead of its key, and the table lives on the
+    device across flushes, uploaded again only when a key is added: the
+    (8, KEYTAB) word tables of the plain version, and the kernel's
+    per-key quarter tables and bad-key flags, built on the host when a
+    key enters (one batched inversion for all the keys an `assign` adds).
+    On overflow the table resets to the current batch's keys; a batch
+    with more than KEYTAB distinct keys gets None.
+
+    A key's quarter tables (~1.4 ms of host time to build) outlive its
+    stay in the table: the last BUILT_CAP keys' are kept by SKI, so
+    traffic that churns among more keys than the table holds rebuilds
+    only keys it has not seen lately."""
+
+    BUILT_CAP = 4096  # keys whose quarter tables are kept (4 KiB each)
 
     def __init__(self):
         self.cap = p256_kernel.KEYTAB
+        # SKI -> (quarter tables, bad-key flag), least recently used first
+        self._built: dict[bytes, tuple[np.ndarray, int]] = {}
         self._idx: dict[bytes, int] = {}
         self._ktabx = np.zeros((8, self.cap), np.uint32)
         self._ktaby = np.zeros((8, self.cap), np.uint32)
-        self._dev: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._qtab = np.zeros((self.cap, *p256_kernel.QTAB_SHAPE), np.uint32)
+        self._keybad = np.ones(self.cap, np.uint32)  # no key: rejected
+        self._dev: dict[str, dict[str, torch.Tensor]] = {}
 
     @staticmethod
     def _words(be32: bytes) -> np.ndarray:
@@ -89,11 +103,40 @@ class _KeyTable:
         self._dev = {}  # every device copy is stale
         return j
 
+    def _fill(self, added: list) -> None:
+        """Quarter tables and bad-key flags for the entries `added`
+        ([(index, SKI)]): kept ones copied, the others built in one
+        call."""
+        new = [(j, ski) for j, ski in added if ski not in self._built]
+        if new:
+            cols = [j for j, _ in new]
+            tabs = p256_kernel.key_quarter_tables(
+                self._ktabx[:, cols], self._ktaby[:, cols])
+            for (_, ski), qtab, bad in zip(new, tabs["qtab"],
+                                            tabs["keybad"]):
+                self._built[ski] = (qtab.copy(), int(bad))
+        for j, ski in added:
+            entry = self._built.pop(ski)
+            self._built[ski] = entry  # now the most recently used
+            self._qtab[j], self._keybad[j] = entry
+        while len(self._built) > self.BUILT_CAP:
+            del self._built[next(iter(self._built))]
+
+    def _reset(self) -> None:
+        self._idx.clear()
+        self._ktabx[:] = 0
+        self._ktaby[:] = 0
+        self._qtab[:] = 0
+        self._keybad[:] = 1
+        self._dev = {}
+
     def assign(self, keys) -> np.ndarray | None:
         """Per-lane table indexes for `keys`, or None when even a fresh
-        table cannot hold this batch's distinct keys."""
+        table cannot hold this batch's distinct keys (the table is then
+        left empty: no key stays in it without its quarter tables)."""
         for _attempt in (0, 1):
             kidx = np.empty(len(keys), np.uint32)
+            added = []
             ok = True
             for i, k in enumerate(keys):
                 j = self._idx.get(k.ski())
@@ -102,27 +145,29 @@ class _KeyTable:
                     if j is None:
                         ok = False
                         break
+                    added.append((j, k.ski()))
                 kidx[i] = j
             if ok:
+                if added:
+                    self._fill(added)
                 return kidx
             # overflow: reset to this batch's working set and retry once
-            self._idx.clear()
-            self._ktabx[:] = 0
-            self._ktaby[:] = 0
-            self._dev = {}
+            self._reset()
         return None
 
     def device_tables(self, device: torch.device) -> dict:
-        """{"ktabx", "ktaby"}: the tables as int32 tensors on `device`,
-        uploaded once per change of the table."""
+        """{"ktabx", "ktaby", "qtab", "keybad"}: the tables as int32
+        tensors on `device`, uploaded once per change of the table."""
         key = str(device)
         if key not in self._dev:
-            self._dev[key] = tuple(
-                torch.as_tensor(t.view(np.int32).copy(), device=device)
-                for t in (self._ktabx, self._ktaby)
-            )
-        tx, ty = self._dev[key]
-        return {"ktabx": tx, "ktaby": ty}
+            self._dev[key] = {
+                name: torch.as_tensor(t.view(np.int32).copy(), device=device)
+                for name, t in (("ktabx", self._ktabx),
+                                ("ktaby", self._ktaby),
+                                ("qtab", self._qtab),
+                                ("keybad", self._keybad))
+            }
+        return dict(self._dev[key])
 
 
 class _FlushResult:
@@ -357,7 +402,7 @@ class CUDACSP(CSP):
         for take in _chunk_plan(len(items), self._max_chunk):
             sl = {}
             for k, v in packed.items():
-                if k in ("ktabx", "ktaby"):
+                if k in p256_kernel.TABLE_KEYS:
                     sl[k] = v
                 elif v.ndim == 2:
                     sl[k] = v[:, off:off + take]

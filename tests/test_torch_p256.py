@@ -10,7 +10,9 @@ source compiled for the host (csrc/p256_host_check.cpp).  Every
 comparison is exact: masks, packed words, canonical field values.
 
 The lanes are those of tests/test_pallas_ec.py (valid, tampered digest,
-high-S, r out of range, the cand1 = r + n branch, a zero key) and the
+high-S, r out of range, the cand1 = r + n branch, a zero key), lanes
+crafted for the key-table kernel's split ladders and their reduction
+(Q = G with u1 = u2, Q = -G with equal digits, an off-curve key) and the
 Wycheproof-style corpus of tests/test_wycheproof.py, in one batch, so
 that each Pallas layout compiles once.
 """
@@ -33,10 +35,11 @@ from fabric_tpu import native  # noqa: E402
 from fabric_tpu.csp import SWCSP  # noqa: E402
 from fabric_tpu.csp import api as japi  # noqa: E402
 from fabric_tpu.csp.tpu import pallas_ec  # noqa: E402
-from fabric_tpu_torch.csp import api  # noqa: E402
+from fabric_tpu_torch.csp import api, hostref  # noqa: E402
 from fabric_tpu_torch.csp.cuda import convert, limbs  # noqa: E402
 from fabric_tpu_torch.csp.cuda import p256_kernel as pk  # noqa: E402
 from fabric_tpu_torch.csp.cuda.limbs import FpP256  # noqa: E402
+from fabric_tpu_torch.csp.cuda.provider import CUDACSP  # noqa: E402
 
 P = api.P256_P
 N = api.P256_N
@@ -65,6 +68,28 @@ def _cand1_point():
         t = (pow(x, 3, P) - 3 * x + api.P256_B) % P
         y = pow(t, (P + 1) // 4, P)
         if y * y % P == t:
+            return x, y
+
+
+def _q_eq_g_lane():
+    """Q = G (private key 1) and a digest equal to r, so e = r and u1 =
+    u2: the key-table kernel's partials u1_j G and u2_j Q are equal and
+    its reduction doubles.  The signature is valid."""
+    rng = random.Random(0x5EED)
+    while True:
+        k = rng.randrange(1, N)  # u1 = u2 = k / 2: every part nonzero
+        r = hostref.mul_g(k)[0] % N
+        s = 2 * r * pow(k, -1, N) % N  # k^-1 (e + r d) with e = r, d = 1
+        if r and s:
+            return (api.P256_GX, api.P256_GY, r.to_bytes(32, "big"),
+                    japi.marshal_ecdsa_signature(r, api.to_low_s(s)))
+
+
+def _off_curve_key(seed=17):
+    rng = random.Random(seed)
+    while True:
+        x, y = rng.randrange(P), rng.randrange(P)
+        if not api.on_curve(x, y):
             return x, y
 
 
@@ -110,6 +135,17 @@ def corpus():
         japi.marshal_ecdsa_signature(r + 1, r), False)
     add("zero_key", 0, 0, sw.hash(b"zk"), japi.marshal_ecdsa_signature(5, 7),
         False)
+    add("q_eq_g", *_q_eq_g_lane(), True)
+    # Q = -G, signed with its key n - 1: valid as it stands; `layouts`
+    # then gives it u2 = u1, so that R = u1 G - u1 G is infinity
+    neg_g = api.P256PrivateKey(N - 1, api.P256PublicKey(api.P256_GX,
+                                                        P - api.P256_GY))
+    digest = sw.hash(b"neg-g")
+    add("q_neg_g", api.P256_GX, P - api.P256_GY, digest,
+        hostref.sign(neg_g, digest, np.random.default_rng(5)), True)
+    r, s = japi.unmarshal_ecdsa_signature(lanes[0][3])
+    add("off_curve_key", *_off_curve_key(), lanes[0][2],
+        japi.marshal_ecdsa_signature(r, s), False)
     wkey = sw.key_gen()
     wpub = wkey.public_key()
     wdigest = hashlib.sha256(b"wycheproof").digest()
@@ -118,7 +154,7 @@ def corpus():
         add("wycheproof_" + name, wpub.x, wpub.y, digest, der, ok)
     # the oracle agrees wherever it can load the key
     for lane, ok in zip(lanes, expect):
-        if lane[0]:
+        if api.on_curve(lane[0], lane[1]):
             pub = sw.key_import(
                 b"\x04" + lane[0].to_bytes(32, "big")
                 + lane[1].to_bytes(32, "big")
@@ -134,18 +170,24 @@ def _tuples(lanes):
 @pytest.fixture(scope="module")
 def layouts(corpus):
     """The JAX package's packed inputs per layout, and their verdicts:
-    the key-table layout moves one valid lane's index outside the
+    the Q = -G lane gets d2 = d1 in both (u2 = u1, so R is infinity),
+    and the key-table layout moves one valid lane's index outside the
     table (the one-hot gather then selects the zero point)."""
-    _, lanes, expect = corpus
+    names, lanes, expect = corpus
     per_lane = pallas_ec.prepare_packed(_tuples(lanes))
     table = pallas_ec.dedup_keys(pallas_ec.prepare_packed(_tuples(lanes)))
     assert "kidx" in table
+    expect = list(expect)
+    neg = names.index("q_neg_g")
+    for packed in (per_lane, table):
+        packed["d2"][:, neg] = packed["d1"][:, neg]
+    expect[neg] = False
     moved = expect.index(True)
     table["kidx"][moved] = OUT_OF_TABLE
     expect_table = list(expect)
     expect_table[moved] = False
     return {
-        "lanekeys": (per_lane, list(expect)),
+        "lanekeys": (per_lane, expect),
         "keytab": (table, expect_table),
     }
 
@@ -249,9 +291,13 @@ def test_prepare_packed_and_dedup_match_jax(corpus):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     want_d = pallas_ec.dedup_keys(want)
     got_d = pk.dedup_keys(got)
-    assert sorted(got_d) == sorted(want_d)
+    # the port's key table also carries the kernel's quarter tables
+    assert sorted(got_d) == sorted([*want_d, "qtab", "keybad"])
     for k in want_d:
         np.testing.assert_array_equal(got_d[k], want_d[k], err_msg=k)
+    tabs = pk.key_quarter_tables(want_d["ktabx"], want_d["ktaby"])
+    for k in ("qtab", "keybad"):
+        np.testing.assert_array_equal(got_d[k], tabs[k], err_msg=k)
 
 
 def test_prepare_packed_matches_native_marshal(corpus):
@@ -289,6 +335,8 @@ def test_packed_from_jax_layout(layouts):
     t = convert.packed_from_jax(table, "cpu")
     b = table["kidx"].shape[0]
     assert t["ktabx"].shape == (8, pk.KEYTAB) and t["kidx"].shape == (b,)
+    assert t["qtab"].shape == (pk.KEYTAB, *pk.QTAB_SHAPE)
+    assert t["keybad"].shape == (pk.KEYTAB,)
     assert t["flags"].shape == (2, b)
     assert all(v.dtype == torch.int32 for v in t.values())
     np.testing.assert_array_equal(
@@ -315,6 +363,7 @@ def test_plain_verify_matches_pallas(layout, layouts, jax_masks, corpus):
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
+    """The kernel source as it ships, built for the host by g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernel source for the host")
@@ -327,6 +376,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.p256_host_keytab.argtypes = [vp] * 9 + [i32]
+    lib.p256_host_partials.argtypes = [vp] * 9 + [i32]
     lib.p256_host_lanekeys.argtypes = [vp] * 8 + [i32]
     lib.p256_host_field.argtypes = [i32, vp, vp, vp, i32]
     return lib
@@ -336,29 +386,190 @@ def _ptr(a):
     return ctypes.c_void_p(a.ctypes.data)
 
 
-@pytest.mark.parametrize("layout", ["keytab", "lanekeys"])
-def test_kernel_source_on_host_matches_pallas(layout, layouts, jax_masks,
-                                              host_lib):
-    """The CUDA kernel's lane body (p256_verify.cuh), built for the host,
-    gives the Pallas kernel's verdicts on the same packed inputs."""
-    packed, _ = layouts[layout]
+def _host_arrays(packed):
+    """The kernel's uint32 arrays of a packed dict: the words, flags, the
+    G tables, and for a key table its quarter tables."""
     arr = {k: np.ascontiguousarray(v, np.uint32) for k, v in packed.items()
            if k not in ("cand1_ok", "valid")}
-    flags = np.ascontiguousarray(
+    arr["flags"] = np.ascontiguousarray(
         np.stack([packed["cand1_ok"], packed["valid"]]).astype(np.uint32)
     )
     c = pk.consts()
-    gtab = np.ascontiguousarray(np.stack([c["gx"], c["gy"]]), np.uint32)
-    n = flags.shape[1]
+    arr["gtab"] = np.ascontiguousarray(np.stack([c["gx"], c["gy"]]),
+                                       np.uint32)
+    if "ktabx" in packed:
+        arr.update(pk.key_quarter_tables(packed["ktabx"], packed["ktaby"]))
+        arr["gqtab"] = np.ascontiguousarray(pk.g_quarter_table())
+    return arr
+
+
+def _host_verdicts(lib, packed):
+    arr = _host_arrays(packed)
+    n = arr["flags"].shape[1]
     out = np.zeros(n, np.uint8)
     common = [_ptr(arr["d1"]), _ptr(arr["d2"]), _ptr(arr["cand0"]),
-              _ptr(flags), _ptr(gtab), _ptr(out), n]
-    if layout == "keytab":
-        host_lib.p256_host_keytab(_ptr(arr["ktabx"]), _ptr(arr["ktaby"]),
-                                  _ptr(arr["kidx"]), *common)
+              _ptr(arr["flags"])]
+    if "kidx" in arr:
+        lib.p256_host_keytab(_ptr(arr["qtab"]), _ptr(arr["keybad"]),
+                             _ptr(arr["kidx"]), *common, _ptr(arr["gqtab"]),
+                             _ptr(out), n)
     else:
-        host_lib.p256_host_lanekeys(_ptr(arr["qx"]), _ptr(arr["qy"]), *common)
-    assert [bool(v) for v in out] == jax_masks[layout]
+        lib.p256_host_lanekeys(_ptr(arr["qx"]), _ptr(arr["qy"]), *common,
+                               _ptr(arr["gtab"]), _ptr(out), n)
+    return [bool(v) for v in out]
+
+
+@pytest.mark.parametrize("layout", ["keytab", "lanekeys"])
+def test_kernel_source_on_host_matches_pallas(layout, layouts, jax_masks,
+                                              host_lib):
+    """The CUDA kernels' lane code, built for the host, gives the Pallas
+    kernel's verdicts on the same packed inputs: for the key table the
+    split pieces of p256_split.cuh (the parts one after another, then
+    the reduction), for per-lane keys verify_lanekeys."""
+    packed, _ = layouts[layout]
+    assert _host_verdicts(host_lib, packed) == jax_masks[layout]
+
+
+def _ints(words) -> list[int]:
+    return [limbs.words_to_int(words[:, i]) for i in range(words.shape[1])]
+
+
+def _scalars(digit_words) -> list[int]:
+    """(8, B) packed MSB-first digit words -> the B scalars."""
+    out = []
+    for lane in range(digit_words.shape[1]):
+        u = 0
+        for k in range(64):
+            u = 16 * u + (int(digit_words[k // 8, lane]) >> (4 * (k % 8)) & 0xF)
+        out.append(u)
+    return out
+
+
+def _affine(words, inf):
+    if inf:
+        return None
+    x, y, z = (limbs.words_to_int(words[8 * i:8 * i + 8]) for i in range(3))
+    zi = pow(z, -1, P)
+    return x * zi * zi % P, y * zi * zi * zi % P
+
+
+def test_quarter_tables_match_hostref():
+    """Every entry of 2 keys' tables and of G's is d 2^(64 j) B; an
+    off-curve key and the zero point are flagged and get no tables."""
+    rng = np.random.default_rng(21)
+    keys = [hostref.key_gen(rng).public_key() for _ in range(2)]
+    pts = [(k.x, k.y) for k in keys] + [_off_curve_key(), (0, 0)]
+    ktabx = np.stack([limbs.int_to_words(x) for x, _ in pts], axis=1)
+    ktaby = np.stack([limbs.int_to_words(y) for _, y in pts], axis=1)
+    tabs = pk.key_quarter_tables(ktabx, ktaby)
+    assert tabs["qtab"].shape == (4, *pk.QTAB_SHAPE)
+    assert tabs["keybad"].tolist() == [0, 0, 1, 1]
+    assert not tabs["qtab"][2:].any()
+    g = (api.P256_GX, api.P256_GY)
+    for base, tab in [*zip(pts[:2], tabs["qtab"][:2]),
+                      (g, pk.g_quarter_table())]:
+        for j in range(pk.QUARTERS):
+            for d in range(16):
+                want = hostref.affine_mul(d << (64 * j), base) or (0, 0)
+                got = (limbs.words_to_int(tab[j, d, 0]),
+                       limbs.words_to_int(tab[j, d, 1]))
+                assert got == want, (j, d)
+
+
+def test_kernel_partials_on_host_are_the_split_products(layouts, corpus,
+                                                        host_lib):
+    """Each of a lane's 8 partials, made affine, is u_j 2^(64 j) B for
+    the quarter u_j of u1 (B = G) or u2 (B = Q); the crafted lanes meet
+    in the reduction's doubling (Q = G, u1 = u2) and infinity (Q = -G,
+    d2 = d1) branches, and the cand1 lane's G partials (u1 = 0) are at
+    infinity.  Rejected lanes get no partials."""
+    names = corpus[0]
+    table, _ = layouts["keytab"]
+    arr = _host_arrays(table)
+    n = arr["flags"].shape[1]
+    split = pk.QUARTERS
+    w = np.zeros(n * 2 * split * 24, np.uint32)
+    inf = np.full(n * 2 * split, 7, np.uint32)  # 7: untouched
+    host_lib.p256_host_partials(
+        _ptr(arr["qtab"]), _ptr(arr["keybad"]), _ptr(arr["kidx"]),
+        _ptr(arr["d1"]), _ptr(arr["d2"]), _ptr(arr["flags"]),
+        _ptr(arr["gqtab"]), _ptr(w), _ptr(inf), n)
+    w = w.reshape(n, 2 * split, 24)
+    inf = inf.reshape(n, 2 * split)
+    width = 256 // split
+    u1s, u2s = _scalars(arr["d1"]), _scalars(arr["d2"])
+    kx, ky = _ints(arr["ktabx"]), _ints(arr["ktaby"])
+    got = {}
+    for lane in range(n):
+        k = int(arr["kidx"][lane])
+        if not (table["valid"][lane] and k < pk.KEYTAB
+                and not arr["keybad"][k]):
+            assert (inf[lane] == 7).all(), lane
+            continue
+        got[lane] = [_affine(w[lane, p], inf[lane, p])
+                     for p in range(2 * split)]
+        for p, part in enumerate(got[lane]):
+            j = p % split
+            u, base = ((u1s[lane], (api.P256_GX, api.P256_GY)) if p < split
+                       else (u2s[lane], (kx[k], ky[k])))
+            digits = (u >> (width * j)) & ((1 << width) - 1)
+            assert part == hostref.affine_mul(digits << (width * j), base), (
+                names[lane], p)
+    eq = got[names.index("q_eq_g")]
+    assert eq[split - 1] is not None and eq[split - 1] == eq[2 * split - 1]
+    neg = got[names.index("q_neg_g")]
+    for j in range(split):
+        a, b = neg[j], neg[split + j]
+        assert a == b is None or (a[0] == b[0] and a[1] == P - b[1])
+    assert got[names.index("cand1")][:split] == [None] * split
+    skipped = {i for i in range(n) if i not in got}
+    assert skipped == {i for i in range(n) if not table["valid"][i]} | {
+        names.index("zero_key"), names.index("off_curve_key"),
+        table["kidx"].tolist().index(OUT_OF_TABLE)}
+
+
+def test_provider_key_table_after_overflow_matches_plain_on_host(
+        host_lib, monkeypatch):
+    """After a flush over more keys than the key table holds, a flush over
+    4 of those keys runs the key-table layout with every index it uses
+    backed by quarter tables (keybad 0), and the kernel's lane code, built
+    for the host, gives the plain version's verdicts on exactly what
+    CUDACSP hands the kernel."""
+    seen = []
+    real = pk.verify_packed
+
+    def recording(t):
+        out = real(t)
+        seen.append((t, out))
+        return out
+
+    monkeypatch.setattr(pk, "verify_packed", recording)
+    rng = np.random.default_rng(5)
+    keys = [hostref.key_gen(rng) for _ in range(pk.KEYTAB + 1)]
+    items = []
+    for i, key in enumerate(keys):
+        d = hashlib.sha256(b"overflow-%d" % i).digest()
+        items.append(api.VerifyBatchItem(key.public_key(), d,
+                                         hostref.sign(key, d, rng)))
+    csp = CUDACSP(device="cpu", min_device_batch=1)
+    assert all(csp.verify_batch(items))
+    few = items[:4] * 2
+    k, _, s = few[5]
+    few[5] = api.VerifyBatchItem(k, hashlib.sha256(b"forged").digest(), s)
+    assert csp.verify_batch(few) == [i != 5 for i in range(len(few))]
+    assert ["kidx" in t for t, _ in seen] == [False, True]
+    t, want = seen[1]
+    arr = {k: np.ascontiguousarray(v.numpy().view(np.uint32))
+           for k, v in t.items()}
+    assert not arr["keybad"][arr["kidx"]].any()
+    gq = np.ascontiguousarray(pk.g_quarter_table())
+    n = len(few)
+    out = np.zeros(n, np.uint8)
+    host_lib.p256_host_keytab(
+        _ptr(arr["qtab"]), _ptr(arr["keybad"]), _ptr(arr["kidx"]),
+        _ptr(arr["d1"]), _ptr(arr["d2"]), _ptr(arr["cand0"]),
+        _ptr(arr["flags"]), _ptr(gq), _ptr(out), n)
+    assert out.astype(bool).tolist() == want.tolist()
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "mul"])

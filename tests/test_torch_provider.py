@@ -19,6 +19,7 @@ from fabric_tpu.csp.api import VerifyBatchItem as JaxItem  # noqa: E402
 from fabric_tpu.csp.tpu.provider import TPUCSP  # noqa: E402
 from fabric_tpu_torch.csp import api, hostref  # noqa: E402
 from fabric_tpu_torch.csp.api import VerifyBatchItem  # noqa: E402
+from fabric_tpu_torch.csp.cuda import limbs  # noqa: E402
 from fabric_tpu_torch.csp.cuda import p256_kernel as pk  # noqa: E402
 from fabric_tpu_torch.csp.cuda import provider as prov  # noqa: E402
 from fabric_tpu_torch.csp.cuda.provider import CUDACSP, _FlushResult  # noqa: E402
@@ -175,8 +176,88 @@ def test_key_table_persists_across_flushes(sw):
     tabs = csp._key_table.device_tables(csp.device)
     assert all(csp.verify_batch(items[::-1]))
     again = csp._key_table.device_tables(csp.device)
-    assert again["ktabx"] is tabs["ktabx"]  # not uploaded again
+    for k in pk.TABLE_KEYS:
+        assert again[k] is tabs[k]  # not uploaded again
     assert len(csp._key_table._idx) == 4
+
+
+def test_key_table_builds_quarter_tables_once_per_change(monkeypatch):
+    """A key's quarter tables are built when it enters the table, in one
+    call for all the keys an assign adds, uploaded once per change,
+    kept across flushes, and rebuilt for the new working set after an
+    overflow reset."""
+    builds = []
+    real = pk.key_quarter_tables
+
+    def counting(ktabx, ktaby):
+        builds.append(ktabx.shape[1])
+        return real(ktabx, ktaby)
+
+    monkeypatch.setattr(pk, "key_quarter_tables", counting)
+    rng = np.random.default_rng(9)
+    keys = [hostref.key_gen(rng).public_key() for _ in range(pk.KEYTAB + 1)]
+    table = prov._KeyTable()
+    dev = torch.device("cpu")
+    assert table.assign(keys[:4] * 3).tolist() == [0, 1, 2, 3] * 3
+    assert builds == [4]
+    first = table.device_tables(dev)
+    assert table.assign(keys[3::-1]).tolist() == [3, 2, 1, 0]
+    assert builds == [4]  # no new key: nothing built or uploaded
+    assert all(table.device_tables(dev)[k] is v for k, v in first.items())
+    assert table.assign(keys[:5]).tolist() == [0, 1, 2, 3, 4]
+    assert builds == [4, 1]
+    second = table.device_tables(dev)
+    assert second["qtab"] is not first["qtab"]
+    assert second["keybad"][:6].tolist() == [0] * 5 + [1]
+    # 5 keys held + 252 new ones overflow: a reset to this batch's keys
+    batch = keys[5:]
+    assert table.assign(batch).tolist() == list(range(len(batch)))
+    assert builds == [4, 1, len(batch)]
+    third = table.device_tables(dev)
+    assert third["qtab"] is not second["qtab"]
+    qtab = third["qtab"].numpy().view(np.uint32)
+    for i in (0, len(batch) - 1):  # entry 1 of quarter 0 is the key
+        assert qtab[i, 0, 1, 0].tolist() == limbs.int_to_words(
+            batch[i].x).tolist()
+    assert int(third["keybad"].sum()) == pk.KEYTAB - len(batch)
+    # more keys than a fresh table holds: None, and the table left empty
+    # (no key kept without its quarter tables), then refilled on demand;
+    # keys built before come back with their kept tables, not rebuilt
+    assert table.assign(keys) is None
+    assert builds == [4, 1, len(batch)] and not table._idx
+    assert int(table.device_tables(dev)["keybad"].sum()) == pk.KEYTAB
+    assert table.assign([keys[0], keys[-1], keys[1]]).tolist() == [0, 1, 2]
+    assert builds == [4, 1, len(batch)]
+    fourth = table.device_tables(dev)
+    np.testing.assert_array_equal(fourth["qtab"][0], first["qtab"][0])
+    np.testing.assert_array_equal(fourth["qtab"][1], third["qtab"][-5])
+    assert fourth["keybad"][:4].tolist() == [0, 0, 0, 1]
+
+
+def test_key_table_keeps_the_last_built_cap_keys_tables(monkeypatch):
+    """Built quarter tables are kept for the BUILT_CAP most recently
+    entered keys: a key used again stays, the least recently used goes
+    and is built again when it returns."""
+    builds = []
+    real = pk.key_quarter_tables
+
+    def counting(ktabx, ktaby):
+        builds.append(ktabx.shape[1])
+        return real(ktabx, ktaby)
+
+    monkeypatch.setattr(pk, "key_quarter_tables", counting)
+    monkeypatch.setattr(prov._KeyTable, "BUILT_CAP", 3)
+    rng = np.random.default_rng(11)
+    keys = [hostref.key_gen(rng).public_key() for _ in range(4)]
+    table = prov._KeyTable()
+    table.cap = 2  # every second assign of a new pair resets
+    for pair, built in (((0, 1), [2]), ((2, 0), [2, 1]),
+                        ((3, 2), [2, 1, 1]),  # 1, used least lately, goes
+                        ((0, 3), [2, 1, 1]),  # 0 was used again: kept
+                        ((1, 0), [2, 1, 1, 1])):
+        assert table.assign([keys[i] for i in pair]).tolist() == [0, 1]
+        assert builds == built, pair
+    assert len(table._built) == 3
 
 
 def test_more_than_256_keys_fall_back_to_lane_keys(sw, monkeypatch):
