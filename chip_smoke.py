@@ -7,12 +7,16 @@
 2. Builds the kernels from `fabric_tpu_torch/csp/cuda/csrc`, one nvcc
    each, all at once, and prints the build time and the compiler's
    register/spill/stack summary.
-3. Holds both entry points of the P-256 verify kernel against their plain
-   PyTorch versions and the pure-Python reference (`hostref`) on 256 lanes
-   of edge cases, among them lanes crafted for the key-table kernel's
-   split ladders: Q = G with u1 = u2 (its reduction doubles), Q = -G with
-   equal digits (its partials cancel), a zero key, an off-curve key and a
-   key index outside the table.
+3. Counts the SASS of each verify kernel (cuobjdump on the build) and,
+   through a probe of the P-256 field (`csrc/p256_field_probe.cu`), the
+   SASS and the time on a dependent chain of one field multiplication,
+   squaring, reduction, addition and subtraction, each checked against
+   Python ints.  Holds both P-256 kernels (B1, the key table's; B2, a key
+   per lane) against their plain PyTorch versions and the pure-Python
+   reference (`hostref`) on 256 lanes of edge cases, among them lanes
+   crafted for their split ladders: Q = G with u1 = u2 (the reduction
+   doubles), Q = -G with equal digits (the partials cancel), a zero key,
+   three off-curve keys and a key index outside the table.
 4. Verifies 8 block-shaped batches (1000 transactions x (1 creator + 3
    endorsers), 4 keys of a 5-org world) through `CUDACSP.verify_batch_async`
    up to 6 deep, then one 4000-lane batch over 300 keys (the per-lane-key
@@ -21,10 +25,11 @@
    their quarter tables inside the timed run).
 5. Times each P-256 kernel at the main path's shapes against its plain
    version, the key-table kernel with its tables already on the card as
-   the provider holds them, beside the previous design's recorded time;
-   prints the quarter tables' host build per key, the key-table kernel's
-   own multiplication count on its longest chain beside the bound's, and
-   sweeps it over 1000 to 16000 lanes.  Then times flushes whose keys
+   the provider holds them, each beside its previous design's recorded
+   time; prints the quarter tables' host build per key, each kernel's
+   own multiplication count and longest chain beside the bound's, with
+   the time of one multiplication on that chain, and sweeps each over
+   1000 to 16000 lanes.  Then times flushes whose keys
    churn past the key table (every flush an overflow reset, to keys seen
    before and to keys never seen) against the same flushes over keys the
    table holds.
@@ -52,10 +57,12 @@ failed phase raises.  Inputs are made from a seed (numpy for P-256,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -83,7 +90,7 @@ from fabric_tpu_torch.csp.cuda import bn254_batch as bb
 from fabric_tpu_torch.csp.cuda import bn254_kernel as bk
 from fabric_tpu_torch.csp.cuda import build
 from fabric_tpu_torch.csp.cuda import p256_kernel as pk
-from fabric_tpu_torch.csp.cuda.limbs import int_to_words
+from fabric_tpu_torch.csp.cuda.limbs import int_to_words, words_to_int
 from fabric_tpu_torch.csp.cuda.provider import CUDACSP
 from fabric_tpu_torch.csp.idemix_provider import IdemixCSP, IdemixVerifyItem
 from fabric_tpu_torch.idemix import bn254 as bn
@@ -116,11 +123,14 @@ PLAIN_REPS = 3
 
 SOURCE = "fabric_tpu_torch/csp/cuda/csrc/p256_verify.cu"
 B1_NAME = "p256_verify_keytab"
-B1_SWEEP = (1000, 4000, 8000, 16000)
-# The previous design of B1, one thread per signature, on the same card
-# type (H100 80GB HBM3, 700 W; PERF.md, CUDA events, median of 5): ms per
-# 8000-lane launch, printed beside this run's time.
+B2_NAME = "p256_verify_lanekeys"
+LANES_SWEEP = (1000, 4000, 8000, 16000)
+# The previous designs, one thread per signature, on the same card type
+# (H100 80GB HBM3, 700 W; PERF.md, CUDA events, median of 5): ms per
+# 8000-lane launch of B1 and per 4000-lane launch of B2, printed beside
+# this run's times.
 B1_ONE_THREAD_MS = (5.360, 5.601)
+B2_ONE_THREAD_MS = (5.272, 5.390)
 REPLACES = {
     "p256_verify_keytab": "fabric_tpu/csp/tpu/pallas_ec.py:562",
     "p256_verify_lanekeys": "fabric_tpu/csp/tpu/pallas_ec.py:547",
@@ -141,6 +151,11 @@ FIELD_MULS_DBL = 64 * 4 * 8
 FIELD_MULS_FINAL = 3
 WORD_PRODUCTS = 64
 MULS_DBL, MULS_MIXED, MULS_FULL = 8, 11, 16
+# B2's own pieces: the curve check of the lane's key (in each of its 8
+# threads), and a Q part's table of d Q, d = 1..15 (a doubling and 13
+# mixed adds)
+MULS_CURVE = 3
+MULS_Q_TABLE = MULS_DBL + 13 * MULS_MIXED
 
 # Idemix: the idemix MSP's credential (fabric_tpu/msp/idemixmsp.py:41, :98)
 MSP_ATTRS = ("OU", "Role", "EnrollmentID", "RevocationHandle")
@@ -212,6 +227,9 @@ def off_curve_point(rng):
             return x, y
 
 
+OFF_CURVE_LANES = (14, 15, 16)  # edge lanes whose key is not on P-256
+
+
 def edge_lanes(rng, n: int):
     """n lanes of (x, y, digest, r, s) and their kernel layouts, with one
     lane of each edge case; returns (lanes, out_of_table lane index,
@@ -241,7 +259,8 @@ def edge_lanes(rng, n: int):
     lanes[12] = [P256_GX, P256_P - P256_GY, digest,
                  *unmarshal_ecdsa_signature(hostref.sign(neg_g, digest, rng))]
     lanes[13][:2] = [0, 0]  # the zero point as a key
-    lanes[14][:2] = off_curve_point(rng)
+    for i in OFF_CURVE_LANES:
+        lanes[i][:2] = off_curve_point(rng)
     return [tuple(v) for v in lanes], 10, 12
 
 
@@ -368,6 +387,140 @@ def phase_build() -> None:
                 print(f"ptxas {name}: {line.strip()}")
 
 
+def opcode(instr: str) -> str:
+    """The opcode with its modifiers of one SASS line from `build.sass`,
+    without a predicate guard."""
+    words = instr.split()[1:]
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def sass_summary(instrs: list[str]) -> str:
+    """Instruction count, the wide and high multiplies, local-memory
+    loads and stores, and the five commonest other opcodes."""
+    ops = collections.Counter(opcode(i) for i in instrs)
+    wide = sum(v for k, v in ops.items() if k.startswith("IMAD.WIDE"))
+    hi = sum(v for k, v in ops.items() if k.startswith("IMAD.HI"))
+    ldl = sum(v for k, v in ops.items() if k.startswith("LDL"))
+    stl = sum(v for k, v in ops.items() if k.startswith("STL"))
+    rest = [(k, v) for k, v in ops.most_common()
+            if not k.startswith(("IMAD.WIDE", "IMAD.HI", "LDL", "STL"))]
+    top = ", ".join(f"{k} {v}" for k, v in rest[:5])
+    return (f"{len(instrs)} instructions: IMAD.WIDE {wide}, IMAD.HI {hi}, "
+            f"LDL {ldl}, STL {stl}; {top}")
+
+
+def loop_body(instrs: list[str]) -> list[str]:
+    """The instructions of the last backward branch's loop: from its
+    target to the branch."""
+    addr = [int(i[2:i.index("*/")], 16) for i in instrs]
+    for k in range(len(instrs) - 1, -1, -1):
+        m = re.search(r"\bBRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", instrs[k])
+        if m and int(m.group(1), 16) < addr[k]:
+            start = addr.index(int(m.group(1), 16))
+            return instrs[start:k + 1]
+    raise RuntimeError("no loop in the probe's SASS")
+
+
+def called_body(instrs: list[str], body: list[str]) -> list[str]:
+    """The instructions of the function that `body` calls (from the
+    CALL's target to its RET), or [] when it calls none."""
+    for instr in body:
+        m = re.search(r"\bCALL\.\S+\s+0x([0-9a-f]+)", instr)
+        if m:
+            addr = [int(i[2:i.index("*/")], 16) for i in instrs]
+            start = addr.index(int(m.group(1), 16))
+            end = next(k for k in range(start, len(instrs))
+                       if " RET" in instrs[k])
+            return instrs[start:end + 1]
+    return []
+
+
+def phase_sass() -> None:
+    """Each verify kernel's SASS, counted (cuobjdump on the built
+    library)."""
+    for name, path in build.build_all().items():
+        for fn, instrs in build.sass(path).items():
+            print(f"sass {name} {fn}: {sass_summary(instrs)}")
+
+
+PROBE_OPS = ("mul", "sqr", "reduce", "add", "sub")
+
+
+def probe_expect(op: str, a: int, b: int, iters: int) -> int:
+    """What `iters` steps of probe op `op` leave, in Python ints."""
+    a, b = a % P256_P, b % P256_P
+    if op == "mul":
+        return a * pow(b, iters, P256_P) % P256_P
+    if op == "sqr":
+        return pow(a, 1 << iters, P256_P)
+    if op == "reduce":
+        return a * pow((1 << 256) + 1, iters, P256_P) % P256_P
+    if op == "add":
+        return (a + iters * b) % P256_P
+    return (a - iters * b) % P256_P
+
+
+def phase_field(device, reps: int = TIMING_REPS) -> dict:
+    """The field of p256_verify.cuh, op by op through the probe: the SASS
+    of one operation (the probe loop's body), the result of 3 steps on
+    256 operand pairs (edge words among them) against Python ints, and
+    the time of one operation on a dependent chain at two loads: 64,000
+    threads in 256-thread blocks (B1's 8000 lanes) and one warp on each
+    of the 132 SMs.  Returns {op: (us at the full load, us at one warp
+    an SM)}."""
+    lib, path = build.load_probe()
+    code = build.sass(path)
+    rng = random.Random(SEED + 9)
+    edges = [0, 1, P256_P - 1, P256_P, 2**256 - 1, 2**255, P256_P + 1]
+    xs = edges + [rng.randrange(2**256) for _ in range(256 - len(edges))]
+    ys = edges[::-1] + [rng.randrange(2**256) for _ in range(256 - len(edges))]
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def words(vals):
+        w = np.stack([int_to_words(v) for v in vals], axis=1)
+        return torch.as_tensor(w.view(np.int32), device=device).contiguous()
+
+    def run(op_i, a, b, out, n, iters, block):
+        rc = lib.p256_field_probe(op_i, a.data_ptr(), b.data_ptr(),
+                                  out.data_ptr(), n, iters, block, stream)
+        check(rc == 0, f"field probe launch failed: CUDA error {rc}")
+
+    times = {}
+    for op_i, op in enumerate(PROBE_OPS):
+        fn = [f for f in code if f"probe_kernelILi{op_i}E" in f]
+        check(len(fn) == 1, f"probe SASS for {op}: {sorted(code)}")
+        body = loop_body(code[fn[0]])
+        if op in ("mul", "sqr"):
+            # the card's multiplication and squaring are calls: count
+            # the called function, not the call
+            body = called_body(code[fn[0]], body) or body
+        a, b = words(xs), words(ys)
+        out = torch.empty_like(a)
+        run(op_i, a, b, out, len(xs), 3, 256)
+        torch.cuda.synchronize()
+        got = out.cpu().numpy().view(np.uint32)
+        bad = [k for k in range(len(xs)) if words_to_int(got[:, k])
+               != probe_expect(op, xs[k], ys[k], 3)]
+        check(not bad, f"field probe {op}: {len(bad)} of "
+              f"{len(xs)} results differ from Python ints")
+        us = []
+        iters = 2000
+        for n in (64000, 132 * 32):
+            big_a = a.repeat(1, -(-n // len(xs)))[:, :n].contiguous()
+            big_b = b.repeat(1, -(-n // len(xs)))[:, :n].contiguous()
+            big_out = torch.empty_like(big_a)
+            block = 256 if n > 132 * 32 else 32
+            ms = cuda_ms(lambda: run(op_i, big_a, big_b, big_out, n, iters,
+                                     block), reps)
+            us.append(ms * 1e3 / iters)
+        times[op] = tuple(us)
+        print(f"field probe {op}: {us[0]:.4f} us an operation on a chain "
+              f"at 64000 threads, {us[1]:.4f} us at one warp an SM; == "
+              f"Python ints on {len(xs)} pairs; one operation's SASS: "
+              f"{sass_summary(body)}")
+    return times
+
+
 def compare(name: str, packed_np: dict, device, errs: dict) -> list[bool]:
     """Kernel vs plain version on the same device tensors; returns the
     mask and records, under `name`, the largest |kernel - plain|, the
@@ -401,8 +554,10 @@ def phase_edges(rng, device, errs: dict, n: int = EDGE_LANES) -> None:
     table = pk.dedup_keys(pk.prepare_packed(lanes))
     check("kidx" in table, "edge lanes did not fit the key table")
     table["kidx"][out_of_table] = pk.KEYTAB + 44  # outside the table
-    bad = table["keybad"][table["kidx"][[0, 11, 12, 13, 14]]].tolist()
-    check(bad == [0, 0, 0, 1, 1], f"bad-key flags of the edge keys: {bad}")
+    keyed = [0, 11, 12, 13, *OFF_CURVE_LANES]
+    bad = table["keybad"][table["kidx"][keyed]].tolist()
+    check(bad == [0, 0, 0] + [1] * (len(keyed) - 3),
+          f"bad-key flags of the edge keys: {bad}")
     for packed in (per_lane, table):
         packed["d2"][:, neg_g] = packed["d1"][:, neg_g]
     got_k = compare("p256_verify_keytab", table, device, errs)
@@ -412,8 +567,9 @@ def phase_edges(rng, device, errs: dict, n: int = EDGE_LANES) -> None:
     check(got_l == expect, f"lanekeys kernel vs hostref: "
           f"{[i for i, (a, b) in enumerate(zip(got_l, expect)) if a != b]}")
     # lanes 1-7, 9, the one outside the table, Q = -G, the zero key and
-    # the off-curve key fail; the cand1 lane 8 and Q = G (11) pass
-    check(sum(expect) == n - 12, f"edge cases: {n - sum(expect)} rejected")
+    # the off-curve keys fail; the cand1 lane 8 and Q = G (11) pass
+    check(sum(expect) == n - 11 - len(OFF_CURVE_LANES),
+          f"edge cases: {n - sum(expect)} rejected")
     print(f"edges: {n} lanes, both entry points == plain == hostref "
           f"({n - sum(expect)} rejected)")
 
@@ -532,7 +688,43 @@ def phase_kernels(device, launches: dict, shapes: dict, errs: dict,
         })
         if name == B1_NAME:
             phase_b1(t, packed, ms, reps)
+        else:
+            phase_b2(t, packed, ms, reps)
     return rows
+
+
+def quarter_ladders(words, ok, add_muls: int) -> list:
+    """Per quarter j = 0..3 of the scalars packed in `words`, over the
+    lanes `ok`: (the field multiplications of its 16-window ladder from
+    infinity -- 4 doublings a window after its first nonzero digit and
+    `add_muls` per nonzero digit after that first -- and whether it ends
+    finite)."""
+    shifts = 4 * np.arange(8, dtype=np.uint32)
+    per = 64 // pk.QUARTERS
+    w = np.asarray(words, np.uint32)[:, ok]
+    d = ((w[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(64, -1)
+    out = []
+    for j in range(pk.QUARTERS):
+        nz = d[64 - (j + 1) * per:64 - j * per] != 0  # (per, lanes)
+        live = nz.any(axis=0)
+        first = np.argmax(nz, axis=0)
+        out.append((np.where(live, 4 * MULS_DBL * (per - 1 - first)
+                             + add_muls * (nz.sum(axis=0) - 1), 0), live))
+    return out
+
+
+def split_muls(parts: list, guard: int = 0) -> tuple[float, int]:
+    """(per lane over all 8 threads, the longest chain) of a split
+    kernel whose parts cost `parts` [(muls, finite)] * 8: each thread's
+    guard and part, then warp 0's sum (a full add per finite partial
+    after the first) and the check."""
+    ladders = np.stack([m for m, _ in parts])
+    finite = np.stack([f for _, f in parts])
+    reduce = (MULS_FULL * np.maximum(finite.sum(axis=0) - 1, 0)
+              + FIELD_MULS_FINAL)
+    lanes = ladders.shape[1]
+    total = int(ladders.sum() + reduce.sum()) + pk.QUARTERS * 2 * guard * lanes
+    return total / lanes, int((guard + ladders.max(axis=0) + reduce).max())
 
 
 def b1_kernel_muls(packed: dict) -> tuple[float, int]:
@@ -540,33 +732,50 @@ def b1_kernel_muls(packed: dict) -> tuple[float, int]:
     `packed`, as (per lane over all its threads, the longest chain: a
     lane's longest part, then its reduction and check).  A part copies
     its first nonzero digit's entry, then does 4 doublings a window and a
-    mixed add per nonzero digit; the reduction one full add per finite
-    partial after the first, and the check 3.  Lanes the guard rejects do
-    none.  Unlike `bound`, this is the design's count, not the
-    function's."""
+    mixed add per nonzero digit.  Lanes the guard rejects do none.
+    Unlike `bound`, this is the design's count, not the function's."""
     kidx = np.asarray(packed["kidx"]).astype(np.int64)
     inside = kidx < pk.KEYTAB
     ok = (np.asarray(packed["valid"], bool) & inside
           & (np.asarray(packed["keybad"])[np.where(inside, kidx, 0)] == 0))
-    shifts = 4 * np.arange(8, dtype=np.uint32)
-    per = 64 // pk.QUARTERS
-    ladders, finite = [], []
-    for words in (packed["d1"], packed["d2"]):  # parts over G, then Q
-        w = np.asarray(words, np.uint32)[:, ok]
-        d = ((w[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(64, -1)
-        for j in range(pk.QUARTERS):
-            nz = d[64 - (j + 1) * per:64 - j * per] != 0  # (per, lanes)
-            live = nz.any(axis=0)
-            first = np.argmax(nz, axis=0)
-            ladders.append(np.where(
-                live, 4 * MULS_DBL * (per - 1 - first)
-                + MULS_MIXED * (nz.sum(axis=0) - 1), 0))
-            finite.append(live)
-    ladders = np.stack(ladders)
-    reduce = (MULS_FULL * np.maximum(np.stack(finite).sum(axis=0) - 1, 0)
-              + FIELD_MULS_FINAL)
-    total = int(ladders.sum() + reduce.sum())
-    return total / int(ok.sum()), int((ladders.max(axis=0) + reduce).max())
+    return split_muls(quarter_ladders(packed["d1"], ok, MULS_MIXED)
+                      + quarter_ladders(packed["d2"], ok, MULS_MIXED))
+
+
+def b2_kernel_muls(packed: dict) -> tuple[float, int]:
+    """The same count for the per-lane-key kernel: every thread checks
+    that the lane's key is on the curve; a G part is as in B1; part 4
+    builds the lane's table of Q, for which all four Q parts wait; a Q
+    part with a nonzero digit then runs its ladder with a full add per
+    nonzero digit after the first and doubles the result 64 j times.
+    Lanes the guard rejects do only the check."""
+    keys = zip((words_to_int(w) for w in np.asarray(packed["qx"]).T),
+               (words_to_int(w) for w in np.asarray(packed["qy"]).T))
+    ok = np.asarray(packed["valid"], bool) & np.array(
+        [on_curve(x % P256_P, y % P256_P) for x, y in keys])
+    # the table is on every Q part's chain (the parts run over ok lanes)
+    q_parts = [(np.where(live, m + 4 * MULS_DBL * 16 * j, 0) + MULS_Q_TABLE,
+                live) for j, (m, live) in enumerate(
+                    quarter_ladders(packed["d2"], ok, MULS_FULL))]
+    per_lane, longest = split_muls(
+        quarter_ladders(packed["d1"], ok, MULS_MIXED) + q_parts,
+        guard=MULS_CURVE)
+    # split_muls counted the table once a Q part; part 4 alone builds it
+    return per_lane - (pk.QUARTERS - 1) * MULS_Q_TABLE, longest
+
+
+def lanes_sweep(name: str, t: dict, reps: int, sizes=LANES_SWEEP) -> None:
+    """A kernel's time against the batch size: `t`'s lanes, cut or
+    repeated to each size (the key table, where there is one, kept)."""
+    lanes = t["d1"].shape[1]
+    for size in sizes:
+        copies = -(-size // lanes)
+        sub = {k: v if k in pk.TABLE_KEYS else
+               torch.cat([v] * copies, dim=-1)[..., :size].contiguous()
+               for k, v in t.items()}
+        ms = cuda_ms(lambda sub=sub: pk.verify_packed(sub), reps)
+        print(f"{name} lanes sweep: {size} lanes, kernel {ms:.3f} ms "
+              f"({size / ms * 1e3:.0f} sigs/s)")
 
 
 def phase_b1(t: dict, packed: dict, ms: float, reps: int = TIMING_REPS):
@@ -584,7 +793,8 @@ def phase_b1(t: dict, packed: dict, ms: float, reps: int = TIMING_REPS):
     valid = int(np.asarray(packed["valid"]).sum())
     print(f"{B1_NAME} kernel's own work: {per_lane:.0f} field "
           f"multiplications per lane over all its threads, the longest "
-          f"chain {longest}; the bound counts "
+          f"chain {longest} ({ms * 1e3 / longest:.3f} us a chain "
+          f"multiplication); the bound counts "
           f"{bound_muls(packed) / valid:.0f} per lane (one joint ladder)")
 
     keys = int(np.asarray(packed["keybad"]).size
@@ -605,14 +815,27 @@ def phase_b1(t: dict, packed: dict, ms: float, reps: int = TIMING_REPS):
           f"{full_s * 1e3:.1f} ms ({full_s * 1e3 / pk.KEYTAB:.2f} ms per "
           f"key); {np.prod(pk.QTAB_SHAPE) * 4} B per key")
 
-    for size in B1_SWEEP:
-        copies = -(-size // lanes)
-        sub = {k: v if k in pk.TABLE_KEYS else
-               torch.cat([v] * copies, dim=-1)[..., :size].contiguous()
-               for k, v in t.items()}
-        sweep_ms = cuda_ms(lambda sub=sub: pk.verify_packed(sub), reps)
-        print(f"{B1_NAME} lanes sweep: {size} lanes, kernel {sweep_ms:.3f} "
-              f"ms ({size / sweep_ms * 1e3:.0f} sigs/s)")
+    lanes_sweep(B1_NAME, t, reps)
+
+
+def phase_b2(t: dict, packed: dict, ms: float, reps: int = TIMING_REPS):
+    """B2 beyond its row, on the main path's 300-key batch: the previous
+    design's recorded time, the kernel's own multiplication count and
+    longest chain beside the bound's, and the lanes sweep."""
+    lanes = t["d1"].shape[1]
+    lo, hi = B2_ONE_THREAD_MS
+    print(f"{B2_NAME}: the one-thread-per-signature design took {lo:.3f}-"
+          f"{hi:.3f} ms at 4000 lanes on an H100 80GB HBM3 at 700 W "
+          f"(PERF.md); this run {ms:.3f} ms at {lanes} lanes "
+          f"({lo / ms:.1f}-{hi / ms:.1f}x)")
+    per_lane, longest = b2_kernel_muls(packed)
+    valid = int(np.asarray(packed["valid"]).sum())
+    print(f"{B2_NAME} kernel's own work: {per_lane:.0f} field "
+          f"multiplications per lane over all its threads, the longest "
+          f"chain {longest} ({ms * 1e3 / longest:.3f} us a chain "
+          f"multiplication); the bound counts "
+          f"{bound_muls(packed) / valid:.0f} per lane (one joint ladder)")
+    lanes_sweep(B2_NAME, t, reps)
 
 
 # ---------------------------------------------------------------------------
@@ -1133,6 +1356,8 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     print(f"nvidia-smi: {smi}")
     phase_build()
+    phase_sass()
+    phase_field(device)
     rng = np.random.default_rng(SEED)
     errs: dict = {}
     phase_edges(rng, device, errs)

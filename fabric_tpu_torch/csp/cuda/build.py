@@ -28,6 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 # the kernels' translation units; headers are hashed, not compiled
 SOURCES = ("p256_verify.cu", "bn254_commit.cu")
+# a measurement probe of the P-256 field, built apart (load_probe)
+PROBE = "p256_field_probe.cu"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -155,6 +157,60 @@ def load(name: str = "p256_verify") -> ctypes.CDLL:
         return lib
 
 
+def load_probe() -> tuple[ctypes.CDLL, Path]:
+    """The P-256 field probe (`csrc/p256_field_probe.cu`, a measurement
+    tool, not a kernel of the verify), built at first use; returns the
+    bound library and its path (for `sass`).  Cached by the probe, the
+    headers it includes, the flags and the compiler; raises as
+    `build_all` does."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the field probe cannot be built")
+    out = BUILD_DIR / f"p256_field_probe-{_build_key(PROBE, nvcc)}"
+    path = out / "libp256_field_probe.so"
+    with _lock:
+        if not path.exists():
+            out.mkdir(parents=True, exist_ok=True)
+            tmp = out / f"probe.{os.getpid()}.tmp.so"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / PROBE)]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n$ {' '.join(cmd)}\n"
+                                   f"{proc.stdout}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+    lib.p256_field_probe.argtypes = [_INT] + [_VOID] * 3 + [_INT] * 3 + [_VOID]
+    lib.p256_field_probe.restype = _INT
+    return lib, path
+
+
+def sass(path: Path) -> dict[str, list[str]]:
+    """The SASS of every kernel in the built library `path`, by
+    `cuobjdump -sass` (beside nvcc): {mangled name: ["/*addr*/ OPCODE
+    operands ;", ...]}.  Raises when cuobjdump is missing or fails."""
+    nvcc = find_nvcc()
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.is_file():
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    proc = subprocess.run([str(tool), "-sass", str(path)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {proc.stderr}")
+    out: dict[str, list[str]] = {}
+    name = None
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?;)", line)
+        if m and name is not None:
+            out[name].append(f"/*{m.group(1)}*/ {m.group(2).strip()}")
+    return out
+
+
 def build_log(name: str = "p256_verify") -> str:
     """The compiler's output (with -Xptxas -v) of the last build of
     `name` in this process, or of the cached build it loaded."""
@@ -167,4 +223,5 @@ def build_seconds(name: str = "p256_verify") -> float | None:
     return _seconds.get(name)
 
 
-__all__ = ["build_all", "load", "find_nvcc", "build_log", "build_seconds"]
+__all__ = ["build_all", "load", "load_probe", "sass", "find_nvcc",
+           "build_log", "build_seconds"]

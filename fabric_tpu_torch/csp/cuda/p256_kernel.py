@@ -21,8 +21,10 @@ The plain version reads `ktabx`/`ktaby` only.
 
 `verify_packed` launches `p256_verify_keytab` (replacing
 `pallas_ec._kernel_dedup`) or `p256_verify_lanekeys` (replacing
-`pallas_ec._kernel`) from `csrc/p256_verify.cu` for CUDA tensors, and
-runs `verify_packed_plain` only for CPU tensors.
+`pallas_ec._kernel`) from `csrc/p256_verify.cu` for CUDA tensors, both
+with G's quarter tables (`g_quarter_table`), and runs
+`verify_packed_plain` only for CPU tensors.  The per-lane-key kernel
+builds each lane's table of its key on the card.
 """
 
 from __future__ import annotations
@@ -83,14 +85,6 @@ def consts() -> dict:
         ginf=ginf,
         solmat=solinas_matrix(),
     )
-
-
-@functools.lru_cache(maxsize=None)
-def _gtab(device: str) -> torch.Tensor:
-    """(2, 16, 8) int32 words of the G window table on `device`."""
-    c = consts()
-    g = np.stack([c["gx"], c["gy"]]).astype(np.uint32).view(np.int32)
-    return torch.as_tensor(g, device=device).contiguous()
 
 
 def _quarter_multiples(x: int, y: int) -> list:
@@ -399,9 +393,11 @@ def verify_packed_plain(t: dict) -> torch.Tensor:
 
 
 def _check(t: dict, keytab: bool, device: torch.device) -> int:
-    """Validate what the kernel reads; returns the lane count."""
+    """Validate what the kernel reads, G's quarter tables `gqtab` among
+    it; returns the lane count."""
     b = t["d1"].shape[-1]
-    shapes = {"d1": (8, b), "d2": (8, b), "cand0": (8, b), "flags": (2, b)}
+    shapes = {"d1": (8, b), "d2": (8, b), "cand0": (8, b), "flags": (2, b),
+              "gqtab": QTAB_SHAPE}
     if keytab:
         shapes.update(qtab=(KEYTAB, *QTAB_SHAPE), keybad=(KEYTAB,),
                       kidx=(b,))
@@ -434,7 +430,8 @@ def verify_packed(t: dict) -> torch.Tensor:
 
     lib = build.load()
     keytab = "kidx" in t
-    b = _check(t, keytab, dev)
+    gq = _gqtab(str(dev))
+    b = _check({**t, "gqtab": gq}, keytab, dev)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out
@@ -453,14 +450,13 @@ def verify_packed(t: dict) -> torch.Tensor:
     if keytab:
         rc = lib.p256_verify_keytab(
             ptr(t["qtab"].data_ptr()), ptr(t["keybad"].data_ptr()),
-            ptr(t["kidx"].data_ptr()), *common,
-            ptr(_gqtab(str(dev)).data_ptr()), *tail,
+            ptr(t["kidx"].data_ptr()), *common, ptr(gq.data_ptr()), *tail,
         )
         launches_keytab += 1
     else:
         rc = lib.p256_verify_lanekeys(
             ptr(t["qx"].data_ptr()), ptr(t["qy"].data_ptr()), *common,
-            ptr(_gtab(str(dev)).data_ptr()), *tail,
+            ptr(gq.data_ptr()), *tail,
         )
         launches_lanekeys += 1
     if rc != 0:

@@ -475,13 +475,13 @@ def test_bn254_kernel_reduction_on_host_takes_degenerate_branches(
 _M32 = (1 << 32) - 1
 
 
-def _device_asm(func: str) -> list[str]:
-    """The PTX templates of the asm statements of `func` in the header's
+def _device_asm(func: str, header: str = "bn254_commit.cuh") -> list[str]:
+    """The PTX templates of the asm statements of `func` in `header`'s
     __CUDA_ARCH__ branch, in order."""
-    src = (CSRC / "bn254_commit.cuh").read_text()
+    src = (CSRC / header).read_text()
     start = src.index("#if defined(__CUDA_ARCH__)")
-    dev = src[start:src.index("\n#else", start)]
-    body = dev[dev.index(f"BN_FN void {func}("):]
+    dev = src[start:src.index("\n#else  // the host field", start)]
+    body = dev[dev.index(f"void {func}("):]
     body = body[:body.index("\n}\n")]
     stmts = re.findall(r"asm\((.*?)\);", body, re.S)
     return ["".join(re.findall(r'"((?:[^"\\]|\\.)*)"', st.split(":")[0]))
@@ -576,3 +576,159 @@ def test_bn254_device_field_chains_match_python_ints(op):
         else:
             want = (x * y + (-x * y * pow(P, -1, r) % r) * P) // r
         assert _device_field(op, x, y) == want, (x, y)
+
+
+# -- the P-256 device field (p256_verify.cuh), interpreted ---------------------
+
+P256 = 2**256 - 2**224 + 2**192 + 2**96 - 1
+
+
+def _p256_asm(func: str) -> list[str]:
+    return _device_asm(func, "p256_verify.cuh")
+
+
+def _p256_chain(t: list[int], v: list[int]) -> list[int]:
+    """fe_chain<N>: t[0..N-1] += v[0..N-1] as one carry chain."""
+    return _run_ptx(_p256_asm("fe_chain")[len(t) - 1], t + v)[:len(t)]
+
+
+def _p256_select(w: list[int], hi: int) -> list[int]:
+    d = _run_ptx(_p256_asm("fe_sub_p_select")[0], [0] * 9 + w + [hi])
+    keep = d[8]
+    return [(w[i] & keep) | (d[i] & ~keep & _M32) for i in range(8)]
+
+
+def _p256_chain_calls(func: str) -> list[tuple[str, str, str]]:
+    """The fe_chain<N>(dst + offset, src + offset) calls of `func` in the
+    header's __CUDA_ARCH__ branch, in order, as C expressions (N, offset
+    into dst, offset into src), an empty offset for none."""
+    src = (CSRC / "p256_verify.cuh").read_text()
+    start = src.index("#if defined(__CUDA_ARCH__)")
+    dev = src[start:src.index("\n#else  // the host field", start)]
+    body = dev[dev.index(f"void {func}("):]
+    body = body[:body.index("\n}\n")]
+    return re.findall(r"fe_chain<([^>]+)>\(\w+(?: \+ ([^,]+))?, "
+                      r"\w+(?: \+ ([^)]+))?\)", body)
+
+
+def _c_int(expr: str, **names: int) -> int:
+    """An integer C expression of + and * over `names` (empty: 0)."""
+    return eval(expr or "0", {"__builtins__": {}}, names)
+
+
+# The row loops of fe_mul_wide, fe_sqr_row and fe_sqr_wide are C++, not
+# asm: the two helpers below mirror them, but take every chain's length
+# and word offsets from the header's fe_chain calls, so that a wrong
+# offset or length there fails here too.  What they still mirror by hand
+# is the split of each wide product into its low and high words, the
+# first row's copy in place of a chain, the cross products' doubling by a
+# shift and the squares' layout; those show only on the card
+# (chip_smoke's phase_field checks each operation against Python ints).
+
+
+def _p256_mul_wide(a: list[int], b: list[int]) -> list[int]:
+    """fe_mul_wide: per row, the 8 wide products' low halves chained in
+    at word i, their high halves at word i + 1."""
+    (n_lo, o_lo, _), (n_hi, o_hi, _) = _p256_chain_calls("fe_mul_wide")
+    t = [0] * 16
+    for i in range(8):
+        prods = [a[j] * b[i] for j in range(8)]
+        lo = [x & _M32 for x in prods] + [0]
+        hi = [x >> 32 for x in prods]
+        if i == 0:
+            t[:9] = lo
+        else:
+            o, n = _c_int(o_lo, i=i), _c_int(n_lo, i=i)
+            t[o:o + n] = _p256_chain(t[o:o + n], lo[:n])
+        o, n = _c_int(o_hi, i=i), _c_int(n_hi, i=i)
+        t[o:o + n] = _p256_chain(t[o:o + n], hi[:n])
+    return t
+
+
+def _p256_sqr_wide(a: list[int]) -> list[int]:
+    """fe_sqr_wide: the cross-product rows, doubled by a shift, plus the
+    squares in two chains."""
+    (n_lo, o_lo, _), (n_hi, o_hi, _) = _p256_chain_calls("fe_sqr_row")
+    c = [0] * 16
+    for i in range(7):
+        n = 7 - i
+        prods = [a[i] * a[i + 1 + k] for k in range(n)]
+        lo = [x & _M32 for x in prods] + [0]
+        hi = [x >> 32 for x in prods]
+        if i == 0:
+            c[1:n + 2] = lo
+        else:
+            o, m = _c_int(o_lo, I=i, kN=n), _c_int(n_lo, I=i, kN=n)
+            c[o:o + m] = _p256_chain(c[o:o + m], lo[:m])
+        o, m = _c_int(o_hi, I=i, kN=n), _c_int(n_hi, I=i, kN=n)
+        c[o:o + m] = _p256_chain(c[o:o + m], hi[:m])
+    d = [0] + [((c[i] << 1) | (c[i - 1] >> 31)) & _M32 for i in range(1, 16)]
+    t = []
+    for i in range(8):
+        t += [(a[i] * a[i]) & _M32, (a[i] * a[i]) >> 32]
+    (n_sq, o_sq, _), (n_d, o_t, o_d) = _p256_chain_calls("fe_sqr_wide")
+    o, n = _c_int(o_sq), _c_int(n_sq)
+    t[o:o + n] = _p256_chain(t[o:o + n], (d[:8] + [0])[:n])
+    o, n, od = _c_int(o_t), _c_int(n_d), _c_int(o_d)
+    t[o:o + n] = _p256_chain(t[o:o + n], d[od:od + n])
+    return t
+
+
+def _p256_reduce(c: list[int]) -> list[int]:
+    """fe_reduce_wide's six statements on the 16 words c."""
+    s5p, s_u, s_2u, s_pos, s_neg, s_fold = _p256_asm("fe_reduce_wide")
+    r = _run_ptx(s5p, [0] * 8 + [4] + c[:8])
+    w, top = r[:8], r[8]
+    u = _run_ptx(s_u, [0] * 5 + [0] + c[11:16])[:6]
+    r = _run_ptx(s_2u, w[3:8] + [top] + u)
+    w, top = w[:3] + r[:5], r[5]
+    r = _run_ptx(s_pos, w + [top] + c[8:16])
+    r = _run_ptx(s_neg, r[:9] + c[8:16])
+    w, top = r[:8], r[8]
+    r = _run_ptx(s_fold, w + [0, top])
+    return _p256_select(r[:8], r[8])
+
+
+def _p256_device_field(op: str, x: int, y: int) -> int:
+    """The header's device fe_add / fe_sub / fe_mul / fe_sqr, or
+    fe_reduce_wide on the 512-bit x, interpreted."""
+    a, b = _w(x), _w(y)
+    if op == "add":
+        r = _run_ptx(_p256_asm("fe_add")[0], [0] * 9 + a + b)
+        out = _p256_select(r[:8], r[8])
+    elif op == "sub":
+        t_sub, t_add = _p256_asm("fe_sub")
+        r = _run_ptx(t_sub, [0] * 9 + a + b)
+        out = _run_ptx(t_add, r[:8] + [r[8], r[8] & 1])[:8]
+    elif op == "mul":
+        out = _p256_reduce(_p256_mul_wide(a, b))
+    elif op == "sqr":
+        out = _p256_reduce(_p256_sqr_wide(a))
+    else:
+        out = _p256_reduce([(x >> (32 * i)) & _M32 for i in range(16)])
+    return sum(w << (32 * i) for i, w in enumerate(out))
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "sqr", "reduce"])
+def test_p256_device_field_chains_match_python_ints(op):
+    """The P-256 device branch's carry chains give Python ints' values mod
+    p, canonical: add and sub on canonical operands, the product and the
+    square of any 256-bit words, and the reduction of any 512-bit
+    value."""
+    rng = random.Random(26)
+    if op == "reduce":
+        edges = [0, 1, P256 - 1, P256, P256 * P256 - 1, (P256 - 1) ** 2,
+                 2**256 - 1, 2**256, 2**512 - 1, 2**511, 2**480 - 1]
+        pairs = [(x, 0) for x in edges]
+        pairs += [(rng.randrange(2**512), 0) for _ in range(300)]
+    else:
+        top = P256 if op in ("add", "sub") else 2**256
+        edges = [0, 1, P256 - 1] + ([P256, P256 + 1, 2**256 - 1]
+                                    if top > P256 else [])
+        pairs = [(x, y) for x in edges for y in edges]
+        pairs += [(rng.randrange(top), rng.randrange(top))
+                  for _ in range(300)]
+    for x, y in pairs:
+        want = {"add": x + y, "sub": x - y, "mul": x * y, "sqr": x * x,
+                "reduce": x}[op] % P256
+        assert _p256_device_field(op, x, y) == want, (x, y)

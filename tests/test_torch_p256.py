@@ -11,10 +11,10 @@ comparison is exact: masks, packed words, canonical field values.
 
 The lanes are those of tests/test_pallas_ec.py (valid, tampered digest,
 high-S, r out of range, the cand1 = r + n branch, a zero key), lanes
-crafted for the key-table kernel's split ladders and their reduction
-(Q = G with u1 = u2, Q = -G with equal digits, an off-curve key) and the
-Wycheproof-style corpus of tests/test_wycheproof.py, in one batch, so
-that each Pallas layout compiles once.
+crafted for the kernels' split ladders and their reduction (Q = G with
+u1 = u2, Q = -G with equal digits, three off-curve keys, a padding lane)
+and the Wycheproof-style corpus of tests/test_wycheproof.py, in one
+batch, so that each Pallas layout compiles once.
 """
 
 import pytest
@@ -45,6 +45,12 @@ P = api.P256_P
 N = api.P256_N
 CSRC = Path(pk.__file__).resolve().parent / "csrc"
 OUT_OF_TABLE = 300  # a key index the key table does not hold
+# lanes whose key is a random point off P-256: (name, seed)
+OFF_CURVE = (("off_curve_key", 17), ("off_curve_key_2", 18),
+             ("off_curve_key_3", 19))
+# lanes crafted for the split kernels' guards and their reduction
+CRAFTED = ("q_eq_g", "q_neg_g", "zero_key", *(n for n, _ in OFF_CURVE),
+           "padding")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -144,8 +150,12 @@ def corpus():
     add("q_neg_g", api.P256_GX, P - api.P256_GY, digest,
         hostref.sign(neg_g, digest, np.random.default_rng(5)), True)
     r, s = japi.unmarshal_ecdsa_signature(lanes[0][3])
-    add("off_curve_key", *_off_curve_key(), lanes[0][2],
-        japi.marshal_ecdsa_signature(r, s), False)
+    for name, seed in OFF_CURVE:
+        add(name, *_off_curve_key(seed), lanes[0][2],
+            japi.marshal_ecdsa_signature(r, s), False)
+    # a padding lane, as the provider marks one (invalid DER)
+    add("padding", keys[0].public_key().x, keys[0].public_key().y,
+        lanes[0][2], b"", False)
     wkey = sw.key_gen()
     wpub = wkey.public_key()
     wdigest = hashlib.sha256(b"wycheproof").digest()
@@ -378,6 +388,7 @@ def host_lib(tmp_path_factory):
     lib.p256_host_keytab.argtypes = [vp] * 9 + [i32]
     lib.p256_host_partials.argtypes = [vp] * 9 + [i32]
     lib.p256_host_lanekeys.argtypes = [vp] * 8 + [i32]
+    lib.p256_host_lanekeys_partials.argtypes = [vp] * 8 + [i32]
     lib.p256_host_field.argtypes = [i32, vp, vp, vp, i32]
     return lib
 
@@ -387,19 +398,16 @@ def _ptr(a):
 
 
 def _host_arrays(packed):
-    """The kernel's uint32 arrays of a packed dict: the words, flags, the
-    G tables, and for a key table its quarter tables."""
+    """The kernel's uint32 arrays of a packed dict: the words, flags, G's
+    quarter tables, and for a key table its keys' quarter tables."""
     arr = {k: np.ascontiguousarray(v, np.uint32) for k, v in packed.items()
            if k not in ("cand1_ok", "valid")}
     arr["flags"] = np.ascontiguousarray(
         np.stack([packed["cand1_ok"], packed["valid"]]).astype(np.uint32)
     )
-    c = pk.consts()
-    arr["gtab"] = np.ascontiguousarray(np.stack([c["gx"], c["gy"]]),
-                                       np.uint32)
+    arr["gqtab"] = np.ascontiguousarray(pk.g_quarter_table())
     if "ktabx" in packed:
         arr.update(pk.key_quarter_tables(packed["ktabx"], packed["ktaby"]))
-        arr["gqtab"] = np.ascontiguousarray(pk.g_quarter_table())
     return arr
 
 
@@ -415,7 +423,7 @@ def _host_verdicts(lib, packed):
                              _ptr(out), n)
     else:
         lib.p256_host_lanekeys(_ptr(arr["qx"]), _ptr(arr["qy"]), *common,
-                               _ptr(arr["gtab"]), _ptr(out), n)
+                               _ptr(arr["gqtab"]), _ptr(out), n)
     return [bool(v) for v in out]
 
 
@@ -423,11 +431,38 @@ def _host_verdicts(lib, packed):
 def test_kernel_source_on_host_matches_pallas(layout, layouts, jax_masks,
                                               host_lib):
     """The CUDA kernels' lane code, built for the host, gives the Pallas
-    kernel's verdicts on the same packed inputs: for the key table the
-    split pieces of p256_split.cuh (the parts one after another, then
-    the reduction), for per-lane keys verify_lanekeys."""
+    kernel's verdicts and the plain version's on the same packed inputs:
+    the split pieces of p256_split.cuh (a lane's 8 parts one after
+    another, then the reduction), over the key table's quarter tables or
+    over each lane's own table of its key."""
     packed, _ = layouts[layout]
-    assert _host_verdicts(host_lib, packed) == jax_masks[layout]
+    got = _host_verdicts(host_lib, packed)
+    assert got == jax_masks[layout]
+    plain = pk.verify_packed(convert.packed_from_jax(packed, "cpu"))
+    assert got == plain.tolist()
+
+
+def test_lanekeys_crafted_lanes_on_host_pallas_and_plain(
+        layouts, jax_masks, corpus, host_lib):
+    """The per-lane-key lanes crafted for the split kernel, on the g++
+    build of its pieces, on Pallas interpret and on the plain version:
+    Q = G with u1 = u2 verifies (its reduction doubles), Q = -G with d2 =
+    d1 does not (its partials cancel), and the zero key, the three
+    off-curve keys and the padding lane are rejected (by the guard, before
+    any arithmetic, in the kernel)."""
+    names = corpus[0]
+    packed, expect = layouts["lanekeys"]
+    rows = [names.index(n) for n in CRAFTED]
+    host = _host_verdicts(host_lib, packed)
+    plain = pk.verify_packed(convert.packed_from_jax(packed, "cpu")).tolist()
+    for i in rows:
+        assert host[i] == jax_masks["lanekeys"][i] == plain[i] == expect[i], (
+            names[i])
+    assert [expect[i] for i in rows] == [True] + [False] * (len(rows) - 1)
+    xs, ys = packed["qx"], packed["qy"]
+    for i in rows[2:-1]:  # the keys the guard rejects
+        assert not api.on_curve(limbs.words_to_int(xs[:, i]) % P,
+                                limbs.words_to_int(ys[:, i]) % P)
 
 
 def _ints(words) -> list[int]:
@@ -476,34 +511,22 @@ def test_quarter_tables_match_hostref():
                 assert got == want, (j, d)
 
 
-def test_kernel_partials_on_host_are_the_split_products(layouts, corpus,
-                                                        host_lib):
-    """Each of a lane's 8 partials, made affine, is u_j 2^(64 j) B for
-    the quarter u_j of u1 (B = G) or u2 (B = Q); the crafted lanes meet
-    in the reduction's doubling (Q = G, u1 = u2) and infinity (Q = -G,
-    d2 = d1) branches, and the cand1 lane's G partials (u1 = 0) are at
-    infinity.  Rejected lanes get no partials."""
-    names = corpus[0]
-    table, _ = layouts["keytab"]
-    arr = _host_arrays(table)
-    n = arr["flags"].shape[1]
+def _check_split_partials(names, arr, w, inf, keys, ok):
+    """Each of an accepted lane's 8 partials, made affine, is u_j 2^(64 j)
+    B for the quarter u_j of u1 (B = G) or u2 (B = the lane's key in
+    `keys`); a rejected lane has none (inf 7: untouched).  The crafted
+    lanes meet in the reduction's doubling (Q = G, u1 = u2) and infinity
+    (Q = -G, d2 = d1) branches, and the cand1 lane's G partials (u1 = 0)
+    are at infinity.  Returns the rejected lanes."""
+    n = len(ok)
     split = pk.QUARTERS
-    w = np.zeros(n * 2 * split * 24, np.uint32)
-    inf = np.full(n * 2 * split, 7, np.uint32)  # 7: untouched
-    host_lib.p256_host_partials(
-        _ptr(arr["qtab"]), _ptr(arr["keybad"]), _ptr(arr["kidx"]),
-        _ptr(arr["d1"]), _ptr(arr["d2"]), _ptr(arr["flags"]),
-        _ptr(arr["gqtab"]), _ptr(w), _ptr(inf), n)
     w = w.reshape(n, 2 * split, 24)
     inf = inf.reshape(n, 2 * split)
     width = 256 // split
     u1s, u2s = _scalars(arr["d1"]), _scalars(arr["d2"])
-    kx, ky = _ints(arr["ktabx"]), _ints(arr["ktaby"])
     got = {}
     for lane in range(n):
-        k = int(arr["kidx"][lane])
-        if not (table["valid"][lane] and k < pk.KEYTAB
-                and not arr["keybad"][k]):
+        if not ok[lane]:
             assert (inf[lane] == 7).all(), lane
             continue
         got[lane] = [_affine(w[lane, p], inf[lane, p])
@@ -511,7 +534,7 @@ def test_kernel_partials_on_host_are_the_split_products(layouts, corpus,
         for p, part in enumerate(got[lane]):
             j = p % split
             u, base = ((u1s[lane], (api.P256_GX, api.P256_GY)) if p < split
-                       else (u2s[lane], (kx[k], ky[k])))
+                       else (u2s[lane], keys[lane]))
             digits = (u >> (width * j)) & ((1 << width) - 1)
             assert part == hostref.affine_mul(digits << (width * j), base), (
                 names[lane], p)
@@ -522,10 +545,61 @@ def test_kernel_partials_on_host_are_the_split_products(layouts, corpus,
         a, b = neg[j], neg[split + j]
         assert a == b is None or (a[0] == b[0] and a[1] == P - b[1])
     assert got[names.index("cand1")][:split] == [None] * split
-    skipped = {i for i in range(n) if i not in got}
+    return {i for i in range(n) if i not in got}
+
+
+def _partial_buffers(n):
+    return (np.zeros(n * 2 * pk.QUARTERS * 24, np.uint32),
+            np.full(n * 2 * pk.QUARTERS, 7, np.uint32))  # 7: untouched
+
+
+def test_kernel_partials_on_host_are_the_split_products(layouts, corpus,
+                                                        host_lib):
+    """The key-table kernel's 8 partials of each lane (see
+    _check_split_partials); the lanes its guard rejects are the invalid
+    ones, the zero and off-curve keys (keybad) and the one outside the
+    table."""
+    names = corpus[0]
+    table, _ = layouts["keytab"]
+    arr = _host_arrays(table)
+    n = arr["flags"].shape[1]
+    w, inf = _partial_buffers(n)
+    host_lib.p256_host_partials(
+        _ptr(arr["qtab"]), _ptr(arr["keybad"]), _ptr(arr["kidx"]),
+        _ptr(arr["d1"]), _ptr(arr["d2"]), _ptr(arr["flags"]),
+        _ptr(arr["gqtab"]), _ptr(w), _ptr(inf), n)
+    kx, ky = _ints(arr["ktabx"]), _ints(arr["ktaby"])
+    kidx = arr["kidx"].tolist()
+    ok = [bool(table["valid"][i]) and kidx[i] < pk.KEYTAB
+          and not arr["keybad"][kidx[i]] for i in range(n)]
+    keys = [(kx[k], ky[k]) if k < pk.KEYTAB else None for k in kidx]
+    skipped = _check_split_partials(names, arr, w, inf, keys, ok)
     assert skipped == {i for i in range(n) if not table["valid"][i]} | {
-        names.index("zero_key"), names.index("off_curve_key"),
-        table["kidx"].tolist().index(OUT_OF_TABLE)}
+        names.index("zero_key"), *(names.index(n) for n, _ in OFF_CURVE),
+        kidx.index(OUT_OF_TABLE)}
+
+
+def test_lanekeys_partials_on_host_are_the_split_products(layouts, corpus,
+                                                          host_lib):
+    """The per-lane-key kernel's 8 partials of each lane, its Q parts
+    over the lane's own table scaled by 2^(64 j) (see
+    _check_split_partials); the lanes its guard rejects are the invalid
+    ones and those whose key is not on P-256."""
+    names = corpus[0]
+    packed, _ = layouts["lanekeys"]
+    arr = _host_arrays(packed)
+    n = arr["flags"].shape[1]
+    w, inf = _partial_buffers(n)
+    host_lib.p256_host_lanekeys_partials(
+        _ptr(arr["qx"]), _ptr(arr["qy"]), _ptr(arr["d1"]), _ptr(arr["d2"]),
+        _ptr(arr["flags"]), _ptr(arr["gqtab"]), _ptr(w), _ptr(inf), n)
+    keys = [(x % P, y % P) for x, y in zip(_ints(arr["qx"]),
+                                           _ints(arr["qy"]))]
+    ok = [bool(packed["valid"][i]) and api.on_curve(*keys[i])
+          for i in range(n)]
+    skipped = _check_split_partials(names, arr, w, inf, keys, ok)
+    assert skipped == {i for i in range(n) if not packed["valid"][i]} | {
+        names.index("zero_key"), *(names.index(n) for n, _ in OFF_CURVE)}
 
 
 def test_provider_key_table_after_overflow_matches_plain_on_host(
@@ -572,7 +646,7 @@ def test_provider_key_table_after_overflow_matches_plain_on_host(
     assert out.astype(bool).tolist() == want.tolist()
 
 
-@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "sqr"])
 def test_kernel_field_on_host_matches_python_ints(op, host_lib):
     """The kernel's word arithmetic, operands reduced mod p on load as the
     kernel does (inputs up to 2^256 - 1)."""
@@ -580,7 +654,7 @@ def test_kernel_field_on_host_matches_python_ints(op, host_lib):
     a = np.stack([limbs.int_to_words(x) for x in xs])
     b = np.stack([limbs.int_to_words(y) for y in ys])
     r = np.zeros_like(a)
-    code = ["add", "sub", "mul"].index(op)
+    code = ["add", "sub", "mul", "sqr"].index(op)
     host_lib.p256_host_field(code, _ptr(a), _ptr(b), _ptr(r), len(xs))
     int_op = FIELD_OPS[op][1]
     got = [limbs.words_to_int(w) for w in r]
