@@ -6,7 +6,8 @@
 1. Prints the card's name, and its name and power limit from nvidia-smi.
 2. Builds the kernels from `fabric_tpu_torch/csp/cuda/csrc`, one nvcc
    each, all at once, and prints the build time and the compiler's
-   register/spill/stack summary.
+   register/spill/stack summary; builds the port's C++ host library
+   (`fabric_tpu_torch/native`, g++) and prints the compiler's version.
 3. Counts the SASS of each verify kernel (cuobjdump on the build) and,
    through a probe of the P-256 field (`csrc/p256_field_probe.cu`), the
    SASS and the time on a dependent chain of one field multiplication,
@@ -22,7 +23,9 @@
    up to 6 deep, then one 4000-lane batch over 300 keys (the per-lane-key
    kernel), with launch counts set to 0 just before and read just after
    (the first flush enters the block's keys into the key table and builds
-   their quarter tables inside the timed run).
+   their quarter tables inside the timed run).  Each flush is packed by
+   the C++ packer; each distinct batch is packed again by it and by the
+   numpy `prepare_packed`, timed, and the two held equal array for array.
 5. Times each P-256 kernel at the main path's shapes against its plain
    version, the key-table kernel with its tables already on the card as
    the provider holds them, each beside its previous design's recorded
@@ -33,7 +36,20 @@
    churn past the key table (every flush an overflow reset, to keys seen
    before and to keys never seen) against the same flushes over keys the
    table holds.
-6. Idemix at the idemix MSP's own credential (4 attributes, OU and Role
+6. SHA-256 (B4): drives `CUDACSP.hash_batch` at its callers' shapes (a
+   block's 1000 per-transaction calls of three endorsement messages, a
+   snapshot export's call over its five files), where hashlib answers and
+   B4 must launch no time; then a batch wide enough for the card route
+   (4000 messages of 1,000-4,500 bytes, a shape no caller sends today)
+   with the launch count set to 0 just before and read just after.
+   Holds the kernel against hashlib on that batch, on the edge lengths
+   0-120 bytes, 1 MiB and 1 MiB + 1, and on the snapshot's files, and
+   against sha256_plain on the card on every message of at most 4,500
+   bytes; times the kernel, the whole hash_batch call and hashlib on the
+   wide batch, the kernel and hashlib on the snapshot's files, and both
+   routes of hash_batch against its routing rule on batches either side
+   of the rule's boundary.
+7. Idemix at the idemix MSP's own credential (4 attributes, OU and Role
    disclosed, one issuer key): times the build of the shared bases' comb
    (once per issuer key); holds the BN254 Schnorr-commitment kernel
    against its plain version, word for word, and against the host
@@ -42,13 +58,15 @@
    branches; verifies a 1024-signature batch through
    `IdemixCSP.verify_batch` on the card with the launch counts (calls and
    kernel launches) set to 0 just before and read just after, and a
-   16-signature batch with a forged pairing; splits the batch's wall time
+   16-signature batch with a forged pairing, whose MSMs and pairing
+   checks the C++ library and the pure-Python functions must agree on;
+   splits the batch's wall time
    by stage; times both paths at 1 to 256 signatures (the crossover);
    times the kernel at 1024 lanes, prints its own count of field
    multiplications beside the bound's, and sweeps it over 32 to 4096
    lanes.
-7. Prints one JSON line of kernels, then `{"ok": true, "device": {...}}`
-   as its last line.
+8. Prints one JSON line of kernels (B1-B4), then `{"ok": true,
+   "device": {...}}` as its last line.
 
 Exits non-zero, before printing any result, on a host without CUDA; any
 failed phase raises.  Inputs are made from a seed (numpy for P-256,
@@ -63,6 +81,7 @@ import hashlib
 import json
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,6 +90,7 @@ import time
 import numpy as np
 import torch
 
+from fabric_tpu_torch import native
 from fabric_tpu_torch.csp import hostref
 from fabric_tpu_torch.csp.api import (
     P256_B,
@@ -90,8 +110,9 @@ from fabric_tpu_torch.csp.cuda import bn254_batch as bb
 from fabric_tpu_torch.csp.cuda import bn254_kernel as bk
 from fabric_tpu_torch.csp.cuda import build
 from fabric_tpu_torch.csp.cuda import p256_kernel as pk
+from fabric_tpu_torch.csp.cuda import sha256 as sha
 from fabric_tpu_torch.csp.cuda.limbs import int_to_words, words_to_int
-from fabric_tpu_torch.csp.cuda.provider import CUDACSP
+from fabric_tpu_torch.csp.cuda.provider import CUDACSP, hash_on_card
 from fabric_tpu_torch.csp.idemix_provider import IdemixCSP, IdemixVerifyItem
 from fabric_tpu_torch.idemix import bn254 as bn
 from fabric_tpu_torch.idemix import schnorr
@@ -173,6 +194,42 @@ B3_ONE_THREAD_MS = (30.712, 31.350)
 B3_NAME = "bn254_commitments"
 B3_SOURCE = "fabric_tpu_torch/csp/cuda/csrc/bn254_commit.cu"
 B3_REPLACES = "fabric_tpu/csp/tpu/pallas_bn254.py:408"
+# B4, SHA-256: the kernel, what it replaces, and the batches it hashes.
+B4_NAME = "sha256_digests"
+B4_SOURCE = "fabric_tpu_torch/csp/cuda/csrc/sha256.cu"
+B4_REPLACES = "fabric_tpu/csp/tpu/sha256.py:82"
+HASH_EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 1 << 20, (1 << 20) + 1)
+# What hash_batch's callers send (fabric_tpu/peer/txvalidator.py:436-439,
+# fabric_tpu/ledger/snapshot.py:341): per transaction one call over its
+# endorsements' messages, the proposal-response payload with the
+# endorser's identity (1,000-1,800 bytes); per snapshot export one call
+# over its five data files, at the sizes scripts/bench_snapshot.py's
+# default export writes (200 blocks of 20 transactions).
+HASH_TXS = 1000
+HASH_RESPONSE_BYTES = (1000, 1800)
+HASH_SNAPSHOT_FILES = (23898, 0, 0, 2411560, 79800)
+# A batch wide enough for hash_batch's card route: 4000 messages of
+# 1,000-4,500 bytes, the lengths of a block's endorsement messages and
+# envelope payloads.  No caller sends such a batch today; it drives
+# hash_batch onto B4, where the kernel is counted and timed.
+HASH_WIDE_MSGS = 4000
+HASH_WIDE_BYTES = (1000, 4500)
+# hash_batch's routing rule held against both routes' times: batches of
+# (count) equal-length (bytes) messages either side of its boundary
+HASH_ROUTE_SHAPES = ((55, 256), (55, 1024), (55, 2048), (55, 8192),
+                     (2000, 64), (2000, 128), (2000, 256), (2000, 512),
+                     (64 << 10, 64), (64 << 10, 128), (64 << 10, 256),
+                     (1 << 20, 64), (1 << 20, 128), (1 << 20, 256))
+# The plain version runs one 64-round step of tensor operations per block
+# of the longest message, so it is held against the kernel on messages of
+# at most this many bytes (every message of the wide batch and the edge
+# lengths up to 120); the 1 MiB edge messages and the snapshot's public
+# state are held against hashlib.
+HASH_PLAIN_MAX_BYTES = 4500
+# 32-bit integer operations of one compression: 64 rounds of ~25 and 48
+# schedule steps of ~13
+SHA_OPS_PER_COMPRESSION = 64 * 25 + 48 * 13
+
 # BN254 field multiplications: a mixed add 11, a full add 16, a doubling
 # 7; a CIOS product at R = 2^256 is 64 32x32->64-bit multiply-adds for
 # the product and 8 x 9 for the reduction.
@@ -632,20 +689,35 @@ def phase_main(rng, device, n_txs: int = N_TXS, n_blocks: int = N_BLOCKS,
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path did not launch: {launches}")
     lanes = n_blocks * len(block)
-    t1 = time.perf_counter()
-    pk.prepare_packed(pk.lane_tuples(block))
-    pack_s = time.perf_counter() - t1
+    # the packer of the main path (C++) against its plain version (numpy)
+    # on every distinct batch the main path packed
+    pack_ms = []
+    for name, items in (("block", block), ("bad block", bad_block),
+                        ("300-key batch", spread)):
+        t1 = time.perf_counter()
+        got = pk.pack_items(items)
+        native_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        want = pk.prepare_packed(pk.lane_tuples(items))
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        same = sorted(got) == sorted(want) and all(
+            np.array_equal(got[k], want[k]) for k in want)
+        check(same, f"packing ({name}): native != prepare_packed")
+        pack_ms.append(native_ms)
+        print(f"packing {name} ({len(items)} lanes): native "
+              f"{native_ms:.2f} ms, plain prepare_packed {plain_ms:.1f} ms; "
+              f"equal arrays")
     dispatch_s = csp.dispatch_seconds * len(block) / csp.dispatched_lanes
     print(f"main path: {n_blocks} blocks x {len(block)} lanes in "
           f"{block_s * 1e3:.1f} ms = {lanes / block_s:.0f} lanes/s "
           f"({n_blocks * n_txs / block_s:.0f} tx/s); host dispatch "
-          f"{dispatch_s * 1e3:.1f} ms per block (packing one block alone: "
-          f"{pack_s * 1e3:.1f} ms); 300-key batch {len(spread)} lanes in "
-          f"{spread_s * 1e3:.1f} ms; launches {launches}")
+          f"{dispatch_s * 1e3:.1f} ms per block (packing one block alone, "
+          f"native: {pack_ms[0]:.2f} ms); 300-key batch {len(spread)} lanes "
+          f"in {spread_s * 1e3:.1f} ms; launches {launches}")
     # the kernels' inputs as the provider forms them: a flush coalesces
     # two blocks (coalesce_lanes 6144), the 300-key batch stays alone
-    flush = pk.dedup_keys(pk.prepare_packed(pk.lane_tuples(block + block)))
-    wide = pk.dedup_keys(pk.prepare_packed(pk.lane_tuples(spread)))
+    flush = pk.dedup_keys(pk.pack_items(block + block))
+    wide = pk.dedup_keys(pk.pack_items(spread))
     check("kidx" in flush and "kidx" not in wide, "unexpected key layouts")
     walls = {"p256_verify_keytab": block_s, "p256_verify_lanekeys": spread_s}
     return launches, walls, {"p256_verify_keytab": flush,
@@ -1093,6 +1165,7 @@ def phase_idemix_main(world: IdemixWorld, device,
           f"forged-pairing batch: mask {mask}")
     print(f"idemix forged pairing: {FORGED_BATCH} signatures in "
           f"{forged_s:.3f} s (combined check fails, one pairing per lane)")
+    native_vs_python(small, ipk)
 
     # the same batch again, stage by stage
     sigs = [it.sig for it in items]
@@ -1122,7 +1195,7 @@ def phase_idemix_main(world: IdemixWorld, device,
     stages["challenge re-hash"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mask2 = isig._pairing_mask(sigs, ok2, ipk, random.Random(SEED))
-    stages["RLC MSM + two pairings"] = time.perf_counter() - t0
+    stages["RLC MSM + two pairings (C++)"] = time.perf_counter() - t0
     check(mask2 == mask_of(n, bad), "stage-by-stage mask differs")
     total = sum(stages.values())
     print(f"idemix wall split ({n} signatures, {total:.3f} s in all; "
@@ -1132,6 +1205,43 @@ def phase_idemix_main(world: IdemixWorld, device,
     return {"launches": launches, "tensors": t, "packed": packed,
             "n_shared": len(bb.shared_points(ipk)), "wall": wall,
             "kernel_ms": kernel_ms}
+
+
+def native_vs_python(items, ipk) -> None:
+    """The C++ MSM and pairing check against the pure-Python functions on
+    the forged-pairing batch's inputs to `signature._pairing_mask`: the
+    two RLC MSMs, the combined check (fails) and the per-signature
+    checks (only the forged one fails)."""
+    sigs = [it.sig for it in items]
+    rng = random.Random(SEED)
+    weights = [bn.rand_zr(rng) for _ in sigs]
+    times = {"native": 0.0, "python": 0.0}
+
+    def both(fn_native, fn_python, *args):
+        out = []
+        for key, fn in (("native", fn_native), ("python", fn_python)):
+            t0 = time.perf_counter()
+            out.append(fn(*args))
+            times[key] += time.perf_counter() - t0
+        check(out[0] == out[1], f"native {fn_native.__name__} != Python")
+        return out[0]
+
+    acc = [both(bn.g1_msm, bn._g1_msm_py,
+                [(getattr(s, f), w) for s, w in zip(sigs, weights)])
+           for f in ("a_prime", "a_bar")]
+    one = lambda pairs: bn.multi_pairing(pairs) == bn.FP12_ONE  # noqa: E731
+    check(not both(bn.pairing_check, one,
+                   [(acc[0], ipk.w), (bn.g1_neg(acc[1]), bn.G2_GEN)]),
+          "the forged batch's combined pairing check passed")
+    per_sig = [both(bn.pairing_check, one,
+                    [(s.a_prime, ipk.w), (bn.g1_neg(s.a_bar), bn.G2_GEN)])
+               for s in sigs]
+    check([j for j, v in enumerate(per_sig) if not v] == [7],
+          f"per-signature pairings: {per_sig}")
+    print(f"idemix native vs Python on the forged batch's inputs: 2 MSMs of "
+          f"{len(sigs)} terms and {1 + len(sigs)} pairing checks equal; "
+          f"native {times['native'] * 1e3:.1f} ms, Python "
+          f"{times['python'] * 1e3:.1f} ms")
 
 
 def mask_of(n: int, bad) -> list[bool]:
@@ -1290,6 +1400,223 @@ def phase_b3_sweep(t: dict, sizes=B3_SWEEP, reps: int = TIMING_REPS):
               f"({size / ms * 1e3:.0f} sigs/s)")
 
 
+def random_messages(rng, lens) -> list[bytes]:
+    raw = rng.integers(0, 256, int(np.sum(lens)), dtype=np.uint8).tobytes()
+    ends = np.cumsum(lens)
+    return [raw[e - int(n):e] for e, n in zip(ends, lens)]
+
+
+def b4_bound(msgs) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for hashing `msgs`: the
+    messages and their offsets read once and the digests written once over
+    the HBM rate, against the compressions they need times the integer
+    operations of one over the 32-bit peak."""
+    lens = np.array([len(m) for m in msgs], np.int64)
+    compressions = int(((lens + 9 + 63) // 64).sum())
+    t_ops = compressions * SHA_OPS_PER_COMPRESSION / OPS_PER_S_32BIT * 1e3
+    nbytes = int(lens.sum()) + 8 * (len(msgs) + 1) + 32 * len(msgs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median milliseconds of fn() on the host clock (after a warm-up),
+    each run ending in a synchronise."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def hashlib_digests(msgs) -> list[bytes]:
+    return [hashlib.sha256(m).digest() for m in msgs]
+
+
+def upload_messages(msgs, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's inputs: the messages joined on the card, their
+    offsets pinned on the host."""
+    buf, offs = sha.join_messages(msgs)
+    return (torch.as_tensor(buf.copy(), device=device),
+            torch.from_numpy(offs).pin_memory())
+
+
+def compare_b4(name: str, msgs, device, errs: dict) -> list[bytes]:
+    """B4 on `msgs` against hashlib and, for messages of at most
+    HASH_PLAIN_MAX_BYTES, against sha256_plain on the same card; records
+    the largest |kernel - plain| digest word and the mismatches."""
+    t_buf, t_offs = upload_messages(msgs, device)
+    got = sha.sha256_digests(t_buf, t_offs).cpu().numpy()
+    digests = [row.tobytes() for row in got]
+    want = hashlib_digests(msgs)
+    seen = errs.setdefault(B4_NAME, {"max_abs_err": 0, "mismatches": 0,
+                                     "lanes": 0, "plain_lanes": 0})
+    wrong = [i for i, (a, b) in enumerate(zip(digests, want)) if a != b]
+    seen["mismatches"] += len(wrong)
+    seen["lanes"] += len(msgs)
+    check(not wrong, f"{name}: B4 != hashlib on messages {wrong[:8]}")
+    short = [i for i, m in enumerate(msgs) if len(m) <= HASH_PLAIN_MAX_BYTES]
+    if short:
+        words, nblk = sha.pad_messages([msgs[i] for i in short])
+        plain = sha.sha256_plain(
+            torch.as_tensor(words.astype(np.int64), device=device),
+            torch.as_tensor(nblk, device=device)).cpu().numpy()
+        kern = got[short].view(">u4").astype(np.int64)
+        err = int(np.abs(kern - plain).max())
+        seen["max_abs_err"] = max(seen["max_abs_err"], err)
+        seen["plain_lanes"] += len(short)
+        check(err == 0, f"{name}: B4 != sha256_plain on "
+              f"{int((kern != plain).any(axis=1).sum())} messages")
+    print(f"{B4_NAME} {name}: {len(msgs)} messages of {min(map(len, msgs))}"
+          f"-{max(map(len, msgs))} bytes == hashlib, {len(short)} of them "
+          f"== sha256_plain on the card")
+    return digests
+
+
+def phase_hash_callers(rng, csp: CUDACSP, n_txs: int = HASH_TXS,
+                       files=HASH_SNAPSHOT_FILES,
+                       reps: int = TIMING_REPS) -> None:
+    """hash_batch at its callers' shapes, counted: a block's per-
+    transaction calls over three endorsement messages each, and a
+    snapshot export's call over its five files.  Both stay under
+    min_device_batch, so hashlib answers and B4 does not run; each is
+    timed beside the hashlib loop that the parent's hash_batch was."""
+    txs = [random_messages(rng, rng.integers(
+        HASH_RESPONSE_BYTES[0], HASH_RESPONSE_BYTES[1] + 1, ENDORSERS))
+        for _ in range(n_txs)]
+    snapshot = random_messages(rng, np.array(files))
+    for name, calls in (("per-transaction endorsements", txs),
+                        ("snapshot export", [snapshot])):
+        sha.launches_sha256 = 0
+        got = [csp.hash_batch(msgs) for msgs in calls]
+        launches = sha.launches_sha256
+        check(got == [hashlib_digests(m) for m in calls],
+              f"hash_batch != hashlib at the {name} shape")
+        check(launches == 0, f"{B4_NAME} launched {launches} times at the "
+              f"{name} shape, under min_device_batch")
+        call_ms = host_ms(lambda: [csp.hash_batch(m) for m in calls], reps)
+        lib_ms = host_ms(lambda: [hashlib_digests(m) for m in calls], reps)
+        print(f"hash callers, {name}: {len(calls)} hash_batch calls of "
+              f"{len(calls[0])} messages, {sum(map(len, sum(calls, [])))} "
+              f"bytes: {launches} launches of {B4_NAME} (hashlib answers); "
+              f"hash_batch {call_ms:.3f} ms, hashlib loop {lib_ms:.3f} ms")
+
+
+def phase_hash_route(rng, device, shapes=HASH_ROUTE_SHAPES,
+                     reps: int = TIMING_REPS) -> None:
+    """hash_batch's routing rule (`provider.hash_on_card`) against both
+    routes' times, the card's (`sha256_batch`: join, upload, B4,
+    readback) and hashlib's, on batches either side of its boundary."""
+    wrong = 0
+    for length, n in shapes:
+        msgs = random_messages(rng, np.full(n, length))
+        card = host_ms(lambda: sha.sha256_batch(msgs, device), reps)
+        lib = host_ms(lambda: hashlib_digests(msgs), reps)
+        rule = "card" if hash_on_card(msgs) else "hashlib"
+        faster = "card" if card < lib else "hashlib"
+        wrong += rule != faster
+        blocks = (length + 72) >> 6
+        print(f"hash route: {n} x {length} bytes ({n * blocks} "
+              f"compressions, longest {blocks}): card {card:.3f} ms, "
+              f"hashlib {lib:.3f} ms; rule takes {rule}, {faster} faster")
+    print(f"hash route: the rule took the slower route on {wrong} of "
+          f"{len(shapes)} shapes")
+
+
+def phase_sha256(rng, device, errs: dict, n_wide: int = HASH_WIDE_MSGS,
+                 edge_lengths=HASH_EDGE_LENGTHS,
+                 files=HASH_SNAPSHOT_FILES, reps: int = TIMING_REPS,
+                 plain_reps: int = PLAIN_REPS) -> dict:
+    """B4: hash_batch at its callers' shapes (hashlib answers); the wide
+    batch through `CUDACSP.hash_batch` on the card, counted; the kernel
+    against hashlib and sha256_plain on the edge lengths, the wide batch
+    and the snapshot's files; the kernel (CUDA events), the whole
+    hash_batch call and hashlib timed on the wide batch, the kernel and
+    hashlib on the snapshot's files; the routing rule against both
+    routes.  Returns the kernels-line row."""
+    csp = CUDACSP(device=device)
+    phase_hash_callers(rng, csp)
+    edge = random_messages(rng, np.array(edge_lengths))
+    wide = random_messages(rng, rng.integers(
+        HASH_WIDE_BYTES[0], HASH_WIDE_BYTES[1] + 1, n_wide))
+    snapshot = random_messages(rng, np.array(files))
+    check(hash_on_card(wide), "the wide batch does not take the card route")
+    sha.launches_sha256 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = csp.hash_batch(wide)
+    wall = time.perf_counter() - t0
+    launches = sha.launches_sha256
+    check(launches > 0, f"{B4_NAME} did not launch on the card route")
+    check(got == hashlib_digests(wide), "hash_batch != hashlib on the "
+          "wide batch")
+    print(f"hash card route: CUDACSP.hash_batch of {n_wide} messages "
+          f"({sum(map(len, wide))} bytes) in {wall * 1e3:.1f} ms, "
+          f"{launches} launches of {B4_NAME}; == hashlib")
+    compare_b4("edges", edge, device, errs)
+    compare_b4("wide", wide, device, errs)
+    compare_b4("snapshot files", snapshot, device, errs)
+
+    t_buf, t_offs = upload_messages(wide, device)
+    ms = cuda_ms(lambda: sha.sha256_digests(t_buf, t_offs), reps)
+    call_ms = host_ms(lambda: csp.hash_batch(wide), reps)
+    lib_ms = host_ms(lambda: hashlib_digests(wide), reps)
+    bound_ms, bound_by = b4_bound(wide)
+    nbytes = sum(map(len, wide))
+    print(f"{B4_NAME} wide: {n_wide} messages, {nbytes} bytes: kernel "
+          f"{ms:.3f} ms ({nbytes / ms / 1e6:.2f} GB/s), hash_batch "
+          f"{call_ms:.3f} ms, hashlib {lib_ms:.3f} ms "
+          f"({nbytes / lib_ms / 1e6:.2f} GB/s), bound {bound_ms:.4f} ms "
+          f"({bound_by}, {ms / bound_ms:.0f}x)")
+    s_buf, s_offs = upload_messages(snapshot, device)
+    s_ms = cuda_ms(lambda: sha.sha256_digests(s_buf, s_offs), reps)
+    s_lib = host_ms(lambda: hashlib_digests(snapshot), reps)
+    print(f"{B4_NAME} snapshot files: {len(snapshot)} files, "
+          f"{sum(map(len, snapshot))} bytes: kernel {s_ms:.3f} ms, hashlib "
+          f"{s_lib:.3f} ms (one thread a file; hash_batch takes hashlib)")
+    words, nblk = sha.pad_messages(wide)
+    t_words = torch.as_tensor(words.astype(np.int64), device=device)
+    t_nblk = torch.as_tensor(nblk, device=device)
+    plain_ms = cuda_ms(lambda: sha.sha256_plain(t_words, t_nblk), plain_reps)
+    print(f"{B4_NAME}: sha256_plain on the wide batch {plain_ms:.1f} ms "
+          f"({words.shape[1]} lockstep block steps)")
+    phase_hash_route(rng, device)
+    seen = errs[B4_NAME]
+    print(f"{B4_NAME}: {seen['mismatches']} mismatches in {seen['lanes']} "
+          f"messages against hashlib, max |kernel - plain| "
+          f"{seen['max_abs_err']} on {seen['plain_lanes']}")
+    return {
+        "name": B4_NAME,
+        "route": "cuda",
+        "source": B4_SOURCE,
+        "replaces": B4_REPLACES,
+        "launches": launches,
+        "max_abs_err": seen["max_abs_err"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes SHA-256
+        "hashlib_ms": lib_ms,
+    }
+
+
+def phase_native() -> None:
+    """The port's C++ host library builds with the host's g++ and loads."""
+    gxx = shutil.which("g++")
+    check(gxx is not None, "no g++ on this host")
+    version = subprocess.run([gxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    path = native.build()
+    native.load()
+    print(f"native: {version}; {path.name} ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_churn(rng, device, n_keys: int = CHURN_KEYS,
                 lanes: int = CHURN_LANES, flushes: int = CHURN_FLUSHES):
     """Traffic whose keys churn past the key table (many client
@@ -1356,6 +1683,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     print(f"nvidia-smi: {smi}")
     phase_build()
+    phase_native()
     phase_sass()
     phase_field(device)
     rng = np.random.default_rng(SEED)
@@ -1371,6 +1699,7 @@ def main() -> int:
         print(f"{row['name']}: device busy ~{busy:.1f} ms of the "
               f"{wall:.1f} ms wall ({busy / wall:.1%}; launches x kernel ms)")
     phase_churn(rng, device)
+    rows.append(phase_sha256(rng, device, errs))
 
     t0 = time.perf_counter()
     world = idemix_world(SEED)

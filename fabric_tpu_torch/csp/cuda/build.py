@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 # the kernels' translation units; headers are hashed, not compiled
-SOURCES = ("p256_verify.cu", "bn254_commit.cu")
+SOURCES = ("p256_verify.cu", "bn254_commit.cu", "sha256.cu")
 # a measurement probe of the P-256 field, built apart (load_probe)
 PROBE = "p256_field_probe.cu"
 
@@ -56,6 +56,10 @@ _SIGNATURES = {
             _INT,
         ),
         "bn254_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "sha256": {
+        "sha256_digests": ([_VOID, _VOID, _INT, _VOID, _VOID], _INT),
+        "sha256_error_string": ([_INT], ctypes.c_char_p),
     },
 }
 

@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from fabric_tpu_torch import native
 from fabric_tpu_torch.csp import hostref
 from fabric_tpu_torch.csp.api import (
     P256_GX,
@@ -157,8 +158,37 @@ def _gqtab(device: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Host packing (numpy; copies of pallas_ec.prepare_packed / dedup_keys).
+# Host packing: the C++ packer of the main path, and its plain version
+# (numpy; copies of pallas_ec.prepare_packed / dedup_keys).
 # ---------------------------------------------------------------------------
+
+
+def pack_items(items) -> dict:
+    """VerifyBatchItems -> the packed numpy dict, through the port's C++
+    packer (`native.marshal_batch`: DER parse, prechecks, one batch
+    inversion, digits), as `TPUCSP._marshal_native` packs.  Its plain
+    version is `prepare_packed(lane_tuples(items))`, array for array: a
+    lane whose digest is not 32 bytes goes in with a zero digest and no
+    signature, so the packer marks it invalid and packs it as it packs
+    every invalid lane.  Raises where the library cannot build."""
+    xs, ys, digs, sigs = [], [], [], []
+    offs = np.zeros(len(items) + 1, np.int32)
+    for i, it in enumerate(items):
+        key = it.key
+        if getattr(key, "is_private", False):
+            key = key.public_key()
+        xs.append(key.x_bytes)
+        ys.append(key.y_bytes)
+        sig = it.signature
+        if len(it.digest) == 32:
+            digs.append(it.digest)
+        else:
+            digs.append(bytes(32))
+            sig = b""
+        sigs.append(sig)
+        offs[i + 1] = offs[i] + len(sig)
+    return native.marshal_batch(b"".join(xs), b"".join(ys), b"".join(digs),
+                                b"".join(sigs), offs)
 
 
 def lane_tuples(items) -> list[tuple]:
@@ -475,6 +505,7 @@ __all__ = [
     "consts",
     "key_quarter_tables",
     "g_quarter_table",
+    "pack_items",
     "lane_tuples",
     "prepare_packed",
     "dedup_keys",

@@ -15,8 +15,20 @@ its end.  Only a collector waits, on that event.  There is no fallback:
 a kernel that fails to build or launch, or a CUDA error, propagates out
 of the collector.
 
+Each flush is packed by the port's C++ host library
+(`fabric_tpu_torch.native.marshal_batch`: DER parse, prechecks, one
+batch inversion, the digits), as `TPUCSP._marshal_native` packs; the
+numpy `p256_kernel.prepare_packed` is its plain version.
+
+`hash_batch` hashes on the card (`sha256.sha256_digests`, kernel B4) from
+`min_device_batch` messages up, as `TPUCSP.hash_batch` does, but only for
+a batch wide enough that one thread a message beats hashlib
+(`hash_on_card`); hashlib answers the rest, and `hash` of one message.
+A hash kernel that fails to build or launch raises: unlike the
+reference, no hashlib fallback.
+
 Key generation and signing are host-side, in `hostref` (the reference's
-hot path is verification at commit time).  Hashing is `hashlib`.
+hot path is verification at commit time).
 """
 
 from __future__ import annotations
@@ -37,13 +49,35 @@ from fabric_tpu_torch.csp.api import (
     P256PublicKey,
     VerifyBatchItem,
 )
-from fabric_tpu_torch.csp.cuda import p256_kernel
+from fabric_tpu_torch.csp.cuda import p256_kernel, sha256
 
 # Largest single kernel launch.  The TPU's bucket padding is gone: a CUDA
 # kernel is not recompiled per shape and masks its own ragged edge, so a
 # chunk is exactly its lanes.  The limit is the JAX package's, not yet
 # re-swept on the card.
 _MAX_CHUNK = 8192
+
+
+# hash_batch's route.  B4 hashes each message on one thread, so a launch
+# lasts as long as the longest message's chain of compressions (~2.6 us
+# each), while hashlib's time is the sum of every message's (~0.06 us
+# each, and ~0.8 us a message); the card's route also pays for the join,
+# the pinned copy, the upload and the readback (~0.2 ms, then ~0.4 us a
+# message and ~0.02-0.04 us a compression).  The card takes a batch only
+# when its compressions outnumber the longest message's HASH_WIDTH times
+# over, plus HASH_FIXED; where the two routes come close, hashlib keeps
+# the batch.  (NVIDIA H100 80GB HBM3, 700 W: `chip_smoke.py`'s routing
+# check, PERF.md.)
+HASH_WIDTH = 192
+HASH_FIXED = 1024
+
+
+def hash_on_card(msgs: Sequence[bytes], min_device_batch: int = 16) -> bool:
+    """Whether `hash_batch` sends `msgs` to the card (else hashlib)."""
+    if len(msgs) < min_device_batch:
+        return False
+    blocks = [(len(m) + 72) >> 6 for m in msgs]  # compressions, padding in
+    return sum(blocks) >= HASH_WIDTH * max(blocks) + HASH_FIXED
 
 
 def _chunk_plan(n: int, max_chunk: int = _MAX_CHUNK) -> list[int]:
@@ -307,6 +341,11 @@ class CUDACSP(CSP):
         return hashlib.sha256(msg).digest()
 
     def hash_batch(self, msgs: Sequence[bytes]) -> list[bytes]:
+        """Digests of `msgs`: B4 on this provider's device where
+        `hash_on_card` says so (no bucket padding: the kernel takes any
+        count and lengths, 8192 messages a launch), else hashlib."""
+        if hash_on_card(msgs, self._min_device_batch):
+            return sha256.sha256_batch(msgs, self.device)
         return [hashlib.sha256(m).digest() for m in msgs]
 
     # -- verification ------------------------------------------------------
@@ -382,7 +421,7 @@ class CUDACSP(CSP):
         self._inflight.append(res)
 
     def _dispatch(self, items) -> _FlushResult:
-        packed = p256_kernel.prepare_packed(p256_kernel.lane_tuples(items))
+        packed = p256_kernel.pack_items(items)
         shared = None
         kidx = self._key_table.assign([
             it.key.public_key() if getattr(it.key, "is_private", False)

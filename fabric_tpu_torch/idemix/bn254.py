@@ -3,10 +3,13 @@
 
 The same primitive set as the JAX package's module — G1/G2 group ops,
 scalar multiplication, and the optimal-ate pairing e: G1 x G2 -> GT — on
-the standard BN254 curve (aka alt_bn128), entirely from the curve
-equations.  The JAX package serves G1 multiplications, MSMs and pairing
-checks from its C++ library when it is built; the port has no C++ BN254
-yet, so every function here takes the Python path.
+the standard BN254 curve (aka alt_bn128), from the curve equations.  As
+in the JAX package, G1 multiplications, MSMs and pairing checks go to the
+C++ host library (`fabric_tpu_torch.native`: bn254.cc, pairing.cc); the
+pure-Python ladders and towers stay, under the JAX package's names
+(`_g1_mul_py`, `_g1_msm_py`, `multi_pairing`), as their parity oracles.
+Unlike the JAX package there is no fallback to them: where the library
+cannot build, those functions raise.
 
     Fp:   y^2 = x^3 + 3,              p = 36u^4 + 36u^3 + 24u^2 + 6u + 1
     Fp2:  y^2 = x^3 + 3/(9+i)         (D-type sextic twist)
@@ -25,6 +28,8 @@ from __future__ import annotations
 
 import hashlib
 import secrets
+
+from fabric_tpu_torch import native
 
 # --- BN254 parameters -------------------------------------------------------
 
@@ -306,8 +311,9 @@ def g1_neg(p1):
     return (p1[0], -p1[1] % P)
 
 
-def g1_mul(p1, k: int):
-    """Affine double-and-add."""
+def _g1_mul_py(p1, k: int):
+    """Pure-Python affine double-and-add: the parity oracle of the native
+    backend."""
     if p1 is None:
         return None
     k %= R
@@ -321,23 +327,35 @@ def g1_mul(p1, k: int):
     return out
 
 
+def _g1_msm_py(terms):
+    """Pure-Python MSM, one affine ladder per term: the parity oracle of
+    `g1_msm`."""
+    out = None
+    for pt, k in terms:
+        if pt is None:
+            continue
+        out = g1_add(out, _g1_mul_py(pt, k))
+    return out
+
+
+def g1_mul(p1, k: int):
+    if p1 is None:
+        return None
+    return native.bn254_mul_many([p1], [k])[0]
+
+
 def g1_mul_many(points, scalars):
-    """Independent scalars[i]*points[i]."""
-    return [g1_mul(p, k) for p, k in zip(points, scalars)]
+    """Independent scalars[i]*points[i] with one shared field inversion."""
+    return native.bn254_mul_many(points, scalars)
 
 
 def g1_msm(terms):
     """sum of scalar*point over G1: [(point|None, scalar)] -> point|None.
 
     The verification hot path on the host (Schnorr commitment
-    recomputation, RLC accumulation in batched verify), one affine
-    ladder per term."""
-    out = None
-    for pt, k in terms:
-        if pt is None:
-            continue
-        out = g1_add(out, g1_mul(pt, k))
-    return out
+    recomputation, RLC accumulation in batched verify), served by the
+    native Montgomery implementation (native/bn254.cc)."""
+    return native.bn254_msm([t[0] for t in terms], [t[1] for t in terms])
 
 
 # --- G2 (affine over Fp2, on the twist) -------------------------------------
@@ -524,9 +542,10 @@ def multi_pairing(pairs):
 
 def pairing_check(pairs) -> bool:
     """prod_i e(P_i, Q_i) == 1 — the only form idemix consumes
-    (credential ver, signature checks): Miller loops with one shared
-    final exponentiation."""
-    return multi_pairing(pairs) == FP12_ONE
+    (credential ver, signature checks): the native Miller loops with one
+    shared final exponentiation (native/pairing.cc); `multi_pairing` is
+    its oracle."""
+    return native.bn254_pairing_check(pairs)
 
 
 # --- Group element serialization & hashing ----------------------------------

@@ -1,0 +1,207 @@
+"""The port's C++ host library, loaded with ctypes.
+
+The port's own copy of the JAX package's `fabric_tpu/native`: the batch
+signature packer (`marshal.cc`) that feeds the P-256 kernels, and BN254
+G1 multiplication, MSM (`bn254.cc`) and the pairing check (`pairing.cc`,
+both on `fp254.h`) for the idemix host path.  They include only the C++
+standard library.
+
+The library is built at first use with the host C++ compiler (`g++ -O2
+-std=c++17 -shared -fPIC`) into the git-ignored `build/` beside this file,
+under a key that hashes the sources, the flags and the compiler's path and
+version: an unchanged tree loads the library it built before.  A build
+goes to a temporary file renamed into place under a file lock, so
+processes that start at once (test workers) build it once.  There is no
+fallback: where the library cannot build, every entry point raises with
+the compiler's log (the JAX package falls back to Python there).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SRC_DIR / "build"
+SOURCES = ("marshal.cc", "bn254.cc", "pairing.cc")
+HEADERS = ("fp254.h",)
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_BN254_R = 0x30644e72e131a029b85045b68181585d2833e84879b9709143e1f593f0000001
+
+
+def _build_key(cxx: str, version: str) -> str:
+    h = hashlib.sha256()
+    for name in (*SOURCES, *HEADERS):
+        h.update(name.encode())
+        h.update((SRC_DIR / name).read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(cxx.encode())
+    h.update(version.encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Build the library unless this tree's build exists; returns its
+    path.  Raises RuntimeError without g++ or when the compile fails (with
+    the compiler's output, also kept beside the library)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found on PATH: the port's C++ host "
+                           "library cannot be built on this host")
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout
+    out = BUILD_DIR / f"libfabricnative-{_build_key(cxx, version)}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it meanwhile
+            return out
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [cxx, *CXX_FLAGS, "-o", str(tmp),
+               *(str(SRC_DIR / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        out.with_suffix(".log").write_text(proc.stdout)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed:\n$ {' '.join(cmd)}\n"
+                               f"{proc.stdout}")
+        os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The bound library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
+            u32p = np.ctypeslib.ndpointer(np.uint32, flags="C")
+            fn = lib.fabric_marshal_batch
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_int] + [ctypes.c_char_p] * 4
+                + [np.ctypeslib.ndpointer(np.int32, flags="C")]
+                + [u32p] * 5 + [u8p] * 2)
+            msm = lib.bn254_g1_msm
+            msm.restype = ctypes.c_int
+            msm.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 3 + [u8p] * 2
+            mm = lib.bn254_g1_mul_many
+            mm.restype = ctypes.c_int
+            mm.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 3 + [u8p] * 3
+            pc = lib.bn254_pairing_check
+            pc.restype = ctypes.c_int
+            pc.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 6
+            _lib = lib
+        return _lib
+
+
+def marshal_batch(xs: bytes, ys: bytes, digests: bytes, sigs: bytes,
+                  sig_off: np.ndarray) -> dict:
+    """One pass: DER parse + prechecks + batch inversion + packing.
+    Inputs: concatenated 32-byte big-endian x/y/digest buffers and
+    concatenated DER signatures with (n+1,) int32 offsets.  Returns the
+    packed dict of `p256_kernel.prepare_packed`'s layout."""
+    sig_off = np.ascontiguousarray(sig_off, np.int32)
+    n = len(sig_off) - 1
+    if n < 0 or min(len(xs), len(ys), len(digests)) < 32 * n:
+        raise ValueError("marshal_batch: buffers shorter than 32 bytes a lane")
+    if n and (sig_off[0] < 0 or (np.diff(sig_off) < 0).any()
+              or sig_off[-1] > len(sigs)):
+        raise ValueError("marshal_batch: sig_off is not offsets into sigs")
+    lib = load()
+    qx = np.empty((8, n), np.uint32)
+    qy = np.empty((8, n), np.uint32)
+    d1 = np.empty((8, n), np.uint32)
+    d2 = np.empty((8, n), np.uint32)
+    c0 = np.empty((8, n), np.uint32)
+    c1ok = np.empty(n, np.uint8)
+    valid = np.empty(n, np.uint8)
+    lib.fabric_marshal_batch(n, xs, ys, digests, sigs, sig_off,
+                             qx, qy, d1, d2, c0, c1ok, valid)
+    return {
+        "qx": qx,
+        "qy": qy,
+        "d1": d1,
+        "d2": d2,
+        "cand0": c0,
+        "cand1_ok": c1ok.astype(bool),
+        "valid": valid.astype(bool),
+    }
+
+
+def _g1_buffers(points, scalars):
+    """Big-endian x, y and scalar buffers; None (infinity) as (0, 0)."""
+    n = len(points)
+    xs, ys, ss = bytearray(32 * n), bytearray(32 * n), bytearray(32 * n)
+    for i, (pt, k) in enumerate(zip(points, scalars)):
+        if pt is None:
+            continue
+        xs[32 * i:32 * i + 32] = pt[0].to_bytes(32, "big")
+        ys[32 * i:32 * i + 32] = pt[1].to_bytes(32, "big")
+        ss[32 * i:32 * i + 32] = (k % _BN254_R).to_bytes(32, "big")
+    return bytes(xs), bytes(ys), bytes(ss)
+
+
+def bn254_msm(points, scalars) -> tuple[int, int] | None:
+    """sum_i scalars[i] * points[i] over BN254 G1 (affine int coords;
+    None encodes a point at infinity, on input and output)."""
+    lib = load()
+    ox = np.zeros(32, np.uint8)
+    oy = np.zeros(32, np.uint8)
+    if lib.bn254_g1_msm(len(points), *_g1_buffers(points, scalars), ox, oy):
+        return None
+    return (int.from_bytes(ox.tobytes(), "big"),
+            int.from_bytes(oy.tobytes(), "big"))
+
+
+def bn254_mul_many(points, scalars) -> list[tuple[int, int] | None]:
+    """Independent scalars[i] * points[i]; one shared field inversion."""
+    lib = load()
+    n = len(points)
+    ox = np.zeros(32 * n, np.uint8)
+    oy = np.zeros(32 * n, np.uint8)
+    inf = np.zeros(n, np.uint8)
+    lib.bn254_g1_mul_many(n, *_g1_buffers(points, scalars), ox, oy, inf)
+    b_ox, b_oy = ox.tobytes(), oy.tobytes()
+    return [
+        None if inf[i] else (
+            int.from_bytes(b_ox[32 * i:32 * i + 32], "big"),
+            int.from_bytes(b_oy[32 * i:32 * i + 32], "big"))
+        for i in range(n)
+    ]
+
+
+def bn254_pairing_check(pairs) -> bool:
+    """prod e(P_i, Q_i) == 1?  pairs: [(g1_point|None, g2_point|None)]
+    with g1 = (x, y) ints and g2 = ((xa, xb), (ya, yb)) Fp2 ints."""
+    lib = load()
+    n = len(pairs)
+    bufs = [bytearray(32 * n) for _ in range(6)]
+    for i, (pg1, qg2) in enumerate(pairs):
+        if pg1 is None or qg2 is None:
+            continue  # identity factor
+        o = 32 * i
+        for buf, v in zip(bufs, (pg1[0], pg1[1], qg2[0][0], qg2[0][1],
+                                 qg2[1][0], qg2[1][1])):
+            buf[o:o + 32] = v.to_bytes(32, "big")
+    return bool(lib.bn254_pairing_check(n, *(bytes(b) for b in bufs)))
+
+
+__all__ = ["build", "load", "marshal_batch", "bn254_msm", "bn254_mul_many",
+           "bn254_pairing_check"]

@@ -1,0 +1,268 @@
+// Native BN254 (alt-bn128) G1 arithmetic for the idemix data plane.
+//
+// The port's copy of fabric_tpu/native/bn254.cc.  The reference's idemix
+// math runs on pure-Go AMCL (fabric-amcl); the port's Python
+// fabric_tpu_torch/idemix/bn254.py keeps the parity oracles
+// (`_g1_mul_py` and friends) and THIS file is the hot path, with no
+// fallback: Montgomery Fp (4x64 limbs,
+// __int128 products), Jacobian G1 (a = 0, y^2 = x^3 + 3), 4-bit
+// windowed scalar multiplication, and batch APIs with one shared
+// Montgomery inversion for the affine outputs.  Used by the Schnorr
+// commitment recomputation in idemix signature verification
+// (signature.go:243-relations equivalent) and the RLC accumulation in
+// batched verification — the per-item cost that dominates once the
+// pairings amortize to two per batch.
+//
+// All point/scalar I/O is 32-byte big-endian affine coordinates.
+
+#include <cstdint>
+#include <cstring>
+
+#include "fp254.h"
+
+typedef uint8_t u8;
+typedef uint64_t u64;
+
+namespace {
+
+using fp254::Fp;
+using fp254::ONE_M;
+using fp254::fp_add;
+using fp254::fp_dbl;
+using fp254::fp_inv;
+using fp254::fp_is_zero;
+using fp254::fp_mul;
+using fp254::fp_sqr;
+using fp254::from_mont;
+using fp254::load_fp_be;
+using fp254::store_fp_be;
+using fp254::to_mont;
+
+using fp254::fp_sub;
+
+inline bool is_zero(const Fp& a) { return fp_is_zero(a); }
+
+// ---------------------------------------------------------------------------
+// G1 Jacobian (Montgomery-domain coordinates).
+// ---------------------------------------------------------------------------
+
+struct G1 {
+  Fp x, y, z;
+  bool inf;
+};
+
+void g1_dbl(const G1& p, G1* out) {
+  if (p.inf || is_zero(p.y)) {
+    out->inf = true;
+    return;
+  }
+  // dbl-2009-l (a = 0): A=X^2 B=Y^2 C=B^2 D=2((X+B)^2-A-C) E=3A F=E^2
+  Fp A, B, C, D, E, F, t;
+  fp_sqr(p.x, &A);
+  fp_sqr(p.y, &B);
+  fp_sqr(B, &C);
+  fp_add(p.x, B, &t);
+  fp_sqr(t, &t);
+  fp_sub(t, A, &t);
+  fp_sub(t, C, &t);
+  fp_dbl(t, &D);
+  fp_dbl(A, &E);
+  fp_add(E, A, &E);
+  fp_sqr(E, &F);
+  G1 r;
+  r.inf = false;
+  fp_sub(F, D, &r.x);
+  fp_sub(r.x, D, &r.x);               // X3 = F - 2D
+  Fp c8;
+  fp_dbl(C, &c8);
+  fp_dbl(c8, &c8);
+  fp_dbl(c8, &c8);                    // 8C
+  fp_sub(D, r.x, &t);
+  fp_mul(E, t, &r.y);
+  fp_sub(r.y, c8, &r.y);              // Y3 = E(D - X3) - 8C
+  fp_mul(p.y, p.z, &t);
+  fp_dbl(t, &r.z);                    // Z3 = 2YZ
+  *out = r;
+}
+
+void g1_add(const G1& p, const G1& q, G1* out) {
+  if (p.inf) {
+    *out = q;
+    return;
+  }
+  if (q.inf) {
+    *out = p;
+    return;
+  }
+  // add-2007-bl
+  Fp z1z1, z2z2, u1, u2, s1, s2, h, i, j, rr, v, t;
+  fp_sqr(p.z, &z1z1);
+  fp_sqr(q.z, &z2z2);
+  fp_mul(p.x, z2z2, &u1);
+  fp_mul(q.x, z1z1, &u2);
+  fp_mul(p.y, q.z, &t);
+  fp_mul(t, z2z2, &s1);
+  fp_mul(q.y, p.z, &t);
+  fp_mul(t, z1z1, &s2);
+  fp_sub(u2, u1, &h);
+  fp_sub(s2, s1, &rr);
+  if (is_zero(h)) {
+    if (is_zero(rr)) {
+      g1_dbl(p, out);
+      return;
+    }
+    out->inf = true;
+    return;
+  }
+  fp_dbl(h, &t);
+  fp_sqr(t, &i);
+  fp_mul(h, i, &j);
+  fp_dbl(rr, &rr);
+  fp_mul(u1, i, &v);
+  G1 r;
+  r.inf = false;
+  fp_sqr(rr, &r.x);
+  fp_sub(r.x, j, &r.x);
+  fp_sub(r.x, v, &r.x);
+  fp_sub(r.x, v, &r.x);               // X3 = r^2 - J - 2V
+  fp_sub(v, r.x, &t);
+  fp_mul(rr, t, &r.y);
+  Fp s1j;
+  fp_mul(s1, j, &s1j);
+  fp_dbl(s1j, &s1j);
+  fp_sub(r.y, s1j, &r.y);             // Y3 = r(V - X3) - 2 S1 J
+  fp_add(p.z, q.z, &t);
+  fp_sqr(t, &t);
+  fp_sub(t, z1z1, &t);
+  fp_sub(t, z2z2, &t);
+  fp_mul(t, h, &r.z);                 // Z3 = ((Z1+Z2)^2 - Z1Z1 - Z2Z2) H
+  *out = r;
+}
+
+// 4-bit windowed scalar multiplication, MSB first.
+void g1_mul(const G1& p, const u8* scalar_be, G1* out) {
+  G1 table[16];
+  table[0].inf = true;
+  table[1] = p;
+  for (int k = 2; k < 16; ++k) g1_add(table[k - 1], p, &table[k]);
+  G1 acc;
+  acc.inf = true;
+  bool any = false;
+  for (int i = 0; i < 32; ++i) {
+    for (int half = 0; half < 2; ++half) {
+      int d = half ? (scalar_be[i] & 0xf) : (scalar_be[i] >> 4);
+      if (any) {
+        g1_dbl(acc, &acc);
+        g1_dbl(acc, &acc);
+        g1_dbl(acc, &acc);
+        g1_dbl(acc, &acc);
+      }
+      if (d) {
+        g1_add(acc, table[d], &acc);
+        any = true;
+      } else if (any) {
+        // nothing
+      }
+    }
+  }
+  *out = acc;
+}
+
+void load_point(const u8* x_be, const u8* y_be, G1* out) {
+  Fp x, y;
+  load_fp_be(x_be, &x);
+  load_fp_be(y_be, &y);
+  out->inf = is_zero(x) && is_zero(y);
+  to_mont(x, &out->x);
+  to_mont(y, &out->y);
+  memcpy(out->z.v, ONE_M, sizeof(ONE_M));
+}
+
+}  // namespace
+
+extern "C" {
+
+// out = sum_i scalar_i * (x_i, y_i).  Inputs/outputs 32-byte big-endian
+// affine; (0, 0) encodes infinity.  Returns 1 when the sum is infinity.
+int bn254_g1_msm(int n, const u8* xs, const u8* ys, const u8* scalars,
+                 u8* out_x, u8* out_y) {
+  G1 acc;
+  acc.inf = true;
+  for (int i = 0; i < n; ++i) {
+    G1 p, t;
+    load_point(xs + 32 * i, ys + 32 * i, &p);
+    if (p.inf) continue;
+    g1_mul(p, scalars + 32 * i, &t);
+    g1_add(acc, t, &acc);
+  }
+  if (acc.inf) {
+    memset(out_x, 0, 32);
+    memset(out_y, 0, 32);
+    return 1;
+  }
+  Fp zinv, zinv2, zinv3, ax, ay;
+  fp_inv(acc.z, &zinv);
+  fp_sqr(zinv, &zinv2);
+  fp_mul(zinv2, zinv, &zinv3);
+  fp_mul(acc.x, zinv2, &ax);
+  fp_mul(acc.y, zinv3, &ay);
+  from_mont(ax, &ax);
+  from_mont(ay, &ay);
+  store_fp_be(ax, out_x);
+  store_fp_be(ay, out_y);
+  return 0;
+}
+
+// out_i = scalar_i * (x_i, y_i), independent muls; shared Montgomery
+// batch inversion for the affine conversions.  inf_flags[i] set when
+// the result is infinity.
+int bn254_g1_mul_many(int n, const u8* xs, const u8* ys, const u8* scalars,
+                      u8* out_xs, u8* out_ys, u8* inf_flags) {
+  G1* res = new G1[n];
+  for (int i = 0; i < n; ++i) {
+    G1 p;
+    load_point(xs + 32 * i, ys + 32 * i, &p);
+    if (p.inf) {
+      res[i].inf = true;
+      continue;
+    }
+    g1_mul(p, scalars + 32 * i, &res[i]);
+  }
+  // batch inversion of all finite Z's
+  Fp* prefix = new Fp[n + 1];
+  memcpy(prefix[0].v, ONE_M, sizeof(ONE_M));
+  for (int i = 0; i < n; ++i) {
+    if (res[i].inf) {
+      prefix[i + 1] = prefix[i];
+    } else {
+      fp_mul(prefix[i], res[i].z, &prefix[i + 1]);
+    }
+  }
+  Fp inv;
+  fp_inv(prefix[n], &inv);
+  for (int i = n - 1; i >= 0; --i) {
+    if (res[i].inf) {
+      inf_flags[i] = 1;
+      memset(out_xs + 32 * i, 0, 32);
+      memset(out_ys + 32 * i, 0, 32);
+      continue;
+    }
+    inf_flags[i] = 0;
+    Fp zinv, zinv2, zinv3, ax, ay;
+    fp_mul(inv, prefix[i], &zinv);
+    fp_mul(inv, res[i].z, &inv);
+    fp_sqr(zinv, &zinv2);
+    fp_mul(zinv2, zinv, &zinv3);
+    fp_mul(res[i].x, zinv2, &ax);
+    fp_mul(res[i].y, zinv3, &ay);
+    from_mont(ax, &ax);
+    from_mont(ay, &ay);
+    store_fp_be(ax, out_xs + 32 * i);
+    store_fp_be(ay, out_ys + 32 * i);
+  }
+  delete[] res;
+  delete[] prefix;
+  return 0;
+}
+
+}  // extern "C"

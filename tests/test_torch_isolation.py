@@ -24,6 +24,7 @@ from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 
+from fabric_tpu_torch import native  # noqa: E402
 from fabric_tpu_torch.csp.cuda import bn254_batch as bb  # noqa: E402
 from fabric_tpu_torch.csp.cuda import bn254_ec, build, fp254  # noqa: E402
 from fabric_tpu_torch.csp.cuda import bn254_kernel as bk  # noqa: E402
@@ -66,6 +67,12 @@ from fabric_tpu_torch.idemix import bn254 as bn
 csp = IdemixCSP(device="cpu")
 assert bn.pairing_check([(bn.G1_GEN, bn.G2_GEN),
                          (bn.g1_neg(bn.G1_GEN), bn.G2_GEN)])
+import hashlib
+from fabric_tpu_torch import native
+assert native.bn254_msm([bn.G1_GEN], [5]) == bn._g1_mul_py(bn.G1_GEN, 5)
+msgs = [bytes([i % 256]) * (i % 50) for i in range(1300)]  # wide: B4's route
+assert CUDACSP(device="cpu").hash_batch(msgs) == [
+    hashlib.sha256(m).digest() for m in msgs]
 assert not any(k == "jax" or k.startswith(("jax.", "fabric_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("modules", len(mods))
@@ -104,6 +111,33 @@ def test_no_file_of_the_port_imports_forbidden_modules():
     assert not bad, bad
 
 
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+_ANGLE_INCLUDE = re.compile(r"^\s*#\s*include\s+<([^>]+)>", re.M)
+
+
+def test_no_cxx_source_of_the_port_includes_a_file_outside_it():
+    """Every quoted include of the port's C++ and CUDA sources (the
+    kernels' csrc/ and the host library's native/) names a file beside
+    it in the port; angle includes name no path, and neither build adds
+    an include directory."""
+    sources = [p for ext in ("*.cu", "*.cuh", "*.cpp", "*.cc", "*.h")
+               for p in PORT.rglob(ext) if "build" not in p.parts]
+    assert {p.parent.name for p in sources} == {"csrc", "native"}
+    bad = []
+    for path in sources:
+        text = path.read_text()
+        for inc in _QUOTED_INCLUDE.findall(text):
+            target = (path.parent / inc).resolve()
+            if not target.is_file() or PORT not in target.parents:
+                bad.append(f"{path.relative_to(ROOT)}: \"{inc}\"")
+        for inc in _ANGLE_INCLUDE.findall(text):
+            if "/" in inc or "fabric" in inc:
+                bad.append(f"{path.relative_to(ROOT)}: <{inc}>")
+    assert not bad, bad
+    assert not any(f.startswith("-I") for f in (*build.NVCC_FLAGS,
+                                                *native.CXX_FLAGS))
+
+
 def test_cudacsp_defaults_to_the_card_and_raises_without_one():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -127,7 +161,7 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
     monkeypatch.setattr(build, "_libs", {})
     assert build.find_nvcc() is None
-    for name in ("p256_verify", "bn254_commit"):
+    for name in ("p256_verify", "bn254_commit", "sha256"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.load(name)
     assert build._libs == {}
@@ -135,9 +169,10 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 
 def test_build_key_is_per_source():
     """Each library's cache key covers its own source and the headers it
-    includes: the two kernels do not share one."""
+    includes: no two kernel sources share one."""
     keys = {src: build._build_key(src, "nvcc") for src in build.SOURCES}
-    assert set(build.SOURCES) == {"p256_verify.cu", "bn254_commit.cu"}
+    assert set(build.SOURCES) == {"p256_verify.cu", "bn254_commit.cu",
+                                  "sha256.cu"}
     assert len(set(keys.values())) == len(keys)
     assert build._build_key("bn254_commit.cu", "other") != keys[
         "bn254_commit.cu"]
@@ -173,7 +208,7 @@ def test_warm_build_skips_and_a_changed_source_rebuilds_alone(
         return sorted(Path(line.split()[-1]).name for line in lines)
 
     paths = build.build_all()
-    assert sorted(paths) == ["bn254_commit", "p256_verify"]
+    assert sorted(paths) == ["bn254_commit", "p256_verify", "sha256"]
     assert compiled() == sorted(build.SOURCES)
     assert all(build.build_seconds(n) is not None for n in paths)
     assert all("registers" in build.build_log(n) for n in paths)
@@ -184,6 +219,7 @@ def test_warm_build_skips_and_a_changed_source_rebuilds_alone(
     again = build.build_all()
     assert compiled() == sorted([*build.SOURCES, "bn254_commit.cu"])
     assert again["p256_verify"] == paths["p256_verify"]
+    assert again["sha256"] == paths["sha256"]
     assert again["bn254_commit"] != paths["bn254_commit"]
 
 

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 import threading  # noqa: E402
 
 import numpy as np  # noqa: E402
+from test_torch_p256 import corpus  # noqa: E402,F401
 
 from fabric_tpu.csp import SWCSP  # noqa: E402
 from fabric_tpu.csp.api import VerifyBatchItem as JaxItem  # noqa: E402
@@ -78,6 +79,25 @@ def test_block_batch_matches_tpucsp_and_sw(sw):
     finally:
         tpu.close()
     assert got == ref == want
+
+
+def test_cudacsp_verdicts_on_the_corpus_match_tpucsp(sw, corpus):
+    """The port's verdicts are the expected ones on every lane, and
+    TPUCSP's on every lane but the zero key's: TPUCSP accepts the
+    signature under the point (0, 0), which is not a P-256 key."""
+    names, lanes, expect = corpus
+    items = [VerifyBatchItem(api.P256PublicKey(x, y), d, der)
+             for x, y, d, der in lanes]
+    got = CUDACSP(device="cpu", min_device_batch=1).verify_batch(items)
+    tpu = TPUCSP(sw=sw, min_device_batch=1)
+    try:
+        ref = tpu.verify_batch([JaxItem(*it) for it in items])
+    finally:
+        tpu.close()
+    assert got == expect
+    zero = names.index("zero_key")
+    assert ref[zero] and not got[zero]
+    assert got[:zero] + got[zero + 1:] == ref[:zero] + ref[zero + 1:]
 
 
 def test_verify_batch_small_falls_back_to_host(sw, monkeypatch):
