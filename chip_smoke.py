@@ -36,7 +36,21 @@
    churn past the key table (every flush an overflow reset, to keys seen
    before and to keys never seen) against the same flushes over keys the
    table holds.
-6. SHA-256 (B4): drives `CUDACSP.hash_batch` at its callers' shapes (a
+6. Block validation: mints the 5-org channel of
+   `scripts/bench_pipeline.py` with the port's CA and configtx builder
+   from the seed, builds 8 distinct 1000-transaction blocks as its
+   `_make_blocks` does (Org1's client signs the proposal and the
+   envelope, Org1-3's peers endorse a write of `benchcc` key k{b}-{i}),
+   with planted transactions in block 3 (a bad creator signature, one bad
+   endorsement of four, one of three, two of three, a repeated txid, a
+   truncated payload), and validates them through the port's
+   `TxValidator.validate_pipeline(depth=6)` into `CUDACSP` with an empty
+   ledger, the launch counts set to 0 just before and read just after.
+   Every flag must be the planted one (VALID elsewhere) and the verify
+   mask hostref's (checked in 8 worker processes); prints validated tx/s,
+   ms a block, the collect / verify_wait / policy split, B1's launches
+   and busy share, and which SHA-256 `collect.cc` runs.
+7. SHA-256 (B4): drives `CUDACSP.hash_batch` at its callers' shapes (a
    block's 1000 per-transaction calls of three endorsement messages, a
    snapshot export's call over its five files), where hashlib answers and
    B4 must launch no time; then a batch wide enough for the card route
@@ -48,8 +62,10 @@
    bytes; times the kernel, the whole hash_batch call and hashlib on the
    wide batch, the kernel and hashlib on the snapshot's files, and both
    routes of hash_batch against its routing rule on batches either side
-   of the rule's boundary.
-7. Idemix at the idemix MSP's own credential (4 attributes, OU and Role
+   of the rule's boundary; times one thread's chain of compressions (a
+   lone 4,500-byte message against a lone empty one) for B4's
+   serial-chain floor, beside the compression loop's SASS and the clock.
+8. Idemix at the idemix MSP's own credential (4 attributes, OU and Role
    disclosed, one issuer key): times the build of the shared bases' comb
    (once per issuer key); holds the BN254 Schnorr-commitment kernel
    against its plain version, word for word, and against the host
@@ -65,20 +81,23 @@
    times the kernel at 1024 lanes, prints its own count of field
    multiplications beside the bound's, and sweeps it over 32 to 4096
    lanes.
-8. Prints one JSON line of kernels (B1-B4), then `{"ok": true,
+9. Prints one JSON line of kernels (B1-B4), then `{"ok": true,
    "device": {...}}` as its last line.
 
 Exits non-zero, before printing any result, on a host without CUDA; any
-failed phase raises.  Inputs are made from a seed (numpy for P-256,
-`random.Random` for idemix, as its API takes).
+failed phase raises.  Inputs are made from a seed (numpy for P-256 and
+the validator's world, `random.Random` for idemix, as its API takes).
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import hashlib
 import json
+import multiprocessing
+import os
 import random
 import re
 import shutil
@@ -91,6 +110,10 @@ import numpy as np
 import torch
 
 from fabric_tpu_torch import native
+from fabric_tpu_torch import protoutil as pu
+from fabric_tpu_torch.common import configtx_builder as ctx
+from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
+from fabric_tpu_torch.common.crypto import CA
 from fabric_tpu_torch.csp import hostref
 from fabric_tpu_torch.csp.api import (
     P256_B,
@@ -124,6 +147,12 @@ from fabric_tpu_torch.idemix.credential import (
     new_credential,
 )
 from fabric_tpu_torch.idemix.issuer import IssuerKey
+from fabric_tpu_torch.msp.config import msp_config_from_ca
+from fabric_tpu_torch.msp.identity import SigningIdentity
+from fabric_tpu_torch.peer.txvalidator import TxValidator
+from fabric_tpu_torch.protos import common as cb
+from fabric_tpu_torch.protos import peer as pb
+from fabric_tpu_torch.protos import rwset as rw
 
 SEED = 0
 N_ORGS = 5
@@ -1584,6 +1613,7 @@ def phase_sha256(rng, device, errs: dict, n_wide: int = HASH_WIDE_MSGS,
     print(f"{B4_NAME}: sha256_plain on the wide batch {plain_ms:.1f} ms "
           f"({words.shape[1]} lockstep block steps)")
     phase_hash_route(rng, device)
+    chain = b4_chain_floor(wide, device, reps)
     seen = errs[B4_NAME]
     print(f"{B4_NAME}: {seen['mismatches']} mismatches in {seen['lanes']} "
           f"messages against hashlib, max |kernel - plain| "
@@ -1601,7 +1631,59 @@ def phase_sha256(rng, device, errs: dict, n_wide: int = HASH_WIDE_MSGS,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes SHA-256
         "hashlib_ms": lib_ms,
+        "chain_floor_ms": chain,
     }
+
+
+def largest_loop(instrs: list[str]) -> list[str]:
+    """The instructions of the longest backward branch's loop (all of
+    them when there is none)."""
+    addr = [int(i[2:i.index("*/")], 16) for i in instrs]
+    best = instrs
+    span = -1
+    for k, instr in enumerate(instrs):
+        m = re.search(r"\bBRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", instr)
+        if m and int(m.group(1), 16) < addr[k]:
+            start = addr.index(int(m.group(1), 16))
+            if k - start > span:
+                span = k - start
+                best = instrs[start:k + 1]
+    return best
+
+
+def b4_chain_floor(wide, device, reps: int = TIMING_REPS) -> float:
+    """B4's serial-chain floor: one message is one thread's chain of
+    compressions, so a batch takes at least its longest message's
+    compressions times one compression's dependent chain.  That chain is
+    timed on the card with a lone thread (one message of the longest
+    length against one of 0 bytes, CUDA events), and set beside the SASS
+    of the compression loop and the SM clock; returns the floor in ms."""
+    longest = max(len(m) for m in wide)
+    n_long = (longest + 72) >> 6  # compressions, padding in
+    msgs = {"long": [bytes(longest)], "short": [b""]}
+    t = {}
+    for name, m in msgs.items():
+        buf, offs = upload_messages(m, device)
+        t[name] = cuda_ms(lambda: sha.sha256_digests(buf, offs), reps)
+    per = (t["long"] - t["short"]) / (n_long - 1)
+    floor = n_long * per
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    max_mhz = float(clocks.split(",")[1])
+    ((_, instrs),) = build.sass(build.build_all()["sha256"]).items()
+    body = largest_loop(instrs)
+    cycles = per * 1e-3 * max_mhz * 1e6
+    print(f"{B4_NAME} serial chain: one thread, {longest} bytes ({n_long} "
+          f"compressions) {t['long']:.4f} ms, 0 bytes (1) {t['short']:.4f} "
+          f"ms: {per * 1e3:.3f} us a compression; the compression loop is "
+          f"{len(body)} SASS instructions ({sass_summary(body)}); SM clock "
+          f"{clocks} MHz (now, max): ~{cycles:.0f} cycles a compression at "
+          f"the max clock, {cycles / len(body):.2f} a loop instruction; "
+          f"floor {n_long} x {per * 1e3:.3f} us = {floor:.4f} ms for the "
+          f"wide batch's longest message")
+    return floor
 
 
 def phase_native() -> None:
@@ -1668,6 +1750,232 @@ def phase_churn(rng, device, n_keys: int = CHURN_KEYS,
     return ms
 
 
+# ---------------------------------------------------------------------------
+# Block validation (the port's TxValidator over real Fabric blocks).
+# ---------------------------------------------------------------------------
+
+VALIDATOR_CHANNEL = "benchch"
+VALIDATOR_CC = "benchcc"
+VALIDATOR_TS = 1_760_000_000  # channel-header timestamps (seconds)
+PLANT_BLOCK = 3  # the block that carries the planted transactions
+
+
+@dataclasses.dataclass
+class ValidatorWorld:
+    genesis: bytes
+    client: SigningIdentity  # Org1's client
+    peers: list  # one peer of each org, Org1 first
+    rng: np.random.Generator
+
+
+def validator_world(seed: int, n_orgs: int = N_ORGS) -> ValidatorWorld:
+    """The 5-org channel of `scripts/bench_pipeline.py:19-47`, minted by the
+    port's CA and configtx builder: an org per CA with NodeOUs, a solo
+    orderer org, the default MAJORITY Endorsement policy."""
+    rng = np.random.default_rng(seed)
+    cas = [CA(f"ca.org{i + 1}msp.example.com", f"Org{i + 1}MSP", rng=rng)
+           for i in range(n_orgs)]
+    oca = CA("ca.orderermsp.example.com", "OrdererMSP", rng=rng)
+    app = ctx.application_group({
+        f"Org{i + 1}": ctx.org_group(f"Org{i + 1}MSP", msp_config_from_ca(
+            ca, f"Org{i + 1}MSP")) for i, ca in enumerate(cas)})
+    ordg = ctx.orderer_group({"O": ctx.org_group(
+        "OrdererMSP", msp_config_from_ca(oca, "OrdererMSP"))})
+    genesis = ctx.genesis_block(VALIDATOR_CHANNEL, ctx.channel_group(app, ordg),
+                                nonce=rng.bytes(24), timestamp=VALIDATOR_TS)
+
+    def signer(ca, mspid, name, ou):
+        pair = ca.issue(name, ous=[ou])
+        return SigningIdentity(mspid, pair.cert, pair.key, rng)
+
+    client = signer(cas[0], "Org1MSP", "client", "client")
+    peers = [signer(ca, f"Org{i + 1}MSP", "peer0", "peer")
+             for i, ca in enumerate(cas)]
+    return ValidatorWorld(genesis.encode(), client, peers, rng)
+
+
+def endorsed_tx(world: ValidatorWorld, b: int, i: int, endorsers: int,
+                bad_endorsements=()) -> bytes:
+    """One transaction as `_make_blocks` builds it: Org1's client signs the
+    proposal and the envelope; `endorsers` peers (Org1 first) sign
+    responses whose rwset writes `benchcc` key k{b}-{i}; the endorsements
+    at `bad_endorsements` are signed over other bytes."""
+    client = world.client
+    prop, _ = pu.create_chaincode_proposal(
+        client.serialize(), VALIDATOR_CHANNEL, VALIDATOR_CC,
+        [b"k%d-%d" % (b, i), b"v%d" % i], nonce=world.rng.bytes(24),
+        timestamp=VALIDATOR_TS + b)
+    results = rw.TxReadWriteSet(ns_rwset=[rw.NsReadWriteSet(
+        namespace=VALIDATOR_CC, rwset=rw.KVRWSet(writes=[rw.KVWrite(
+            key=f"k{b}-{i}", value=b"v%d" % i)]).encode())]).encode()
+    resps = []
+    for j, peer in enumerate(world.peers[:endorsers]):
+        resp = pu.create_proposal_response(
+            prop, results, b"", pb.Response(status=200),
+            pb.ChaincodeID(name=VALIDATOR_CC), peer)
+        if j in bad_endorsements:
+            resp.endorsement = pb.Endorsement(
+                endorser=resp.endorsement.endorser,
+                signature=peer.sign(b"not the response"))
+        resps.append(resp)
+    return pu.create_signed_tx(prop, client, resps).encode()
+
+
+def validator_blocks(world: ValidatorWorld, n_blocks: int, n_txs: int,
+                     plant: bool = True):
+    """`n_blocks` distinct blocks of `n_txs` transactions (3 endorsements
+    each); with `plant`, block PLANT_BLOCK (or the last) carries planted
+    transactions.  Returns (block bytes, {(block, tx): expected flag})."""
+    plant_at = min(PLANT_BLOCK, n_blocks - 1) if plant else -1
+    blocks, expect = [], {}
+    for b in range(n_blocks):
+        envs = [endorsed_tx(world, b, i, ENDORSERS) for i in range(n_txs)]
+        if b == plant_at:
+            env = cb.Envelope.decode(envs[1])
+            envs[1] = cb.Envelope(  # the creator's signature, over other bytes
+                payload=env.payload,
+                signature=world.client.sign(b"not the payload")).encode()
+            expect[b, 1] = pb.BAD_CREATOR_SIGNATURE
+            # 4 endorsements, one bad: 3 of 5 orgs still sign (MAJORITY)
+            envs[2] = endorsed_tx(world, b, 2, 4, bad_endorsements=(1,))
+            expect[b, 2] = pb.VALID
+            envs[3] = endorsed_tx(world, b, 3, ENDORSERS, bad_endorsements=(2,))
+            expect[b, 3] = pb.ENDORSEMENT_POLICY_FAILURE
+            envs[4] = endorsed_tx(world, b, 4, ENDORSERS,
+                                  bad_endorsements=(0, 2))
+            expect[b, 4] = pb.ENDORSEMENT_POLICY_FAILURE
+            envs[5] = envs[0]  # a repeated txid
+            expect[b, 5] = pb.DUPLICATE_TXID
+            env = cb.Envelope.decode(envs[6])
+            envs[6] = cb.Envelope(payload=env.payload[:len(env.payload) // 2],
+                                  signature=env.signature).encode()
+            expect[b, 6] = pb.BAD_PAYLOAD
+        blk = pu.new_block(1 + b, b"")
+        blk.data = cb.BlockData(data=envs)
+        blk.header.data_hash = pu.block_data_hash(blk.data)
+        blocks.append(blk.encode())
+    return blocks, expect
+
+
+class EmptyLedger:
+    """A ledger with no committed transaction and no state (the JAX
+    tests' stand-in): what the validator asks of a ledger."""
+
+    def tx_id_exists(self, txid: str) -> bool:
+        return False
+
+    def tx_ids_exist(self, txids) -> set:
+        return set()
+
+    def get_state_metadata(self, ns: str, key: str) -> dict:
+        return {}
+
+    def may_have_state_metadata(self, ns: str) -> bool:
+        return False
+
+
+class RecordingCSP:
+    """A CSP that passes verify batches to `inner` and keeps each batch's
+    items and mask (to hold the mask against hostref afterwards), and the
+    seconds spent inside `inner.verify_batch_async`: the CSP's flush and
+    host dispatch, which the validator's collect stage includes."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.batches: list = []
+        self.dispatch_s = 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def verify_batch_async(self, items):
+        t0 = time.perf_counter()
+        collect = self.inner.verify_batch_async(items)
+        self.dispatch_s += time.perf_counter() - t0
+        rec = [list(items), None]
+        self.batches.append(rec)
+
+        def collector():
+            rec[1] = collect()
+            return rec[1]
+
+        return collector
+
+
+def phase_validator(device, n_blocks: int = N_BLOCKS, n_txs: int = N_TXS,
+                    depth: int = DEPTH) -> dict:
+    """Validate real 1000-tx blocks through the port's TxValidator into
+    CUDACSP (B1), counted; every flag is held against the planted ones and
+    the verify mask against hostref."""
+    t0 = time.perf_counter()
+    world = validator_world(SEED)
+    t1 = time.perf_counter()
+    blocks, expect = validator_blocks(world, n_blocks, n_txs)
+    t2 = time.perf_counter()
+    print(f"validator setup: 5-org world {t1 - t0:.1f} s, {n_blocks} blocks "
+          f"of {n_txs} transactions {t2 - t1:.1f} s "
+          f"({sum(map(len, blocks)) / 1e6:.2f} MB)")
+    bundle = bundle_from_genesis(world.genesis)
+    native.load()
+    print(f"validator: collect.cc SHA-256 = {native.sha256_impl()}")
+    csp = RecordingCSP(CUDACSP(device=device))
+    validator = TxValidator(VALIDATOR_CHANNEL, EmptyLedger(), bundle, csp)
+    # warm-up on a block not timed: key table, quarter tables, MSP caches
+    validator.validate(validator_blocks(world, 1, 64, plant=False)[0][0])
+    csp.batches.clear()
+    csp.dispatch_s = 0.0
+    validator.validate_stage_seconds.clear()
+    csp.inner.drain()
+    pk.launches_keytab = 0
+    pk.launches_lanekeys = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flags = list(validator.validate_pipeline(blocks, depth=depth))
+    csp.inner.drain()
+    wall = time.perf_counter() - t0
+    launches = {"p256_verify_keytab": pk.launches_keytab,
+                "p256_verify_lanekeys": pk.launches_lanekeys}
+    check(launches["p256_verify_keytab"] > 0,
+          f"B1 did not launch on the validator path: {launches}")
+    for b, got in enumerate(flags):
+        check(len(got) == n_txs, f"block {b}: {len(got)} flags")
+        for i, f in enumerate(got):
+            want = expect.get((b, i), pb.VALID)
+            check(f == want, f"block {b} tx {i}: flag {f}, expected {want}")
+    lanes = sum(len(items) for items, _ in csp.batches)
+    t1 = time.perf_counter()
+    items = [it for b, _ in csp.batches for it in b]
+    mask = [ok for _, m in csp.batches for ok in m]
+    workers = min(8, os.cpu_count() or 1)
+    step = -(-len(items) // workers)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        want = [ok for part in ex.map(
+            hostref.verify_batch,
+            [items[i:i + step] for i in range(0, len(items), step)])
+            for ok in part]
+    check(mask == want, "the validator's verify mask differs from "
+          f"hostref's on {sum(a != b for a, b in zip(mask, want))} lanes")
+    print(f"validator: verify mask of {lanes} lanes equal to hostref's "
+          f"({time.perf_counter() - t1:.1f} s on the host, {workers} "
+          f"processes)")
+    st = validator.validate_stage_seconds
+    n_tx = n_blocks * n_txs
+    print(f"validator: {n_blocks} blocks x {n_txs} transactions through "
+          f"validate_pipeline(depth={depth}) in {wall * 1e3:.1f} ms = "
+          f"{n_tx / wall:.0f} validated tx/s, {wall / n_blocks * 1e3:.1f} ms "
+          f"a block; per block collect {st['collect'] / n_blocks * 1e3:.1f} "
+          f"ms (CSP flush and host dispatch {csp.dispatch_s / n_blocks * 1e3:.1f}"
+          f" ms of it, the walk and Python collect "
+          f"{(st['collect'] - csp.dispatch_s) / n_blocks * 1e3:.1f} ms), "
+          f"verify_wait {st['verify_wait'] / n_blocks * 1e3:.1f} ms, "
+          f"policy {st['policy'] / n_blocks * 1e3:.1f} ms; {lanes} verify "
+          f"lanes; launches {launches}; planted flags {sorted(set(expect.values()))} "
+          f"as expected, every other transaction VALID")
+    return {"launches": launches, "wall_s": wall, "lanes": lanes,
+            "stages": dict(st), "dispatch_s": csp.dispatch_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1698,6 +2006,13 @@ def main() -> int:
         wall = walls[row["name"]] * 1e3
         print(f"{row['name']}: device busy ~{busy:.1f} ms of the "
               f"{wall:.1f} ms wall ({busy / wall:.1%}; launches x kernel ms)")
+    val = phase_validator(device)
+    b1 = next(row for row in rows if row["name"] == B1_NAME)
+    b1["launches_validator"] = val["launches"][B1_NAME]
+    busy = b1["launches_validator"] * b1["ms"]
+    wall = val["wall_s"] * 1e3
+    print(f"validator: device busy (B1) ~{busy:.1f} ms of the {wall:.1f} ms "
+          f"wall ({busy / wall:.1%}; launches x B1's ms at 8000 lanes)")
     phase_churn(rng, device)
     rows.append(phase_sha256(rng, device, errs))
 

@@ -1,0 +1,3 @@
+"""Shared host pieces of the port: the SHA-256 seam (`hashing`), the
+channel-config bundle (`channelconfig`), and the in-memory CA and
+config-tree builder that mint a channel (`crypto`, `configtx_builder`)."""

@@ -1,10 +1,13 @@
 """The port's C++ host library, loaded with ctypes.
 
 The port's own copy of the JAX package's `fabric_tpu/native`: the batch
-signature packer (`marshal.cc`) that feeds the P-256 kernels, and BN254
-G1 multiplication, MSM (`bn254.cc`) and the pairing check (`pairing.cc`,
-both on `fp254.h`) for the idemix host path.  They include only the C++
-standard library.
+signature packer (`marshal.cc`) that feeds the P-256 kernels, BN254 G1
+multiplication, MSM (`bn254.cc`) and the pairing check (`pairing.cc`,
+both on `fp254.h`) for the idemix host path, and the validator's block
+walk (`collect.cc`: envelope checks, offsets and SHA-256 digests).  They
+include the C++ standard library and, for `collect.cc`'s `dlopen` of the
+host's libcrypto (its SHA-256 when present, else a scalar loop;
+`sha256_impl` says which), `<dlfcn.h>`.
 
 The library is built at first use with the host C++ compiler (`g++ -O2
 -std=c++17 -shared -fPIC`) into the git-ignored `build/` beside this file,
@@ -31,9 +34,10 @@ import numpy as np
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "build"
-SOURCES = ("marshal.cc", "bn254.cc", "pairing.cc")
+SOURCES = ("marshal.cc", "bn254.cc", "pairing.cc", "collect.cc")
 HEADERS = ("fp254.h",)
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+LIBS = ("-ldl",)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -46,7 +50,7 @@ def _build_key(cxx: str, version: str) -> str:
     for name in (*SOURCES, *HEADERS):
         h.update(name.encode())
         h.update((SRC_DIR / name).read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(" ".join(CXX_FLAGS + LIBS).encode())
     h.update(cxx.encode())
     h.update(version.encode())
     return h.hexdigest()[:16]
@@ -72,7 +76,7 @@ def build() -> Path:
             return out
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [cxx, *CXX_FLAGS, "-o", str(tmp),
-               *(str(SRC_DIR / s) for s in SOURCES)]
+               *(str(SRC_DIR / s) for s in SOURCES), *LIBS]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         out.with_suffix(".log").write_text(proc.stdout)
@@ -107,6 +111,21 @@ def load() -> ctypes.CDLL:
             pc = lib.bn254_pairing_check
             pc.restype = ctypes.c_int
             pc.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 6
+            i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
+            cb = lib.fabric_collect_block
+            cb.restype = ctypes.c_int
+            cb.argtypes = (
+                [ctypes.c_int, ctypes.c_char_p, i64p, ctypes.c_char_p,
+                 ctypes.c_int]
+                + [i32p, i32p]                    # status, type
+                + [i64p, i32p] * 2 + [u8p]        # creator, sig, payload_digest
+                + [i64p, i32p] * 4                # txid, prp, rwset, ccid
+                + [i32p, i32p, ctypes.c_int]      # endo_start/count, max
+                + [i64p, i32p] * 2 + [u8p]        # endorser, esig, edigest
+            )
+            lib.fabric_collect_sha256_impl.restype = ctypes.c_int
+            lib.fabric_collect_sha256_impl.argtypes = []
             _lib = lib
         return _lib
 
@@ -203,5 +222,68 @@ def bn254_pairing_check(pairs) -> bool:
     return bool(lib.bn254_pairing_check(n, *(bytes(b) for b in bufs)))
 
 
+_COLLECT_PER_TX = (
+    ("status", np.int32), ("type", np.int32),
+    ("creator_off", np.int64), ("creator_len", np.int32),
+    ("sig_off", np.int64), ("sig_len", np.int32),
+    ("txid_off", np.int64), ("txid_len", np.int32),
+    ("prp_off", np.int64), ("prp_len", np.int32),
+    ("rwset_off", np.int64), ("rwset_len", np.int32),
+    ("ccid_off", np.int64), ("ccid_len", np.int32),
+    ("endo_start", np.int32), ("endo_count", np.int32),
+)
+
+
+def collect_block(env_bytes: bytes, env_off: np.ndarray,
+                  channel_id: bytes) -> dict:
+    """One C++ pass over a block's envelopes (`collect.cc`): the syntactic
+    checks, and per transaction the offsets (into `env_bytes`) and SHA-256
+    digests the validator needs.  `env_off` holds n + 1 offsets of the
+    concatenated envelopes.  `status` is 0 for a well-formed endorser
+    transaction, 1 for a config transaction, negative otherwise (the
+    caller re-derives those lanes in Python)."""
+    env_off = np.ascontiguousarray(env_off, np.int64)
+    n = len(env_off) - 1
+    if n < 0 or env_off[0] != 0 or (np.diff(env_off) < 0).any() \
+            or env_off[-1] != len(env_bytes):
+        raise ValueError("collect_block: env_off is not offsets of env_bytes")
+    lib = load()
+    out = {name: np.zeros(n, dt) for name, dt in _COLLECT_PER_TX}
+    out["payload_digest"] = np.zeros(32 * n, np.uint8)
+    max_endos = max(64, 8 * n)  # >= 8 endorsements a transaction, else retry
+    while True:
+        endos = {
+            "e_endorser_off": np.zeros(max_endos, np.int64),
+            "e_endorser_len": np.zeros(max_endos, np.int32),
+            "e_sig_off": np.zeros(max_endos, np.int64),
+            "e_sig_len": np.zeros(max_endos, np.int32),
+            "e_digest": np.zeros(32 * max_endos, np.uint8),
+        }
+        rc = lib.fabric_collect_block(
+            n, env_bytes, env_off, channel_id, len(channel_id),
+            out["status"], out["type"],
+            out["creator_off"], out["creator_len"],
+            out["sig_off"], out["sig_len"], out["payload_digest"],
+            out["txid_off"], out["txid_len"],
+            out["prp_off"], out["prp_len"],
+            out["rwset_off"], out["rwset_len"],
+            out["ccid_off"], out["ccid_len"],
+            out["endo_start"], out["endo_count"], max_endos,
+            endos["e_endorser_off"], endos["e_endorser_len"],
+            endos["e_sig_off"], endos["e_sig_len"], endos["e_digest"],
+        )
+        if rc >= 0:
+            out.update(endos)
+            out["n_endos"] = rc
+            return out
+        max_endos *= 4
+
+
+def sha256_impl() -> str:
+    """Which SHA-256 `collect_block` runs: "libcrypto" (the host's,
+    dlopened) or "scalar" (the loop in collect.cc)."""
+    return "libcrypto" if load().fabric_collect_sha256_impl() else "scalar"
+
+
 __all__ = ["build", "load", "marshal_batch", "bn254_msm", "bn254_mul_many",
-           "bn254_pairing_check"]
+           "bn254_pairing_check", "collect_block", "sha256_impl"]

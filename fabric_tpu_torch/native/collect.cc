@@ -1,0 +1,631 @@
+// Native block-collect pass for the txvalidator: the port's copy of the
+// JAX package's fabric_tpu/native/collect.cc, with one addition,
+// fabric_collect_sha256_impl, which says which SHA-256 the pass runs.
+//
+// Walks the protobuf wire format of every envelope in a block —
+// Envelope / Payload / Header / ChannelHeader / SignatureHeader /
+// Transaction / ChaincodeActionPayload / ChaincodeEndorsedAction /
+// ProposalResponsePayload / ChaincodeAction — performing the syntactic
+// checks of core/common/validation/msgvalidation.go:26-330 (reference
+// file:line) and emitting, per tx, the offsets and SHA-256 digests the
+// Python control plane needs to finish validation without touching a
+// single protobuf object on the hot path.
+//
+// Field numbers mirror fabric-protos-go (verified against the generated
+// *_pb2 descriptors): Envelope{payload=1,signature=2},
+// Payload{header=1,data=2}, Header{channel_header=1,signature_header=2},
+// ChannelHeader{type=1,channel_id=4,tx_id=5,epoch=6,extension=7},
+// SignatureHeader{creator=1,nonce=2}, Transaction{actions=1},
+// TransactionAction{payload=2}, ChaincodeActionPayload{ccpp=1,action=2},
+// ChaincodeEndorsedAction{prp=1,endorsements=2},
+// Endorsement{endorser=1,signature=2},
+// ProposalResponsePayload{proposal_hash=1,extension=2},
+// ChaincodeAction{results=1,events=2,chaincode_id=4},
+// ChaincodeHeaderExtension{chaincode_id=2}, ChaincodeID{name=2},
+// ChaincodeEvent{chaincode_id=1}.
+
+#include <cstdint>
+#include <cstring>
+#include <string>
+
+#include <dlfcn.h>
+
+#include <new>
+
+typedef uint8_t u8;
+typedef uint32_t u32;
+typedef uint64_t u64;
+typedef int32_t i32;
+typedef int64_t i64;
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// SHA-256.  The host libcrypto (when present) provides SHA-NI/AVX
+// dispatch — ~10x the scalar loop on this block-digest-heavy pass — so
+// it is resolved at runtime via dlopen; the scalar FIPS 180-4
+// implementation below is the always-available fallback.
+// ---------------------------------------------------------------------------
+
+struct OsslSha {
+  int (*init)(void*) = nullptr;
+  int (*update)(void*, const void*, size_t) = nullptr;
+  int (*fin)(u8*, void*) = nullptr;
+  bool ok = false;
+};
+
+const OsslSha& ossl() {
+  static const OsslSha s = [] {
+    OsslSha o;
+    for (const char* name :
+         {"libcrypto.so.3", "libcrypto.so.1.1", "libcrypto.so"}) {
+      void* h = dlopen(name, RTLD_NOW | RTLD_LOCAL);
+      if (!h) continue;
+      o.init = reinterpret_cast<int (*)(void*)>(dlsym(h, "SHA256_Init"));
+      o.update = reinterpret_cast<int (*)(void*, const void*, size_t)>(
+          dlsym(h, "SHA256_Update"));
+      o.fin = reinterpret_cast<int (*)(u8*, void*)>(dlsym(h, "SHA256_Final"));
+      if (o.init && o.update && o.fin) {
+        o.ok = true;
+        break;
+      }
+      dlclose(h);
+    }
+    return o;
+  }();
+  return s;
+}
+
+struct ScalarSha256 {
+  u32 h[8];
+  u8 buf[64];
+  u64 len = 0;
+  int fill = 0;
+  ScalarSha256() {
+    static const u32 init[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372,
+                                0xa54ff53a, 0x510e527f, 0x9b05688c,
+                                0x1f83d9ab, 0x5be0cd19};
+    memcpy(h, init, sizeof(h));
+  }
+  static u32 rotr(u32 x, int n) { return (x >> n) | (x << (32 - n)); }
+  void block(const u8* p) {
+    static const u32 K[64] = {
+        0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b,
+        0x59f111f1, 0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01,
+        0x243185be, 0x550c7dc3, 0x72be5d74, 0x80deb1fe, 0x9bdc06a7,
+        0xc19bf174, 0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc,
+        0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da, 0x983e5152,
+        0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+        0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc,
+        0x53380d13, 0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
+        0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3, 0xd192e819,
+        0xd6990624, 0xf40e3585, 0x106aa070, 0x19a4c116, 0x1e376c08,
+        0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f,
+        0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+        0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+    u32 w[64];
+    for (int i = 0; i < 16; ++i)
+      w[i] = (u32(p[4 * i]) << 24) | (u32(p[4 * i + 1]) << 16) |
+             (u32(p[4 * i + 2]) << 8) | u32(p[4 * i + 3]);
+    for (int i = 16; i < 64; ++i) {
+      u32 s0 = rotr(w[i - 15], 7) ^ rotr(w[i - 15], 18) ^ (w[i - 15] >> 3);
+      u32 s1 = rotr(w[i - 2], 17) ^ rotr(w[i - 2], 19) ^ (w[i - 2] >> 10);
+      w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    u32 a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5],
+        g = h[6], hh = h[7];
+    for (int i = 0; i < 64; ++i) {
+      u32 S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+      u32 ch = (e & f) ^ (~e & g);
+      u32 t1 = hh + S1 + ch + K[i] + w[i];
+      u32 S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+      u32 mj = (a & b) ^ (a & c) ^ (b & c);
+      u32 t2 = S0 + mj;
+      hh = g; g = f; f = e; e = d + t1;
+      d = c; c = b; b = a; a = t1 + t2;
+    }
+    h[0] += a; h[1] += b; h[2] += c; h[3] += d;
+    h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
+  }
+  void update(const u8* p, size_t n) {
+    len += n;
+    if (fill) {
+      while (n && fill < 64) { buf[fill++] = *p++; --n; }
+      if (fill == 64) { block(buf); fill = 0; }
+    }
+    while (n >= 64) { block(p); p += 64; n -= 64; }
+    while (n) { buf[fill++] = *p++; --n; }
+  }
+  void final(u8* out) {
+    u64 bits = len * 8;
+    u8 pad = 0x80;
+    update(&pad, 1);
+    u8 z = 0;
+    while (fill != 56) update(&z, 1);
+    u8 lb[8];
+    for (int i = 0; i < 8; ++i) lb[i] = u8(bits >> (56 - 8 * i));
+    update(lb, 8);
+    for (int i = 0; i < 8; ++i) {
+      out[4 * i] = u8(h[i] >> 24);
+      out[4 * i + 1] = u8(h[i] >> 16);
+      out[4 * i + 2] = u8(h[i] >> 8);
+      out[4 * i + 3] = u8(h[i]);
+    }
+  }
+};
+
+// Incremental SHA-256 front dispatching to libcrypto when available.
+// SHA256_CTX is 112 bytes (public, ABI-stable layout: h[8], Nl, Nh,
+// data[16], num, md_len); 128 leaves slack.  The two states share
+// storage — only the active one is ever constructed.
+struct Sha256 {
+  union {
+    alignas(8) u8 octx[128];
+    ScalarSha256 scalar;
+  };
+  bool fast;
+  Sha256() {
+    fast = ossl().ok;
+    if (fast) ossl().init(octx);
+    else new (&scalar) ScalarSha256();
+  }
+  void update(const u8* p, size_t n) {
+    if (fast) ossl().update(octx, p, n);
+    else scalar.update(p, n);
+  }
+  void final(u8* out) {
+    if (fast) ossl().fin(out, octx);
+    else scalar.final(out);
+  }
+};
+
+void sha256(const u8* p, size_t n, u8* out) {
+  Sha256 s;
+  s.update(p, n);
+  s.final(out);
+}
+
+// ---------------------------------------------------------------------------
+// Protobuf wire walker.
+// ---------------------------------------------------------------------------
+
+struct Slice {
+  const u8* p = nullptr;
+  size_t n = 0;
+  bool set = false;
+};
+
+bool read_varint(const u8*& p, const u8* end, u64* v) {
+  u64 out = 0;
+  int shift = 0;
+  while (p < end && shift < 64) {
+    u8 b = *p++;
+    out |= u64(b & 0x7f) << shift;
+    if (!(b & 0x80)) { *v = out; return true; }
+    shift += 7;
+  }
+  return false;
+}
+
+// Scan a message, filling `fields[num] = last occurrence` for
+// length-delimited fields and `varints[num]` for varint fields
+// (numbers above `maxf` are skipped).  Returns false on malformed wire.
+// Largest legal protobuf field number (2^29 - 1); python's decoder
+// rejects tags beyond it and field number 0, so the walker must too —
+// and the bound is what keeps `num` a safe array index below (a huge
+// tag varint truncated through int() would otherwise go NEGATIVE and
+// index out of bounds: found by the envelope fuzzer).
+const u64 MAX_FIELD = 536870911u;
+
+bool scan(const u8* p, size_t n, int maxf, Slice* fields, u64* varints) {
+  const u8* end = p + n;
+  while (p < end) {
+    u64 tag;
+    if (!read_varint(p, end, &tag)) return false;
+    u64 fnum = tag >> 3;
+    if (fnum == 0 || fnum > MAX_FIELD) return false;
+    int num = int(fnum);
+    int wt = int(tag & 7);
+    if (wt == 0) {
+      u64 v;
+      if (!read_varint(p, end, &v)) return false;
+      if (num <= maxf && varints) varints[num] = v;
+    } else if (wt == 2) {
+      u64 l;
+      if (!read_varint(p, end, &l)) return false;
+      if (l > size_t(end - p)) return false;
+      if (num <= maxf && fields) {
+        fields[num].p = p;
+        fields[num].n = size_t(l);
+        fields[num].set = true;
+      }
+      p += l;
+    } else if (wt == 5) {
+      if (end - p < 4) return false;
+      p += 4;
+    } else if (wt == 1) {
+      if (end - p < 8) return false;
+      p += 8;
+    } else {
+      return false;
+    }
+  }
+  return true;
+}
+
+const char HEX[] = "0123456789abcdef";
+
+// Strict UTF-8 validation (rejects overlongs, surrogates, > U+10FFFF)
+// — the same acceptance set as python's protobuf string decoding.
+// Proto3 `string` fields python PARSES must be checked here: a field
+// the walker treats as raw bytes but python rejects as invalid UTF-8
+// would otherwise flag differently across the two engines (or, worse,
+// crash the glue's .decode()).
+bool utf8_valid(const u8* p, size_t n) {
+  size_t i = 0;
+  while (i < n) {
+    u8 c = p[i];
+    if (c < 0x80) {
+      i++;
+      continue;
+    }
+    int len;
+    u32 cp, min;
+    if ((c & 0xe0) == 0xc0) {
+      len = 2; cp = c & 0x1f; min = 0x80;
+    } else if ((c & 0xf0) == 0xe0) {
+      len = 3; cp = c & 0x0f; min = 0x800;
+    } else if ((c & 0xf8) == 0xf0) {
+      len = 4; cp = c & 0x07; min = 0x10000;
+    } else {
+      return false;
+    }
+    if (i + size_t(len) > n) return false;
+    for (int k = 1; k < len; ++k) {
+      if ((p[i + k] & 0xc0) != 0x80) return false;
+      cp = (cp << 6) | (p[i + k] & 0x3f);
+    }
+    if (cp < min || cp > 0x10FFFF) return false;
+    if (cp >= 0xD800 && cp <= 0xDFFF) return false;
+    i += size_t(len);
+  }
+  return true;
+}
+
+// Fields 1..3 of a submessage are all proto strings (ChaincodeID
+// path/name/version; ChaincodeEvent chaincode_id/tx_id/event_name).
+bool strings_1to3_valid(const Slice* f) {
+  for (int k = 1; k <= 3; ++k) {
+    if (f[k].set && !utf8_valid(f[k].p, f[k].n)) return false;
+  }
+  return true;
+}
+
+// Status codes.  The glue treats EVERY negative status identically —
+// the lane re-runs the canonical pure-python collector, which picks
+// the TxValidationCode (engine parity by construction; see
+// txvalidator._collect_native).  The distinct negative codes exist for
+// debugging and the fuzzer's known-set assertion only; 0/1 are the
+// codes that matter (fully-validated endorser/config tx).
+enum {
+  OK_ENDORSER = 0,
+  OK_CONFIG = 1,
+  E_NIL_ENVELOPE = -1,
+  E_BAD_PAYLOAD = -2,
+  E_BAD_COMMON_HEADER = -3,
+  E_BAD_CHANNEL_HEADER = -4,
+  E_BAD_PROPOSAL_TXID = -5,
+  E_BAD_RESPONSE_PAYLOAD = -6,
+  E_NO_ENDORSEMENTS = -7,
+  E_UNKNOWN_TX_TYPE = -8,
+  E_BAD_HEADER_EXTENSION = -9,
+  E_INVALID_CHAINCODE = -10,
+  E_INVALID_OTHER = -11,
+  E_PY_FALLBACK = -12,
+  E_NIL_TXACTION = -13,
+};
+
+}  // namespace
+
+extern "C" {
+
+// 1 when SHA-256 runs in the host's libcrypto (dlopened), 0 when it runs
+// the scalar loop above.
+int fabric_collect_sha256_impl() { return ossl().ok ? 1 : 0; }
+
+// Per-tx arrays sized n; endorsement arrays sized max_endos.  All
+// offsets are relative to `envs`.  Returns the total endorsement count,
+// or -1 when max_endos was exceeded (caller re-runs with more room).
+int fabric_collect_block(
+    int n, const u8* envs, const i64* env_off, const u8* channel_id,
+    int channel_id_len, i32* status, i32* type_out, i64* creator_off,
+    i32* creator_len, i64* sig_off, i32* sig_len, u8* payload_digest,
+    i64* txid_off, i32* txid_len, i64* prp_off, i32* prp_len,
+    i64* rwset_off, i32* rwset_len, i64* ccid_off, i32* ccid_len,
+    i32* endo_start, i32* endo_count, int max_endos, i64* e_endorser_off,
+    i32* e_endorser_len, i64* e_sig_off, i32* e_sig_len, u8* e_digest) {
+  int ne = 0;
+  for (int i = 0; i < n; ++i) {
+    status[i] = E_BAD_PAYLOAD;
+    type_out[i] = -1;
+    creator_len[i] = sig_len[i] = txid_len[i] = 0;
+    prp_len[i] = rwset_len[i] = ccid_len[i] = 0;
+    endo_start[i] = ne;
+    endo_count[i] = 0;
+    const u8* env = envs + env_off[i];
+    size_t env_n = size_t(env_off[i + 1] - env_off[i]);
+
+    Slice ef[3];
+    if (!scan(env, env_n, 2, ef, nullptr)) continue;
+    if (!ef[1].set || ef[1].n == 0) { status[i] = E_NIL_ENVELOPE; continue; }
+    const Slice payload = ef[1];
+    // creator signature over the payload bytes
+    sig_off[i] = ef[2].set ? (ef[2].p - envs) : 0;
+    sig_len[i] = ef[2].set ? i32(ef[2].n) : 0;
+    sha256(payload.p, payload.n, payload_digest + 32 * i);
+
+    Slice pf[3];
+    if (!scan(payload.p, payload.n, 2, pf, nullptr)) continue;
+    if (!pf[1].set) continue;
+    Slice hf[3];
+    if (!scan(pf[1].p, pf[1].n, 2, hf, nullptr)) continue;
+    if (!hf[1].set || !hf[2].set) continue;
+    const Slice chdr = hf[1], shdr = hf[2];
+    Slice cf[8];
+    u64 cv[8] = {0};
+    if (!scan(chdr.p, chdr.n, 7, cf, cv)) continue;
+    // timestamp (field 3) is a Timestamp SUBMESSAGE python parses
+    // recursively; an opaque-blob pass here would accept garbage
+    // python rejects (accept-side engine divergence)
+    if (cf[3].set && !scan(cf[3].p, cf[3].n, 0, nullptr, nullptr)) continue;
+    Slice sf[3];
+    if (!scan(shdr.p, shdr.n, 2, sf, nullptr)) continue;
+
+    const Slice creator = sf[1], nonce = sf[2];
+    if (!creator.set || creator.n == 0 || !nonce.set || nonce.n == 0) {
+      status[i] = E_BAD_COMMON_HEADER;
+      continue;
+    }
+    // channel id match + epoch == 0
+    if (!cf[4].set || cf[4].n != size_t(channel_id_len) ||
+        memcmp(cf[4].p, channel_id, channel_id_len) != 0 || cv[6] != 0) {
+      status[i] = E_BAD_CHANNEL_HEADER;
+      continue;
+    }
+    creator_off[i] = creator.p - envs;
+    creator_len[i] = i32(creator.n);
+    type_out[i] = i32(cv[1]);
+
+    if (cv[1] == 1 /* CONFIG */) { status[i] = OK_CONFIG; continue; }
+    if (cv[1] != 3 /* ENDORSER_TRANSACTION */) {
+      status[i] = E_UNKNOWN_TX_TYPE;
+      continue;
+    }
+
+    // tx-id binding: hex(sha256(nonce || creator)) == chdr.tx_id
+    {
+      if (!cf[5].set || cf[5].n != 64) { status[i] = E_BAD_PROPOSAL_TXID; continue; }
+      Sha256 s;
+      s.update(nonce.p, nonce.n);
+      s.update(creator.p, creator.n);
+      u8 d[32];
+      s.final(d);
+      char hex[64];
+      for (int k = 0; k < 32; ++k) {
+        hex[2 * k] = HEX[d[k] >> 4];
+        hex[2 * k + 1] = HEX[d[k] & 0xf];
+      }
+      if (memcmp(hex, cf[5].p, 64) != 0) { status[i] = E_BAD_PROPOSAL_TXID; continue; }
+      txid_off[i] = cf[5].p - envs;
+      txid_len[i] = 64;
+    }
+
+    // Transaction -> FIRST action (python validates tx.actions[0];
+    // scan() keeps the last occurrence, so walk manually).  The walk
+    // continues to the END of the message even after actions[0] is
+    // found: python's Transaction.FromString wire-validates every
+    // trailing action (and any other field), so stopping early would
+    // accept envelopes python rejects.
+    if (!pf[2].set) { status[i] = E_NIL_TXACTION; continue; }
+    Slice action0;
+    {
+      const u8* p = pf[2].p;
+      const u8* end = p + pf[2].n;
+      bool bad = false;
+      while (p < end) {
+        u64 tag;
+        if (!read_varint(p, end, &tag)) { bad = true; break; }
+        if ((tag >> 3) == 0 || (tag >> 3) > MAX_FIELD) { bad = true; break; }
+        int wt = int(tag & 7);
+        if (wt == 2) {
+          u64 l;
+          if (!read_varint(p, end, &l) || l > size_t(end - p)) { bad = true; break; }
+          if ((tag >> 3) == 1) {
+            // every TransactionAction submessage must be wire-valid
+            // (python parses them all, even past actions[0])
+            if (!scan(p, size_t(l), 0, nullptr, nullptr)) { bad = true; break; }
+            if (!action0.set) { action0.p = p; action0.n = size_t(l); action0.set = true; }
+          }
+          p += l;
+        } else if (wt == 0) {
+          u64 v;
+          if (!read_varint(p, end, &v)) { bad = true; break; }
+        } else if (wt == 5) { if (end - p < 4) { bad = true; break; } p += 4; }
+        else if (wt == 1) { if (end - p < 8) { bad = true; break; } p += 8; }
+        else { bad = true; break; }
+      }
+      if (bad) continue;
+      if (!action0.set) { status[i] = E_NIL_TXACTION; continue; }
+    }
+    Slice taf[3];
+    if (!scan(action0.p, action0.n, 2, taf, nullptr)) continue;
+    if (!taf[2].set) continue;
+    Slice capf[3];
+    if (!scan(taf[2].p, taf[2].n, 2, capf, nullptr)) continue;
+    if (!capf[2].set) continue;
+    const Slice ccpp = capf[1];
+    Slice eaf[3];
+    if (!scan(capf[2].p, capf[2].n, 2, eaf, nullptr)) continue;
+    if (!eaf[1].set) continue;
+    const Slice prp = eaf[1];
+    Slice prpf[3];
+    if (!scan(prp.p, prp.n, 2, prpf, nullptr)) continue;
+    if (!prpf[1].set || !prpf[2].set) continue;
+
+    // proposal-hash binding: sha256(chdr || shdr || committed ccpp
+    // bytes AS-IS) — the reference's GetProposalHash2 semantics
+    // (protoutil/txutils.go:431, msgvalidation.go:233).  The committed
+    // ccpp is never parsed by either engine, so no canonicalization and
+    // no content validation are needed: any byte difference from the
+    // endorsed preimage (including a smuggled TransientMap) hashes
+    // differently and the lane flags BAD_RESPONSE_PAYLOAD.
+    {
+      Sha256 s;
+      s.update(chdr.p, chdr.n);
+      s.update(shdr.p, shdr.n);
+      if (ccpp.set && ccpp.n) s.update(ccpp.p, ccpp.n);
+      u8 want[32];
+      s.final(want);
+      if (prpf[1].n != 32 || memcmp(prpf[1].p, want, 32) != 0) {
+        status[i] = E_BAD_RESPONSE_PAYLOAD;
+        continue;
+      }
+    }
+
+    // endorsements FIRST (python checks cap.action.endorsements right
+    // after the proposal-hash binding, before any chaincode-id checks):
+    // every occurrence of field 2 in ChaincodeEndorsedAction.  A missing
+    // endorser field stays in the batch (empty identity -> python's
+    // dummy-item lane -> policy failure at finish), matching the python
+    // path's per-endorsement tolerance.
+    {
+      const u8* p = capf[2].p;
+      const u8* end = p + capf[2].n;
+      int count = 0;
+      bool ok = true;
+      while (p < end) {
+        u64 tag;
+        if (!read_varint(p, end, &tag)) { ok = false; break; }
+        if ((tag >> 3) == 0 || (tag >> 3) > MAX_FIELD) { ok = false; break; }
+        int num = int(tag >> 3);
+        int wt = int(tag & 7);
+        if (wt != 2) { ok = false; break; }
+        u64 l;
+        if (!read_varint(p, end, &l) || l > size_t(end - p)) { ok = false; break; }
+        const u8* body = p;
+        p += l;
+        if (num != 2) continue;
+        if (ne >= max_endos) return -1;
+        Slice endo[3];
+        if (!scan(body, size_t(l), 2, endo, nullptr)) { ok = false; break; }
+        e_endorser_off[ne] = endo[1].set ? (endo[1].p - envs) : 0;
+        e_endorser_len[ne] = endo[1].set ? i32(endo[1].n) : 0;
+        e_sig_off[ne] = endo[2].set ? (endo[2].p - envs) : 0;
+        e_sig_len[ne] = endo[2].set ? i32(endo[2].n) : 0;
+        // digest of (prp_bytes || endorser): what each endorsement signs
+        Sha256 es;
+        es.update(prp.p, prp.n);
+        if (endo[1].set) es.update(endo[1].p, endo[1].n);
+        es.final(e_digest + 32 * size_t(ne));
+        ++ne;
+        ++count;
+      }
+      if (!ok) { status[i] = E_BAD_PAYLOAD; endo_count[i] = 0; continue; }
+      if (count == 0) { status[i] = E_NO_ENDORSEMENTS; continue; }
+      endo_count[i] = count;
+    }
+
+    // ChaincodeAction: results, events, chaincode_id
+    Slice af[5];
+    if (!scan(prpf[2].p, prpf[2].n, 4, af, nullptr)) { endo_count[i] = 0; continue; }
+    // header-extension chaincode id.  A MISSING extension parses as an
+    // empty message in python (cc_id == "" -> INVALID_CHAINCODE);
+    // BAD_HEADER_EXTENSION is only for extension bytes that fail to
+    // parse.
+    Slice hef[3];
+    if (cf[7].set && !scan(cf[7].p, cf[7].n, 2, hef, nullptr)) {
+      status[i] = E_BAD_HEADER_EXTENSION;
+      endo_count[i] = 0;
+      continue;
+    }
+    Slice hccf[4];
+    if (hef[2].set && !scan(hef[2].p, hef[2].n, 3, hccf, nullptr)) {
+      status[i] = E_BAD_HEADER_EXTENSION;
+      endo_count[i] = 0;
+      continue;
+    }
+    if (!strings_1to3_valid(hccf)) {
+      // python rejects the whole hdr_ext parse on invalid UTF-8; let
+      // the python collector pick the exact flag
+      status[i] = E_PY_FALLBACK;
+      endo_count[i] = 0;
+      continue;
+    }
+    if (!hccf[2].set || hccf[2].n == 0) {
+      status[i] = E_INVALID_CHAINCODE;
+      endo_count[i] = 0;
+      continue;
+    }
+    const Slice ccid = hccf[2];  // UTF-8 already vetted just above
+    {
+      Slice accf[4];
+      if (!af[4].set || !scan(af[4].p, af[4].n, 3, accf, nullptr) ||
+          !strings_1to3_valid(accf)) {
+        status[i] = af[4].set ? E_PY_FALLBACK : E_INVALID_CHAINCODE;
+        endo_count[i] = 0;
+        continue;
+      }
+      if (!accf[2].set || accf[2].n != ccid.n ||
+          memcmp(accf[2].p, ccid.p, ccid.n) != 0) {
+        status[i] = E_INVALID_CHAINCODE;
+        endo_count[i] = 0;
+        continue;
+      }
+    }
+    // ChaincodeAction.response (field 3) is a Response{status=1,
+    // message=2(string), payload=3}: python's ChaincodeAction parse
+    // validates message's UTF-8
+    if (af[3].set && af[3].n) {
+      Slice rf[3];
+      if (!scan(af[3].p, af[3].n, 2, rf, nullptr) ||
+          (rf[2].set && !utf8_valid(rf[2].p, rf[2].n))) {
+        status[i] = E_PY_FALLBACK;
+        endo_count[i] = 0;
+        continue;
+      }
+    }
+    if (af[2].set && af[2].n) {  // chaincode event must name the chaincode
+      // ChaincodeEvent{chaincode_id=1, tx_id=2, event_name=3, payload=4}
+      // — three proto strings python's parse validates
+      Slice evf[4];
+      if (!scan(af[2].p, af[2].n, 3, evf, nullptr)) {
+        status[i] = E_INVALID_OTHER;
+        endo_count[i] = 0;
+        continue;
+      }
+      if (!strings_1to3_valid(evf)) {  // fields 1..3 are all strings
+        status[i] = E_PY_FALLBACK;
+        endo_count[i] = 0;
+        continue;
+      }
+      if (!evf[1].set || evf[1].n != ccid.n ||
+          memcmp(evf[1].p, ccid.p, ccid.n) != 0) {
+        status[i] = E_INVALID_OTHER;
+        endo_count[i] = 0;
+        continue;
+      }
+    }
+    ccid_off[i] = ccid.p - envs;
+    ccid_len[i] = i32(ccid.n);
+    if (af[1].set) {
+      rwset_off[i] = af[1].p - envs;
+      rwset_len[i] = i32(af[1].n);
+    }
+    prp_off[i] = prp.p - envs;
+    prp_len[i] = i32(prp.n);
+    status[i] = OK_ENDORSER;
+  }
+  return ne;
+}
+
+}  // extern "C"

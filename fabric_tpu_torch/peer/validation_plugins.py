@@ -1,0 +1,567 @@
+"""Transaction-validation plugins and the builtin v2.0 plugin with
+key-level (state-based) endorsement (the port's copy of
+`fabric_tpu/peer/validation_plugins.py`).
+
+A plugin's `prepare` returns a `PendingValidation` whose `items` join the
+block-wide batched verify and whose `finish(mask)` applies the policy on
+the host.  Key-level semantics (reference statebased validator): every
+key a transaction writes (value or metadata, public or collection) is
+checked against its VALIDATION_PARAMETER when one is set, and an
+unparsable one fails the transaction; other keys fall back to the
+collection's endorsement policy, when it defines one, else to the
+chaincode's, each evaluated once; a transaction that writes nothing in
+the namespace is still checked against the chaincode policy.
+
+`PolicyProvider`'s definition provider is duck-typed:
+`validation_info(ns) -> (plugin name, ApplicationPolicy bytes) | None`
+and, optionally, `collection_config(ns, coll) -> StaticCollectionConfig
+| None` (`protos.peer`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, Sequence
+
+from fabric_tpu_torch.csp.api import VerifyBatchItem
+from fabric_tpu_torch.ledger.txmgmt import VALIDATION_PARAMETER, hash_ns
+from fabric_tpu_torch.policies.signature_policy import SignaturePolicy
+from fabric_tpu_torch.protos import common as cb
+from fabric_tpu_torch.protos import peer as pb
+from fabric_tpu_torch.protos import rwset as rw
+from fabric_tpu_torch.protoutil import SignedData
+
+_logger = logging.getLogger(__name__)
+
+
+class IllegalWritesetError(Exception):
+    """Duplicate namespace in the tx rwset (reference dispatcher.go:174
+    -> TxValidationCode_ILLEGAL_WRITESET)."""
+
+
+@dataclasses.dataclass
+class RwsetFootprint:
+    """One parse of a TxReadWriteSet, shared between the validator's
+    ordering logic and the plugins (avoids re-decoding per phase)."""
+
+    touched: frozenset  # {(ns_or_hashns, key)} the tx writes or re-metas
+    meta_writes: dict  # {(ns_or_hashns, key): {entry: value}}
+    per_ns: dict  # ns -> {"pub": [key], "meta": [key],
+    #                      "coll": [(coll, hashns, hkey)],
+    #                      "coll_meta": [(coll, hashns, hkey)],
+    #                      "writes": bool}
+    parsed: list = dataclasses.field(default_factory=list)
+    # the SAME decode the MVCC validator and history index need later:
+    # [(ns, KVRWSet, [(coll, HashedRWSet, pvt_rwset_hash)])] — handed down
+    # the commit path so each tx's rwset wire format is walked exactly
+    # once per lifecycle (the reference re-unmarshals it in the
+    # dispatcher, in validateAndPrepareBatch AND in the history db,
+    # rwsetutil/rwset_proto_util.go callers)
+
+
+def parse_footprint(rwset_bytes: bytes | None) -> RwsetFootprint:
+    # Hot path: one call per transaction, the largest single collect cost
+    # in the JAX package's profiles, so the common shape (one namespace, a
+    # few public writes, no collections) runs on comprehensions and batch
+    # extends, not per-item loop bodies.
+    touched: list = []
+    meta: dict[tuple[str, str], dict[str, bytes]] = {}
+    per_ns: dict[str, dict] = {}
+    parsed: list = []
+    if rwset_bytes:
+        txrw = rw.TxReadWriteSet.decode(rwset_bytes)
+        for nsrw in txrw.ns_rwset:
+            ns = nsrw.namespace
+            if ns in per_ns:
+                raise IllegalWritesetError(
+                    f"duplicate namespace {ns!r} in txRWSet"
+                )
+            kvrw = rw.KVRWSet.decode(nsrw.rwset)
+            colls: list = []
+            parsed.append((ns, kvrw, colls))
+            pub = [w.key for w in kvrw.writes]
+            mkeys = [mw.key for mw in kvrw.metadata_writes]
+            entry = per_ns[ns] = {
+                "pub": pub, "meta": mkeys, "coll": [], "coll_meta": [],
+                "writes": bool(pub or mkeys),
+            }
+            if pub:
+                touched.extend((ns, k) for k in pub)
+            if mkeys:
+                touched.extend((ns, k) for k in mkeys)
+                for mw in kvrw.metadata_writes:
+                    meta[(ns, mw.key)] = {
+                        e.name: e.value for e in mw.entries
+                    }
+            if not nsrw.collection_hashed_rwset:
+                continue
+            seen_colls: set[str] = set()
+            for ch in nsrw.collection_hashed_rwset:
+                cname = ch.collection_name
+                if cname in seen_colls:
+                    raise IllegalWritesetError(
+                        f"duplicate collection {cname!r} in "
+                        f"namespace {ns!r}"
+                    )
+                seen_colls.add(cname)
+                hns = hash_ns(ns, cname)
+                hrw = rw.HashedRWSet.decode(ch.hashed_rwset)
+                colls.append((cname, hrw, ch.pvt_rwset_hash))
+                hkeys = [hw.key_hash.hex() for hw in hrw.hashed_writes]
+                if hkeys:
+                    touched.extend((hns, k) for k in hkeys)
+                    entry["coll"].extend((cname, hns, k) for k in hkeys)
+                    entry["writes"] = True
+                for mw in hrw.metadata_writes:
+                    hkey = mw.key_hash.hex()
+                    touched.append((hns, hkey))
+                    entry["coll_meta"].append((cname, hns, hkey))
+                    entry["writes"] = True
+                    meta[(hns, hkey)] = {
+                        e.name: e.value for e in mw.entries
+                    }
+    return RwsetFootprint(frozenset(touched), meta, per_ns, parsed)
+
+
+@dataclasses.dataclass
+class ValidationContext:
+    """Everything a plugin may consult for one (tx, namespace) action."""
+
+    channel_id: str
+    namespace: str
+    tx_pos: int
+    endorsements: list[SignedData]
+    rwset_bytes: bytes | None
+    policy_provider: "PolicyProvider"
+    state_metadata: Callable[[str, str], dict[str, bytes]]
+    # (ns_or_hashns, key) -> committed metadata entries
+    footprint: RwsetFootprint | None = None
+    ns_has_metadata: Callable[[str], bool] | None = None
+    # committed-state oracle: False guarantees NO key in the namespace
+    # carries metadata, letting the plugin skip the per-written-key
+    # VALIDATION_PARAMETER lookups wholesale (the reference pays a
+    # GetStateMetadata fetch per written key per tx,
+    # statebased/vpmanagerimpl.go:293); None = unknown, look keys up
+
+
+class PendingValidation:
+    """Two-phase result: `items` join the block batch; `finish(mask)`
+    returns True when the action validates."""
+
+    def __init__(self, pendings: list, items: list):
+        self._pendings = pendings  # [(PendingEvaluation, (start, end))]
+        self.items = items
+
+    def finish(self, mask: Sequence[bool]) -> bool:
+        return all(
+            p.finish(mask[start:end]) for p, (start, end) in self._pendings
+        )
+
+
+class _FailPending(PendingValidation):
+    """Structured always-fail result: carries WHY the action can never
+    validate (the reason also goes to the validation logger), so a
+    rejected tx is attributable instead of a silent False."""
+
+    def __init__(self, reason: str):
+        super().__init__([], [])
+        self.reason = reason
+        _logger.warning("validation action rejected: %s", reason)
+
+    def finish(self, mask) -> bool:
+        return False
+
+
+class PolicyProvider:
+    """Resolves policy references for a channel: inline signature
+    policies, channel-policy references, and the per-chaincode default
+    (reference plugindispatcher/plugin_validator.go policy fetching).
+
+    Parsed policies are memoized by their raw bytes: every tx carrying
+    the same chaincode-level validation parameter or key-level
+    VALIDATION_PARAMETER resolves to the SAME compiled SignaturePolicy
+    object, so downstream per-(policy, endorser-set) caches hit across
+    txs and blocks."""
+
+    _MEMO_CAP = 512
+
+    def __init__(self, policy_manager, deserializer, definition_provider=None):
+        self._pm = policy_manager
+        self._deserializer = deserializer
+        self._definitions = definition_provider
+        self._app_memo: dict[bytes, object] = {}
+        self._sig_memo: dict[bytes, object] = {}
+        self._ns_memo: dict[str, object] = {}
+
+    @property
+    def deserializer(self):
+        return self._deserializer
+
+    def begin_block(self) -> None:
+        """Reset per-block memos.  Chaincode-level policy resolution is
+        stable within one block but may change between blocks (a
+        lifecycle commit lands a new definition), so the validator calls
+        this at every block start."""
+        self._ns_memo.clear()
+
+    def default_policy(self):
+        return self._pm.get_policy("/Channel/Application/Endorsement")
+
+    def chaincode_policy(self, namespace: str):
+        """The chaincode-level endorsement policy from the committed
+        definition's validation parameter, else the channel default.
+        Memoized per block (see begin_block)."""
+        if namespace in self._ns_memo:
+            return self._ns_memo[namespace]
+        pol = self._resolve_chaincode_policy(namespace)
+        self._ns_memo[namespace] = pol
+        return pol
+
+    def _resolve_chaincode_policy(self, namespace: str):
+        if self._definitions is not None:
+            info = self._definitions.validation_info(namespace)
+            if info is not None:
+                _, param = info
+                pol = self.from_application_policy_bytes(param)
+                if pol is not None:
+                    return pol
+        return self.default_policy()
+
+    def collection_policy(self, namespace: str, collection: str):
+        """The collection-level endorsement policy from the committed
+        definition's collection config, or None when the collection
+        defines none (reference v20.go fetchCollEP +
+        CollectionValidationInfo)."""
+        if self._definitions is None:
+            return None
+        getter = getattr(self._definitions, "collection_config", None)
+        if getter is None:
+            return None
+        conf = getter(namespace, collection)
+        if conf is None or not conf.has("endorsement_policy"):
+            return None
+        return self.from_application_policy_bytes(
+            conf.endorsement_policy.encode()
+        )
+
+    def from_application_policy_bytes(self, raw: bytes):
+        """Parse an ApplicationPolicy (inline signature policy or channel
+        policy reference) — the chaincode-level validation parameter
+        encoding; None when empty/unparseable."""
+        if not raw:
+            return None
+        if raw in self._app_memo:
+            return self._app_memo[raw]
+        pol = self._parse_application_policy(raw)
+        if len(self._app_memo) >= self._MEMO_CAP:
+            self._app_memo.clear()
+        self._app_memo[raw] = pol
+        return pol
+
+    def _parse_application_policy(self, raw: bytes):
+        # parse and lookup fail differently: a proto decode error means
+        # bad BYTES, a reference-resolution error means bad channel
+        # CONFIG — the operator must be pointed at the right one
+        try:
+            ap = pb.ApplicationPolicy.decode(raw)
+        except Exception as exc:
+            # None is the documented "no usable policy" sentinel the
+            # callers fall back on — but the parse failure itself must
+            # be attributable, not swallowed
+            _logger.warning(
+                "unparsable ApplicationPolicy (%d bytes): %s",
+                len(raw), exc,
+            )
+            return None
+        which = ap.which("type")
+        try:
+            if which == "signature_policy":
+                return SignaturePolicy(
+                    ap.signature_policy, self._deserializer
+                )
+            if which == "channel_config_policy_reference":
+                return self._pm.get_policy(
+                    ap.channel_config_policy_reference
+                )
+        except Exception as exc:
+            _logger.warning(
+                "ApplicationPolicy %s could not be resolved: %s",
+                which, exc,
+            )
+        return None
+
+    def from_signature_policy_bytes(self, raw: bytes):
+        """Parse a bare SignaturePolicyEnvelope — the KEY-LEVEL
+        (state-based) policy encoding, distinct from ApplicationPolicy
+        (the two are not wire-distinguishable, so each context uses its
+        own parser, as in the reference)."""
+        if not raw:
+            return None
+        if raw in self._sig_memo:
+            return self._sig_memo[raw]
+        pol = self._parse_signature_policy(raw)
+        if len(self._sig_memo) >= self._MEMO_CAP:
+            self._sig_memo.clear()
+        self._sig_memo[raw] = pol
+        return pol
+
+    def _parse_signature_policy(self, raw: bytes):
+        try:
+            env = cb.SignaturePolicyEnvelope.decode(raw)
+            if env.rule.encode() or env.identities:
+                return SignaturePolicy(env, self._deserializer)
+        except Exception as exc:
+            _logger.warning(
+                "unparsable SignaturePolicyEnvelope (%d bytes): %s",
+                len(raw), exc,
+            )
+        return None
+
+
+class EndorsementPlan:
+    """Amortized policy combinatorics for one (policy set, ordered unique
+    endorser set).
+
+    Within a block — and across blocks — most txs repeat the same
+    chaincode policy against the same endorsing orgs; only the digests
+    and signatures differ per tx.  The reference re-runs identity
+    deserialization, principal matching, and the cauthdsl closure for
+    every tx (common/policies/policy.go:365 + cauthdsl.go:40-92).  A
+    plan does all of that ONCE: it deserializes each unique endorser,
+    prepares every policy against sentinel digests to learn which item
+    lane maps to which endorser, and memoizes `decide(bits)` — the pure
+    function from per-endorser verify outcomes to the policy verdict.
+    Per tx, validation is then k VerifyBatchItem constructions plus one
+    dict lookup."""
+
+    def __init__(self, policies, endorser_bytes: tuple, deserializer):
+        self.identities = []
+        for eb in endorser_bytes:
+            try:
+                self.identities.append(deserializer.deserialize_identity(eb))
+            except Exception:
+                self.identities.append(None)
+        # Sentinel digests (1-based: the all-zero digest is the dummy
+        # item for identities that fail to deserialize) recover the
+        # item-lane -> endorser-index mapping from each policy's prepare.
+        sentinels = {}
+        signed = []
+        for j, eb in enumerate(endorser_bytes):
+            d = (j + 1).to_bytes(32, "big")
+            sentinels[d] = j
+            signed.append(SignedData(b"", eb, b"", digest=d))
+        self._pendings = []
+        for pol in policies:
+            p = pol.prepare(signed)
+            mapping = [sentinels.get(it.digest, -1) for it in p.items]
+            self._pendings.append((p, mapping))
+        self._decisions: dict[tuple, bool] = {}
+
+    def decide(self, bits: tuple) -> bool:
+        r = self._decisions.get(bits)
+        if r is None:
+            r = all(
+                p.finish([bits[j] if j >= 0 else False for j in mapping])
+                for p, mapping in self._pendings
+            )
+            self._decisions[bits] = r
+        return r
+
+
+class _PlanPending(PendingValidation):
+    """Per-tx pending bound to a shared EndorsementPlan: `items` carry
+    this tx's digests/signatures for the endorsers that deserialize;
+    `finish` folds the mask into the plan's memoized decision."""
+
+    def __init__(self, plan: EndorsementPlan, lanes: list, items: list):
+        self._plan = plan
+        self._lanes = lanes  # endorser index per item position
+        self.items = items
+
+    def finish(self, mask) -> bool:
+        bits = [False] * len(self._plan.identities)
+        for pos, j in enumerate(self._lanes):
+            bits[j] = bool(mask[pos])
+        return self._plan.decide(tuple(bits))
+
+
+class BuiltinV20Plugin:
+    """The default endorsement-policy plugin ("vscc"), key-level aware.
+    Evaluates the single namespace in `ctx.namespace`; the validator
+    dispatches one prepare per written namespace, as the reference
+    dispatcher does."""
+
+    _PLAN_CAP = 256
+
+    def __init__(self, plans: bool = True):
+        self._use_plans = plans
+        self._plans: dict[tuple, EndorsementPlan] = {}
+
+    def _plan_pending(self, ctx: ValidationContext, policies) -> PendingValidation | None:
+        """Plan-cached fast path; None when an endorsement lacks a
+        precomputed digest (the generic per-tx path handles it)."""
+        ends = ctx.endorsements
+        if not self._use_plans or not ends:
+            return None
+        uniq: dict[bytes, SignedData] = {}
+        for sd in ends:
+            if sd.digest is None:
+                return None
+            if sd.identity not in uniq:
+                uniq[sd.identity] = sd
+        key = (tuple(policies), tuple(uniq))
+        plan = self._plans.get(key)
+        if plan is None:
+            try:
+                plan = EndorsementPlan(
+                    policies, tuple(uniq), ctx.policy_provider.deserializer
+                )
+            except Exception as exc:
+                # fall back to the per-tx generic path; the plan build
+                # failure is logged so a policy that can never be
+                # amortized is visible, not silently slow
+                _logger.warning(
+                    "endorsement-plan build failed for %r (falling back "
+                    "to per-tx evaluation): %s", ctx.namespace, exc,
+                )
+                return None
+            if len(self._plans) >= self._PLAN_CAP:
+                self._plans.clear()
+            self._plans[key] = plan
+        lanes, items = [], []
+        for j, sd in enumerate(uniq.values()):
+            ident = plan.identities[j]
+            if ident is not None:
+                lanes.append(j)
+                items.append(
+                    VerifyBatchItem(ident.public_key, sd.digest, sd.signature)
+                )
+        return _PlanPending(plan, lanes, items)
+
+    def prepare(self, ctx: ValidationContext) -> PendingValidation:
+        try:
+            fp = ctx.footprint or parse_footprint(ctx.rwset_bytes)
+        except Exception as exc:
+            return _FailPending(
+                f"tx rwset for namespace {ctx.namespace!r} does not "
+                f"parse: {exc}"
+            )
+        entry = fp.per_ns.get(
+            ctx.namespace,
+            {"pub": [], "meta": [], "coll": [], "coll_meta": [],
+             "writes": False},
+        )
+        # Dedupe: a key counted once even when both written and
+        # metadata-written; identical key-level policies evaluated once.
+        pub_keys = set(entry["pub"]) | set(entry["meta"])
+        coll_keys = set(entry["coll"]) | set(entry["coll_meta"])
+
+        policies_by_bytes: dict[bytes, object] = {}
+        fallbacks: dict[str, object] = {}  # "" = ccEP, else collection
+
+        def resolve_fallback(coll: str) -> None:
+            """Mirrors CheckCCEPIfNotChecked: cache the collection policy
+            when the collection defines one, else the chaincode policy
+            (each evaluated at most once)."""
+            if coll and coll not in fallbacks:
+                fallbacks[coll] = ctx.policy_provider.collection_policy(
+                    ctx.namespace, coll
+                )
+            if coll and fallbacks.get(coll) is not None:
+                return
+            if "" not in fallbacks:
+                fallbacks[""] = ctx.policy_provider.chaincode_policy(
+                    ctx.namespace
+                )
+
+        # Namespaces whose committed state holds no metadata at all can
+        # skip the per-key lookups: every key falls back, and the
+        # fallback resolution is memoized, so the whole loop collapses
+        # to one resolve per (namespace, collection).
+        has_meta = ctx.ns_has_metadata
+        check: list[tuple[str, str, str]] = []
+        if pub_keys:
+            if has_meta is not None and not has_meta(ctx.namespace):
+                resolve_fallback("")
+            else:
+                check.extend(
+                    ("", ctx.namespace, k) for k in sorted(pub_keys)
+                )
+        if coll_keys:
+            skip_ns: dict[str, bool] = {}
+            for coll, ns, key in sorted(coll_keys):
+                sk = skip_ns.get(ns)
+                if sk is None:
+                    sk = has_meta is not None and not has_meta(ns)
+                    skip_ns[ns] = sk
+                if sk:
+                    resolve_fallback(coll)
+                else:
+                    check.append((coll, ns, key))
+        for coll, ns, key in check:
+            raw = ctx.state_metadata(ns, key).get(VALIDATION_PARAMETER)
+            if not raw:
+                resolve_fallback(coll)
+                continue
+            if raw not in policies_by_bytes:
+                pol = ctx.policy_provider.from_signature_policy_bytes(raw)
+                if pol is None:
+                    # unmarshalable key-level policy invalidates the tx
+                    # (reference policyErr on Evaluate of broken vp)
+                    return _FailPending(
+                        f"key-level VALIDATION_PARAMETER on "
+                        f"({ns!r}, {key!r}) does not parse as a "
+                        f"SignaturePolicyEnvelope"
+                    )
+                policies_by_bytes[raw] = pol
+
+        policies = list(policies_by_bytes.values())
+        policies.extend(p for p in fallbacks.values() if p is not None)
+        if not entry["writes"] and not policies:
+            # no writes at all: the chaincode policy must still hold
+            policies.append(
+                ctx.policy_provider.chaincode_policy(ctx.namespace)
+            )
+
+        planned = self._plan_pending(ctx, policies)
+        if planned is not None:
+            return planned
+
+        items: list = []
+        pendings = []
+        for pol in policies:
+            pending = pol.prepare(ctx.endorsements)
+            start = len(items)
+            items.extend(pending.items)
+            pendings.append((pending, (start, len(items))))
+        return PendingValidation(pendings, items)
+
+
+class PluginRegistry:
+    """Maps validation-plugin names from chaincode definitions to plugin
+    instances (reference txvalidator/plugin/plugin.go MapBasedMapper)."""
+
+    def __init__(self, plans: bool = True):
+        self._plugins: dict[str, object] = {"vscc": BuiltinV20Plugin(plans=plans)}
+
+    def register(self, name: str, plugin) -> None:
+        self._plugins[name] = plugin
+
+    def plugin(self, name: str):
+        p = self._plugins.get(name or "vscc")
+        if p is None:
+            raise KeyError(f"validation plugin {name!r} not registered")
+        return p
+
+
+__all__ = [
+    "ValidationContext",
+    "RwsetFootprint",
+    "IllegalWritesetError",
+    "parse_footprint",
+    "PendingValidation",
+    "PolicyProvider",
+    "BuiltinV20Plugin",
+    "PluginRegistry",
+]

@@ -1,0 +1,208 @@
+"""Schemas of package `protos` (the peer): `proposal.proto`,
+`proposal_response.proto`, `transaction.proto`, `chaincode.proto`,
+`chaincode_event.proto` and `collection.proto`'s `ApplicationPolicy` and
+`StaticCollectionConfig` (a collection's endorsement policy; field
+numbers from the JAX package's `fabric_tpu/protos/peer/`)."""
+
+from fabric_tpu_torch.protos.wire import (
+    BOOL,
+    BYTES,
+    ENUM,
+    INT32,
+    MESSAGE,
+    STRING,
+    UINT64,
+    Field,
+    Message,
+)
+
+_COMMON = "fabric_tpu_torch.protos.common"
+
+# TxValidationCode
+VALID = 0
+NIL_ENVELOPE = 1
+BAD_PAYLOAD = 2
+BAD_COMMON_HEADER = 3
+BAD_CREATOR_SIGNATURE = 4
+INVALID_ENDORSER_TRANSACTION = 5
+INVALID_CONFIG_TRANSACTION = 6
+UNSUPPORTED_TX_PAYLOAD = 7
+BAD_PROPOSAL_TXID = 8
+DUPLICATE_TXID = 9
+ENDORSEMENT_POLICY_FAILURE = 10
+MVCC_READ_CONFLICT = 11
+PHANTOM_READ_CONFLICT = 12
+UNKNOWN_TX_TYPE = 13
+TARGET_CHAIN_NOT_FOUND = 14
+MARSHAL_TX_ERROR = 15
+NIL_TXACTION = 16
+EXPIRED_CHAINCODE = 17
+CHAINCODE_VERSION_CONFLICT = 18
+BAD_HEADER_EXTENSION = 19
+BAD_CHANNEL_HEADER = 20
+BAD_RESPONSE_PAYLOAD = 21
+BAD_RWSET = 22
+ILLEGAL_WRITESET = 23
+INVALID_WRITESET = 24
+INVALID_CHAINCODE = 25
+NOT_VALIDATED = 254
+INVALID_OTHER_REASON = 255
+
+
+# -- chaincode.proto ---------------------------------------------------------
+
+
+class ChaincodeID(Message):
+    FIELDS = (Field(1, "path", STRING), Field(2, "name", STRING),
+              Field(3, "version", STRING))
+
+
+class ChaincodeInput(Message):
+    FIELDS = (
+        Field(1, "args", BYTES, repeated=True),
+        Field(2, "decorations", BYTES, key=STRING, value=BYTES),
+        Field(3, "is_init", BOOL),
+    )
+
+
+class ChaincodeSpec(Message):
+    UNDEFINED = 0
+    GOLANG = 1
+    NODE = 2
+    CAR = 3
+    JAVA = 4
+    FIELDS = (
+        Field(1, "type", ENUM),
+        Field(2, "chaincode_id", MESSAGE, "ChaincodeID"),
+        Field(3, "input", MESSAGE, "ChaincodeInput"),
+        Field(4, "timeout", INT32),
+    )
+
+
+class ChaincodeInvocationSpec(Message):
+    FIELDS = (Field(1, "chaincode_spec", MESSAGE, "ChaincodeSpec"),)
+
+
+class ChaincodeEvent(Message):
+    FIELDS = (
+        Field(1, "chaincode_id", STRING),
+        Field(2, "tx_id", STRING),
+        Field(3, "event_name", STRING),
+        Field(4, "payload", BYTES),
+    )
+
+
+# -- proposal.proto ----------------------------------------------------------
+
+
+class SignedProposal(Message):
+    FIELDS = (Field(1, "proposal_bytes", BYTES), Field(2, "signature", BYTES))
+
+
+class Proposal(Message):
+    FIELDS = (Field(1, "header", BYTES), Field(2, "payload", BYTES),
+              Field(3, "extension", BYTES))
+
+
+class ChaincodeHeaderExtension(Message):
+    FIELDS = (Field(2, "chaincode_id", MESSAGE, "ChaincodeID"),)
+
+
+class ChaincodeProposalPayload(Message):
+    FIELDS = (
+        Field(1, "input", BYTES),
+        Field(2, "TransientMap", BYTES, key=STRING, value=BYTES),
+    )
+
+
+class Response(Message):
+    FIELDS = (Field(1, "status", INT32), Field(2, "message", STRING),
+              Field(3, "payload", BYTES))
+
+
+class ChaincodeAction(Message):
+    FIELDS = (
+        Field(1, "results", BYTES),
+        Field(2, "events", BYTES),
+        Field(3, "response", MESSAGE, "Response"),
+        Field(4, "chaincode_id", MESSAGE, "ChaincodeID"),
+    )
+
+
+# -- proposal_response.proto -------------------------------------------------
+
+
+class Endorsement(Message):
+    FIELDS = (Field(1, "endorser", BYTES), Field(2, "signature", BYTES))
+
+
+class ProposalResponsePayload(Message):
+    FIELDS = (Field(1, "proposal_hash", BYTES), Field(2, "extension", BYTES))
+
+
+class ProposalResponse(Message):
+    FIELDS = (
+        Field(1, "version", INT32),
+        Field(2, "timestamp", MESSAGE, f"{_COMMON}.Timestamp"),
+        Field(4, "response", MESSAGE, "Response"),
+        Field(5, "payload", BYTES),
+        Field(6, "endorsement", MESSAGE, "Endorsement"),
+    )
+
+
+# -- transaction.proto -------------------------------------------------------
+
+
+class TransactionAction(Message):
+    FIELDS = (Field(1, "header", BYTES), Field(2, "payload", BYTES))
+
+
+class Transaction(Message):
+    FIELDS = (Field(1, "actions", MESSAGE, "TransactionAction",
+                    repeated=True),)
+
+
+class ChaincodeEndorsedAction(Message):
+    FIELDS = (
+        Field(1, "proposal_response_payload", BYTES),
+        Field(2, "endorsements", MESSAGE, "Endorsement", repeated=True),
+    )
+
+
+class ChaincodeActionPayload(Message):
+    FIELDS = (
+        Field(1, "chaincode_proposal_payload", BYTES),
+        Field(2, "action", MESSAGE, "ChaincodeEndorsedAction"),
+    )
+
+
+# -- collection.proto --------------------------------------------------------
+
+
+class ApplicationPolicy(Message):
+    """The chaincode-level validation parameter (package `protos`; not
+    `common.ApplicationPolicy`, whose signature policy is a bare rule)."""
+
+    FIELDS = (
+        Field(1, "signature_policy", MESSAGE,
+              f"{_COMMON}.SignaturePolicyEnvelope", oneof="type"),
+        Field(2, "channel_config_policy_reference", STRING, oneof="type"),
+    )
+
+
+class CollectionPolicyConfig(Message):
+    FIELDS = (Field(1, "signature_policy", MESSAGE,
+                    f"{_COMMON}.SignaturePolicyEnvelope", oneof="payload"),)
+
+
+class StaticCollectionConfig(Message):
+    FIELDS = (
+        Field(1, "name", STRING),
+        Field(2, "member_orgs_policy", MESSAGE, "CollectionPolicyConfig"),
+        Field(3, "required_peer_count", INT32),
+        Field(4, "maximum_peer_count", INT32),
+        Field(5, "block_to_live", UINT64),
+        Field(6, "member_only_read", BOOL),
+        Field(7, "member_only_write", BOOL),
+        Field(8, "endorsement_policy", MESSAGE, "ApplicationPolicy"),
+    )

@@ -36,11 +36,13 @@ from fabric_tpu_torch.idemix import bn254 as bn  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "fabric_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
-FORBIDDEN = ("jax", "jaxlib", "fabric_tpu", "cryptography", "google.protobuf")
+FORBIDDEN = ("jax", "jaxlib", "fabric_tpu", "cryptography", "google.protobuf",
+             "yaml")
 
 _BLOCKED_RUN = """
 import sys
-for name in ("jax", "jaxlib", "fabric_tpu", "cryptography", "google.protobuf"):
+for name in ("jax", "jaxlib", "fabric_tpu", "cryptography", "google.protobuf",
+             "yaml"):
     sys.modules[name] = None
 import importlib, pkgutil
 import fabric_tpu_torch
@@ -73,7 +75,17 @@ assert native.bn254_msm([bn.G1_GEN], [5]) == bn._g1_mul_py(bn.G1_GEN, 5)
 msgs = [bytes([i % 256]) * (i % 50) for i in range(1300)]  # wide: B4's route
 assert CUDACSP(device="cpu").hash_batch(msgs) == [
     hashlib.sha256(m).digest() for m in msgs]
-assert not any(k == "jax" or k.startswith(("jax.", "fabric_tpu."))
+# a port-minted world and block through the port's validator
+world = chip_smoke.validator_world(5)
+blocks, expect = chip_smoke.validator_blocks(world, 1, 8)
+from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
+from fabric_tpu_torch.peer.txvalidator import TxValidator
+v = TxValidator(chip_smoke.VALIDATOR_CHANNEL, chip_smoke.EmptyLedger(),
+                bundle_from_genesis(world.genesis), CUDACSP(device="cpu"))
+flags = v.validate(blocks[0])
+assert flags == [expect.get((0, i), 0) for i in range(8)], flags
+assert not any(k in ("jax", "yaml", "cryptography")
+               or k.startswith(("jax.", "fabric_tpu.", "google.protobuf"))
                for k, v in sys.modules.items() if v is not None)
 print("modules", len(mods))
 """
@@ -136,6 +148,17 @@ def test_no_cxx_source_of_the_port_includes_a_file_outside_it():
     assert not bad, bad
     assert not any(f.startswith("-I") for f in (*build.NVCC_FLAGS,
                                                 *native.CXX_FLAGS))
+
+
+def test_collect_cc_includes_the_standard_library_and_dlfcn_only():
+    """The block walk's C++ includes no header of the JAX package (or any
+    other file): the C++ standard library and, for its dlopen of
+    libcrypto, <dlfcn.h>."""
+    text = (PORT / "native" / "collect.cc").read_text()
+    assert not _QUOTED_INCLUDE.findall(text)
+    assert set(_ANGLE_INCLUDE.findall(text)) <= {
+        "cstdint", "cstring", "string", "new", "dlfcn.h"}
+    assert "collect.cc" in native.SOURCES
 
 
 def test_cudacsp_defaults_to_the_card_and_raises_without_one():
