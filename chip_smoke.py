@@ -41,15 +41,33 @@
    from the seed, builds 8 distinct 1000-transaction blocks as its
    `_make_blocks` does (Org1's client signs the proposal and the
    envelope, Org1-3's peers endorse a write of `benchcc` key k{b}-{i}),
-   with planted transactions in block 3 (a bad creator signature, one bad
-   endorsement of four, one of three, two of three, a repeated txid, a
-   truncated payload), and validates them through the port's
-   `TxValidator.validate_pipeline(depth=6)` into `CUDACSP` with an empty
-   ledger, the launch counts set to 0 just before and read just after.
-   Every flag must be the planted one (VALID elsewhere) and the verify
-   mask hostref's (checked in 8 worker processes); prints validated tx/s,
-   ms a block, the collect / verify_wait / policy split, B1's launches
-   and busy share, and which SHA-256 `collect.cc` runs.
+   numbered 1-8 and chained onto the genesis block, with planted
+   transactions in block 3 (a bad creator signature, one bad endorsement
+   of four, one of three, two of three, a repeated txid, a truncated
+   payload), MVCC conflicts in block 4 (reads at committed and stale
+   versions, a read after an in-block write, a range read that misses a
+   committed key) and a txid of block 4 repeated in block 6, and
+   validates them through the port's `TxValidator.validate_pipeline(
+   depth=6)` into `CUDACSP` with an empty ledger, the launch counts set
+   to 0 just before and read just after.  Every flag must be the planted
+   one (VALID elsewhere) and the verify mask hostref's (checked in 8
+   worker processes); prints validated tx/s, ms a block, the collect /
+   verify_wait / policy split, B1's launches and busy share, and which
+   SHA-256 `collect.cc` runs.
+   The commit path: the same blocks through the port's
+   `Committer.store_stream(depth=6)` into an on-disk `KVLedger` from
+   `LedgerProvider(<temporary directory>).create(genesis)`, after an
+   untimed 64-transaction block in a ledger of its own, the launch counts
+   set to 0 just before and read just after.  Every flag must be the
+   planted one (the MVCC conflicts too), the height 9, each VALID
+   transaction's key at its value and version and each invalid one's
+   absent, every block readable by number and hash with its final
+   TRANSACTIONS_FILTER, the history of a key written twice both writes,
+   a reopen equal, and the mask hostref's; prints committed tx/s, ms a
+   block, the validator's and the commit stages' split per block, the
+   group flushes, when each block was validated and when durable, B1's
+   launches and busy share, the sqlite version and settings and the
+   ledger directory's file system.
 7. SHA-256 (B4): drives `CUDACSP.hash_batch` at its callers' shapes (a
    block's 1000 per-transaction calls of three endorsement messages, a
    snapshot export's call over its five files), where hashlib answers and
@@ -81,8 +99,9 @@
    times the kernel at 1024 lanes, prints its own count of field
    multiplications beside the bound's, and sweeps it over 32 to 4096
    lanes.
-9. Prints one JSON line of kernels (B1-B4), then `{"ok": true,
-   "device": {...}}` as its last line.
+9. Prints one JSON line of kernels (B1-B4; B1's with its launches on
+   the validator and commit paths), then `{"ok": true, "device": {...}}`
+   as its last line.
 
 Exits non-zero, before printing any result, on a host without CUDA; any
 failed phase raises.  Inputs are made from a seed (numpy for P-256 and
@@ -1757,7 +1776,11 @@ def phase_churn(rng, device, n_keys: int = CHURN_KEYS,
 VALIDATOR_CHANNEL = "benchch"
 VALIDATOR_CC = "benchcc"
 VALIDATOR_TS = 1_760_000_000  # channel-header timestamps (seconds)
-PLANT_BLOCK = 3  # the block that carries the planted transactions
+PLANT_BLOCK = 3  # the block (number) that carries the planted validator faults
+MVCC_BLOCK = 4  # the block that carries the planted MVCC conflicts
+DUP_BLOCK = 6  # the block that repeats a txid of MVCC_BLOCK
+HIST_KEY = "hist"  # written by MVCC_BLOCK and DUP_BLOCK (its history: two)
+WAL_CHECKPOINT = "4000"  # FABRIC_TPU_WAL_CHECKPOINT of the headline (bench.py)
 
 
 @dataclasses.dataclass
@@ -1766,6 +1789,10 @@ class ValidatorWorld:
     client: SigningIdentity  # Org1's client
     peers: list  # one peer of each org, Org1 first
     rng: np.random.Generator
+
+    @property
+    def genesis_hash(self) -> bytes:
+        return pu.block_header_hash(cb.Block.decode(self.genesis).header)
 
 
 def validator_world(seed: int, n_orgs: int = N_ORGS) -> ValidatorWorld:
@@ -1794,20 +1821,41 @@ def validator_world(seed: int, n_orgs: int = N_ORGS) -> ValidatorWorld:
     return ValidatorWorld(genesis.encode(), client, peers, rng)
 
 
+def tx_rwset(b: int, i: int, reads=(), ranges=(), writes=()) -> rw.KVRWSet:
+    """The rwset of transaction i of block index b: a write of `benchcc`
+    key k{b}-{i} = v{i}, after the planted `reads` [(key, (block, tx) or
+    None)], `ranges` [(start, end, [(key, (block, tx))])] and extra
+    `writes` [(key, value)]."""
+    def version(v):
+        return {} if v is None else {"version": rw.Version(
+            block_num=v[0], tx_num=v[1])}
+
+    return rw.KVRWSet(
+        reads=[rw.KVRead(key=k, **version(v)) for k, v in reads],
+        range_queries_info=[rw.RangeQueryInfo(
+            start_key=lo, end_key=hi, itr_exhausted=True,
+            raw_reads=rw.QueryReads(kv_reads=[
+                rw.KVRead(key=k, **version(v)) for k, v in got]))
+            for lo, hi, got in ranges],
+        writes=[rw.KVWrite(key=f"k{b}-{i}", value=b"v%d" % i)]
+        + [rw.KVWrite(key=k, value=v) for k, v in writes])
+
+
 def endorsed_tx(world: ValidatorWorld, b: int, i: int, endorsers: int,
-                bad_endorsements=()) -> bytes:
+                bad_endorsements=(), kv: rw.KVRWSet | None = None) -> bytes:
     """One transaction as `_make_blocks` builds it: Org1's client signs the
     proposal and the envelope; `endorsers` peers (Org1 first) sign
-    responses whose rwset writes `benchcc` key k{b}-{i}; the endorsements
-    at `bad_endorsements` are signed over other bytes."""
+    responses whose rwset (`kv`, by default `tx_rwset(b, i)`) writes
+    `benchcc` key k{b}-{i}; the endorsements at `bad_endorsements` are
+    signed over other bytes."""
     client = world.client
     prop, _ = pu.create_chaincode_proposal(
         client.serialize(), VALIDATOR_CHANNEL, VALIDATOR_CC,
         [b"k%d-%d" % (b, i), b"v%d" % i], nonce=world.rng.bytes(24),
         timestamp=VALIDATOR_TS + b)
+    kv = tx_rwset(b, i) if kv is None else kv
     results = rw.TxReadWriteSet(ns_rwset=[rw.NsReadWriteSet(
-        namespace=VALIDATOR_CC, rwset=rw.KVRWSet(writes=[rw.KVWrite(
-            key=f"k{b}-{i}", value=b"v%d" % i)]).encode())]).encode()
+        namespace=VALIDATOR_CC, rwset=kv.encode())]).encode()
     resps = []
     for j, peer in enumerate(world.peers[:endorsers]):
         resp = pu.create_proposal_response(
@@ -1821,40 +1869,86 @@ def endorsed_tx(world: ValidatorWorld, b: int, i: int, endorsers: int,
     return pu.create_signed_tx(prop, client, resps).encode()
 
 
+def plant_validator(world: ValidatorWorld, b: int, envs: list,
+                    expect: dict) -> None:
+    """Transactions 1-6 of block index b: the faults the validator flags."""
+    env = cb.Envelope.decode(envs[1])
+    envs[1] = cb.Envelope(  # the creator's signature, over other bytes
+        payload=env.payload,
+        signature=world.client.sign(b"not the payload")).encode()
+    expect[b, 1] = pb.BAD_CREATOR_SIGNATURE
+    # 4 endorsements, one bad: 3 of 5 orgs still sign (MAJORITY)
+    envs[2] = endorsed_tx(world, b, 2, 4, bad_endorsements=(1,))
+    expect[b, 2] = pb.VALID
+    envs[3] = endorsed_tx(world, b, 3, ENDORSERS, bad_endorsements=(2,))
+    expect[b, 3] = pb.ENDORSEMENT_POLICY_FAILURE
+    envs[4] = endorsed_tx(world, b, 4, ENDORSERS, bad_endorsements=(0, 2))
+    expect[b, 4] = pb.ENDORSEMENT_POLICY_FAILURE
+    envs[5] = envs[0]  # a repeated txid
+    expect[b, 5] = pb.DUPLICATE_TXID
+    env = cb.Envelope.decode(envs[6])
+    envs[6] = cb.Envelope(payload=env.payload[:len(env.payload) // 2],
+                          signature=env.signature).encode()
+    expect[b, 6] = pb.BAD_PAYLOAD
+
+
+def plant_mvcc(world: ValidatorWorld, b: int, envs: list,
+               conflicts: dict) -> None:
+    """Transactions 1-5 of block index b, over the keys block index 0
+    committed: a read at the committed version with a range read that
+    matches (VALID; it also writes HIST_KEY), a read at a stale version, a
+    write of a fresh key and a read of it at its committed (absent)
+    version after it, and a range read that misses a committed key."""
+    fresh = f"fresh{b}"
+    plants = {
+        1: (tx_rwset(b, 1, reads=[("k0-7", (1, 7))],
+                     ranges=[("k0-6", "k0-60", [("k0-6", (1, 6))])],
+                     writes=[(HIST_KEY, b"h%d" % b)]), pb.VALID),
+        2: (tx_rwset(b, 2, reads=[("k0-8", (1, 9))]), pb.MVCC_READ_CONFLICT),
+        3: (tx_rwset(b, 3, writes=[(fresh, b"f")]), pb.VALID),
+        4: (tx_rwset(b, 4, reads=[(fresh, None)]), pb.MVCC_READ_CONFLICT),
+        5: (tx_rwset(b, 5, ranges=[("k0-5", "k0-50", [])]),
+            pb.PHANTOM_READ_CONFLICT),
+    }
+    for i, (kv, flag) in plants.items():
+        envs[i] = endorsed_tx(world, b, i, ENDORSERS, kv=kv)
+        if flag != pb.VALID:
+            conflicts[b, i] = flag
+
+
 def validator_blocks(world: ValidatorWorld, n_blocks: int, n_txs: int,
-                     plant: bool = True):
+                     prev_hash: bytes, plant: bool = True,
+                     mvcc: bool = False):
     """`n_blocks` distinct blocks of `n_txs` transactions (3 endorsements
-    each); with `plant`, block PLANT_BLOCK (or the last) carries planted
-    transactions.  Returns (block bytes, {(block, tx): expected flag})."""
-    plant_at = min(PLANT_BLOCK, n_blocks - 1) if plant else -1
-    blocks, expect = [], {}
+    each), numbered from 1 and chained onto `prev_hash`.  With `plant`,
+    block PLANT_BLOCK (or the last) carries the validator's faults; with
+    `mvcc` (and at least DUP_BLOCK blocks), block MVCC_BLOCK carries MVCC
+    conflicts, and transaction 1 of block DUP_BLOCK repeats transaction 1
+    of block MVCC_BLOCK and writes HIST_KEY again.  Returns (block bytes,
+    {(block index, tx): validator flag}, {(block index, tx): MVCC flag}):
+    the validator's flags at depth >= 3 and the flags that only the
+    commit sets."""
+    plant_at = min(PLANT_BLOCK, n_blocks) - 1 if plant else -1
+    mvcc = mvcc and n_blocks >= DUP_BLOCK
+    blocks, expect, conflicts = [], {}, {}
     for b in range(n_blocks):
         envs = [endorsed_tx(world, b, i, ENDORSERS) for i in range(n_txs)]
         if b == plant_at:
-            env = cb.Envelope.decode(envs[1])
-            envs[1] = cb.Envelope(  # the creator's signature, over other bytes
-                payload=env.payload,
-                signature=world.client.sign(b"not the payload")).encode()
-            expect[b, 1] = pb.BAD_CREATOR_SIGNATURE
-            # 4 endorsements, one bad: 3 of 5 orgs still sign (MAJORITY)
-            envs[2] = endorsed_tx(world, b, 2, 4, bad_endorsements=(1,))
-            expect[b, 2] = pb.VALID
-            envs[3] = endorsed_tx(world, b, 3, ENDORSERS, bad_endorsements=(2,))
-            expect[b, 3] = pb.ENDORSEMENT_POLICY_FAILURE
-            envs[4] = endorsed_tx(world, b, 4, ENDORSERS,
-                                  bad_endorsements=(0, 2))
-            expect[b, 4] = pb.ENDORSEMENT_POLICY_FAILURE
-            envs[5] = envs[0]  # a repeated txid
-            expect[b, 5] = pb.DUPLICATE_TXID
-            env = cb.Envelope.decode(envs[6])
-            envs[6] = cb.Envelope(payload=env.payload[:len(env.payload) // 2],
-                                  signature=env.signature).encode()
-            expect[b, 6] = pb.BAD_PAYLOAD
-        blk = pu.new_block(1 + b, b"")
+            plant_validator(world, b, envs, expect)
+        if mvcc and b == MVCC_BLOCK - 1:
+            plant_mvcc(world, b, envs, conflicts)
+            mvcc_envs = envs
+        if mvcc and b == DUP_BLOCK - 1:
+            envs[1] = mvcc_envs[1]
+            expect[b, 1] = pb.DUPLICATE_TXID
+            envs[2] = endorsed_tx(world, b, 2, ENDORSERS, kv=tx_rwset(
+                b, 2, writes=[(HIST_KEY, b"h%d" % b)]))
+        blk = pu.new_block(1 + b, prev_hash)
         blk.data = cb.BlockData(data=envs)
         blk.header.data_hash = pu.block_data_hash(blk.data)
+        prev_hash = pu.block_header_hash(blk.header)
         blocks.append(blk.encode())
-    return blocks, expect
+    return blocks, expect, conflicts
 
 
 class EmptyLedger:
@@ -1901,29 +1995,58 @@ class RecordingCSP:
 
         return collector
 
+    def reset(self) -> None:
+        self.batches.clear()
+        self.dispatch_s = 0.0
 
-def phase_validator(device, n_blocks: int = N_BLOCKS, n_txs: int = N_TXS,
+
+def check_mask(csp: RecordingCSP, label: str) -> int:
+    """Holds every recorded verify mask against hostref's (in 8 worker
+    processes); returns the lane count."""
+    t1 = time.perf_counter()
+    items = [it for b, _ in csp.batches for it in b]
+    mask = [ok for _, m in csp.batches for ok in m]
+    workers = min(8, os.cpu_count() or 1)
+    step = -(-len(items) // workers)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        want = [ok for part in ex.map(
+            hostref.verify_batch,
+            [items[i:i + step] for i in range(0, len(items), step)])
+            for ok in part]
+    check(mask == want, f"the {label}'s verify mask differs from "
+          f"hostref's on {sum(a != b for a, b in zip(mask, want))} lanes")
+    print(f"{label}: verify mask of {len(items)} lanes equal to hostref's "
+          f"({time.perf_counter() - t1:.1f} s on the host, {workers} "
+          f"processes)")
+    return len(items)
+
+
+def stage_line(st: dict, dispatch_s: float, n_blocks: int) -> str:
+    """The validator's stages per block, the CSP dispatch share apart."""
+    return (f"per block collect {st['collect'] / n_blocks * 1e3:.1f} ms (CSP "
+            f"flush and host dispatch {dispatch_s / n_blocks * 1e3:.1f} ms of "
+            f"it, the walk and Python collect "
+            f"{(st['collect'] - dispatch_s) / n_blocks * 1e3:.1f} ms), "
+            f"verify_wait {st['verify_wait'] / n_blocks * 1e3:.1f} ms, "
+            f"policy {st['policy'] / n_blocks * 1e3:.1f} ms")
+
+
+def phase_validator(device, world: ValidatorWorld, blocks: list, expect: dict,
                     depth: int = DEPTH) -> dict:
     """Validate real 1000-tx blocks through the port's TxValidator into
     CUDACSP (B1), counted; every flag is held against the planted ones and
     the verify mask against hostref."""
-    t0 = time.perf_counter()
-    world = validator_world(SEED)
-    t1 = time.perf_counter()
-    blocks, expect = validator_blocks(world, n_blocks, n_txs)
-    t2 = time.perf_counter()
-    print(f"validator setup: 5-org world {t1 - t0:.1f} s, {n_blocks} blocks "
-          f"of {n_txs} transactions {t2 - t1:.1f} s "
-          f"({sum(map(len, blocks)) / 1e6:.2f} MB)")
+    n_blocks = len(blocks)
     bundle = bundle_from_genesis(world.genesis)
     native.load()
     print(f"validator: collect.cc SHA-256 = {native.sha256_impl()}")
     csp = RecordingCSP(CUDACSP(device=device))
     validator = TxValidator(VALIDATOR_CHANNEL, EmptyLedger(), bundle, csp)
     # warm-up on a block not timed: key table, quarter tables, MSP caches
-    validator.validate(validator_blocks(world, 1, 64, plant=False)[0][0])
-    csp.batches.clear()
-    csp.dispatch_s = 0.0
+    validator.validate(validator_blocks(world, 1, 64, world.genesis_hash,
+                                        plant=False)[0][0])
+    csp.reset()
     validator.validate_stage_seconds.clear()
     csp.inner.drain()
     pk.launches_keytab = 0
@@ -1937,43 +2060,211 @@ def phase_validator(device, n_blocks: int = N_BLOCKS, n_txs: int = N_TXS,
                 "p256_verify_lanekeys": pk.launches_lanekeys}
     check(launches["p256_verify_keytab"] > 0,
           f"B1 did not launch on the validator path: {launches}")
+    n_txs = len(flags[0])
     for b, got in enumerate(flags):
         check(len(got) == n_txs, f"block {b}: {len(got)} flags")
         for i, f in enumerate(got):
             want = expect.get((b, i), pb.VALID)
             check(f == want, f"block {b} tx {i}: flag {f}, expected {want}")
-    lanes = sum(len(items) for items, _ in csp.batches)
-    t1 = time.perf_counter()
-    items = [it for b, _ in csp.batches for it in b]
-    mask = [ok for _, m in csp.batches for ok in m]
-    workers = min(8, os.cpu_count() or 1)
-    step = -(-len(items) // workers)
-    with concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        want = [ok for part in ex.map(
-            hostref.verify_batch,
-            [items[i:i + step] for i in range(0, len(items), step)])
-            for ok in part]
-    check(mask == want, "the validator's verify mask differs from "
-          f"hostref's on {sum(a != b for a, b in zip(mask, want))} lanes")
-    print(f"validator: verify mask of {lanes} lanes equal to hostref's "
-          f"({time.perf_counter() - t1:.1f} s on the host, {workers} "
-          f"processes)")
+    lanes = check_mask(csp, "validator")
     st = validator.validate_stage_seconds
     n_tx = n_blocks * n_txs
     print(f"validator: {n_blocks} blocks x {n_txs} transactions through "
           f"validate_pipeline(depth={depth}) in {wall * 1e3:.1f} ms = "
           f"{n_tx / wall:.0f} validated tx/s, {wall / n_blocks * 1e3:.1f} ms "
-          f"a block; per block collect {st['collect'] / n_blocks * 1e3:.1f} "
-          f"ms (CSP flush and host dispatch {csp.dispatch_s / n_blocks * 1e3:.1f}"
-          f" ms of it, the walk and Python collect "
-          f"{(st['collect'] - csp.dispatch_s) / n_blocks * 1e3:.1f} ms), "
-          f"verify_wait {st['verify_wait'] / n_blocks * 1e3:.1f} ms, "
-          f"policy {st['policy'] / n_blocks * 1e3:.1f} ms; {lanes} verify "
-          f"lanes; launches {launches}; planted flags {sorted(set(expect.values()))} "
-          f"as expected, every other transaction VALID")
+          f"a block; {stage_line(st, csp.dispatch_s, n_blocks)}; {lanes} "
+          f"verify lanes; launches {launches}; planted flags "
+          f"{sorted(set(expect.values()))} as expected, every other "
+          f"transaction VALID")
     return {"launches": launches, "wall_s": wall, "lanes": lanes,
             "stages": dict(st), "dispatch_s": csp.dispatch_s}
+
+
+# ---------------------------------------------------------------------------
+# The commit path (Committer.store_stream into an on-disk KVLedger).
+# ---------------------------------------------------------------------------
+
+COMMIT_STAGES = ("mvcc", "mvcc_preload", "mvcc_check", "mvcc_prepare",
+                 "block_append", "pvt", "state", "history", "fsync", "kv_txn")
+
+
+def fs_type(path: str) -> str:
+    """The file system type of the mount that holds `path`
+    (/proc/mounts)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1].replace("\\040", " ")
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return f"{kind} ({best})"
+
+
+def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
+                 conflicts: dict, depth: int = DEPTH) -> dict:
+    """Validate and commit the blocks through the port's
+    `Committer.store_stream` into an on-disk KVLedger (B1 on the card
+    through CUDACSP), counted; then hold the flags, the state, the block
+    readers, the history and a reopen."""
+    import sqlite3
+    import tempfile
+
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+    from fabric_tpu_torch.peer.committer import Committer
+
+    os.environ["FABRIC_TPU_WAL_CHECKPOINT"] = WAL_CHECKPOINT
+    n_blocks = len(blocks)
+    n_txs = len(cb.Block.decode(blocks[0]).data.data)
+    bundle = bundle_from_genesis(world.genesis)
+    genesis = cb.Block.decode(world.genesis)
+    csp = RecordingCSP(CUDACSP(device=device))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ledger_") as tmp:
+        # warm-up in a ledger of its own, not timed: the key table and
+        # quarter tables, the MSP caches, the first segment's allocation
+        warm_provider = LedgerProvider(os.path.join(tmp, "warm"))
+        warm = warm_provider.create(cb.Block.decode(world.genesis))
+        warm_block = validator_blocks(world, 1, 64, world.genesis_hash,
+                                      plant=False)[0][0]
+        Committer(TxValidator(VALIDATOR_CHANNEL, warm, bundle, csp),
+                  warm).store_block(warm_block)
+        warm_provider.close()
+        root = os.path.join(tmp, "ledger")
+        provider = LedgerProvider(root)
+        ledger = provider.create(genesis)
+        check(ledger.height == 1, f"height after genesis {ledger.height}")
+        validator = TxValidator(VALIDATOR_CHANNEL, ledger, bundle, csp)
+        committer = Committer(validator, ledger)
+        flushes = [0]
+        flush = ledger.commit_group_flush
+
+        def counted_flush(group):
+            flushes[0] += bool(group.blocks)
+            flush(group)
+
+        ledger.commit_group_flush = counted_flush
+        # the timeline: when each block's flags are finished (validated)
+        # and when it is durable (its group flushed, the listener called)
+        validated, durable = [], []
+        finish_block = validator._finish_block
+
+        def timed_finish(*args):
+            flags = finish_block(*args)
+            validated.append(time.perf_counter())
+            return flags
+
+        validator._finish_block = timed_finish
+        committer.add_commit_listener(
+            lambda block, flags: durable.append(time.perf_counter()))
+        csp.reset()
+        csp.inner.drain()
+        pk.launches_keytab = 0
+        pk.launches_lanekeys = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flags = list(committer.store_stream(blocks, depth=depth))
+        csp.inner.drain()
+        wall = time.perf_counter() - t0
+        launches = {"p256_verify_keytab": pk.launches_keytab,
+                    "p256_verify_lanekeys": pk.launches_lanekeys}
+        check(launches["p256_verify_keytab"] > 0,
+              f"B1 did not launch on the commit path: {launches}")
+
+        # flags, height, state
+        want_all = {**expect, **conflicts}
+        for b, got in enumerate(flags):
+            check(len(got) == n_txs, f"block {b}: {len(got)} flags")
+            for i, f in enumerate(got):
+                want = want_all.get((b, i), pb.VALID)
+                check(f == want, f"committed block {b + 1} tx {i}: flag {f}, "
+                      f"expected {want}")
+        check(ledger.height == n_blocks + 1 and committer.height
+              == n_blocks + 1, f"height {ledger.height}, durable "
+              f"{committer.height}, expected {n_blocks + 1}")
+        state = ledger.state_db
+        for b, got in enumerate(flags):
+            for i, f in enumerate(got):
+                if f == pb.DUPLICATE_TXID:
+                    continue  # its key is the first copy's
+                vv = state.get_state(VALIDATOR_CC, f"k{b}-{i}")
+                if f == pb.VALID:
+                    check(vv is not None and vv.value == b"v%d" % i
+                          and (vv.version.block_num, vv.version.tx_num)
+                          == (b + 1, i), f"k{b}-{i} reads back {vv}")
+                else:
+                    check(vv is None, f"k{b}-{i} of an invalid transaction "
+                          f"reads back {vv}")
+        # the block readers
+        committed = [world.genesis] + blocks
+        for n, raw in enumerate(committed):
+            got = ledger.get_block_by_number(n)
+            sent = cb.Block.decode(raw)
+            check(got is not None and got.header == sent.header
+                  and list(got.data.data) == list(sent.data.data),
+                  f"block {n} reads back other than committed")
+            want_filter = bytes(flags[n - 1]) if n else b"\x00"
+            check(got.metadata.metadata[cb.TRANSACTIONS_FILTER]
+                  == want_filter, f"block {n}: TRANSACTIONS_FILTER "
+                  f"{got.metadata.metadata[cb.TRANSACTIONS_FILTER][:16]!r}")
+            check(ledger.get_block_by_hash(pu.block_header_hash(got.header))
+                  .header == got.header, f"block {n} by hash")
+        hist = ledger.get_history_for_key(VALIDATOR_CC, HIST_KEY)
+        want_hist = [(MVCC_BLOCK, 1), (DUP_BLOCK, 2)]
+        check(hist == want_hist, f"history of {HIST_KEY}: {hist}, expected "
+              f"{want_hist}")
+        lanes = check_mask(csp, "commit")
+
+        # reopen: a fresh provider on the same directory
+        before = (ledger.height, ledger.durable_block_hash,
+                  list(provider.kv.iterate()))
+        sync_level = provider.kv.sync_level
+        wal_pages = provider.kv.wal_autocheckpoint
+        provider.close()
+        with sqlite3.connect(os.path.join(root, "index.sqlite")) as conn:
+            journal = conn.execute("PRAGMA journal_mode").fetchone()[0]
+        conn.close()
+        again = LedgerProvider(root)
+        reopened = again.open(VALIDATOR_CHANNEL)
+        after = (reopened.height, reopened.durable_block_hash,
+                 list(again.kv.iterate()))
+        check(after == before, "the reopened ledger differs: height "
+              f"{after[0]} / {before[0]}, {len(after[2])} / {len(before[2])} "
+              "KV pairs")
+        again.close()
+        fs = fs_type(root)
+    stages = dict(ledger.commit_stage_seconds)
+    vst = validator.validate_stage_seconds
+    n_tx = n_blocks * n_txs
+    print(f"commit: {n_blocks} blocks x {n_txs} transactions through "
+          f"Committer.store_stream(depth={depth}) in {wall * 1e3:.1f} ms = "
+          f"{n_tx / wall:.0f} committed tx/s, {wall / n_blocks * 1e3:.1f} ms "
+          f"a block; {flushes[0]} group flushes; {lanes} verify lanes; "
+          f"launches {launches}")
+    print(f"commit: validator {stage_line(vst, csp.dispatch_s, n_blocks)}")
+    print("commit: timeline from the start, ms: validated "
+          + ", ".join(f"{(v - t0) * 1e3:.1f}" for v in validated)
+          + "; durable " + ", ".join(f"{(d - t0) * 1e3:.1f}" for d in durable)
+          + "; the last block durable "
+          f"{(durable[-1] - validated[-1]) * 1e3:.1f} ms after it was "
+          "validated")
+    busy = sum(stages.get(k, 0.0) for k in COMMIT_STAGES
+               if not k.startswith("mvcc_"))
+    print("commit: commit_stage_seconds per block (committer thread): "
+          + ", ".join(f"{k} {stages.get(k, 0.0) / n_blocks * 1e3:.2f} ms"
+                      for k in COMMIT_STAGES)
+          + f"; the committer thread inside commits and flushes "
+          f"{busy * 1e3:.1f} ms, {busy / wall:.1%} of the wall")
+    print(f"commit: sqlite {sqlite3.sqlite_version}, journal_mode={journal}, "
+          f"synchronous={sync_level}, wal_autocheckpoint={wal_pages}; ledger "
+          f"directory on {fs}")
+    print(f"commit: every planted flag as expected "
+          f"({sorted(set(want_all.values()))}), every other transaction "
+          f"VALID; height {n_blocks + 1}; state, block readers, history of "
+          f"{HIST_KEY!r} and the reopen held")
+    return {"launches": launches, "wall_s": wall, "stages": stages,
+            "flushes": flushes[0], "lanes": lanes}
 
 
 def main() -> int:
@@ -2006,13 +2297,24 @@ def main() -> int:
         wall = walls[row["name"]] * 1e3
         print(f"{row['name']}: device busy ~{busy:.1f} ms of the "
               f"{wall:.1f} ms wall ({busy / wall:.1%}; launches x kernel ms)")
-    val = phase_validator(device)
+    t0 = time.perf_counter()
+    world = validator_world(SEED)
+    t1 = time.perf_counter()
+    blocks, expect, conflicts = validator_blocks(
+        world, N_BLOCKS, N_TXS, world.genesis_hash, mvcc=True)
+    print(f"validator setup: 5-org world {t1 - t0:.1f} s, {N_BLOCKS} blocks "
+          f"of {N_TXS} transactions {time.perf_counter() - t1:.1f} s "
+          f"({sum(map(len, blocks)) / 1e6:.2f} MB)")
+    val = phase_validator(device, world, blocks, expect)
+    com = phase_commit(device, world, blocks, expect, conflicts)
     b1 = next(row for row in rows if row["name"] == B1_NAME)
-    b1["launches_validator"] = val["launches"][B1_NAME]
-    busy = b1["launches_validator"] * b1["ms"]
-    wall = val["wall_s"] * 1e3
-    print(f"validator: device busy (B1) ~{busy:.1f} ms of the {wall:.1f} ms "
-          f"wall ({busy / wall:.1%}; launches x B1's ms at 8000 lanes)")
+    for label, run in (("validator", val), ("commit", com)):
+        b1[f"launches_{label}"] = run["launches"][B1_NAME]
+        busy = b1[f"launches_{label}"] * b1["ms"]
+        wall = run["wall_s"] * 1e3
+        print(f"{label}: device busy (B1) ~{busy:.1f} ms of the {wall:.1f} "
+              f"ms wall ({busy / wall:.1%}; launches x B1's ms at 8000 "
+              "lanes)")
     phase_churn(rng, device)
     rows.append(phase_sha256(rng, device, errs))
 

@@ -1,0 +1,436 @@
+"""Block storage: preallocated segment files and a KV index (the port's
+copy of `fabric_tpu/ledger/blkstorage.py`, without snapshot bootstrap).
+
+Reference: common/ledger/blkstorage (blockfile_mgr.go's append-only
+files, blockindex.go's indexes by number, hash and txid, restart recovery
+from a checkpoint and a scan of the tail).  Blocks are stored as a 4-byte
+big-endian length and `serialize_block`'s bytes, in files
+`blocks_NNNNNN.dat`, each preallocated to FABRIC_TPU_STORE_SEGMENT bytes
+(16 MiB) through a temporary file, a rename and a directory fsync.
+Records land inside the allocated space at the checkpoint's offset, so
+the group's durability barrier is one fdatasync.  A zero length marks the
+clean preallocated tail; recovery re-indexes the complete records past
+the checkpoint and erases from the first damaged one.  `dir=None` keeps
+blocks in memory.
+
+The index, under `blkindex/<name>`:
+
+    cp              ->  >QQQ file, offset after the last indexed record, height
+    n + >Q number   ->  >QQ file, offset
+    h + header hash ->  >Q number
+    t + txid        ->  >QQ number, position (the first occurrence wins)
+
+A store bootstrapped from a snapshot (`bsi` in its index) is not opened:
+the port has no snapshots yet.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import threading
+
+from fabric_tpu_torch import protoutil
+from fabric_tpu_torch.ledger.kvstore import KVStore, MemKVStore, NamedDB, knob
+from fabric_tpu_torch.protos import common as cb
+from fabric_tpu_torch.protos.wire import DecodeError
+
+_LEN = struct.Struct(">I")
+
+DEFAULT_SEGMENT = 16 * 1024 * 1024
+_MIN_SEGMENT = 4096
+_BSI_KEY = b"bsi"
+
+
+def segment_size(override: int | None = None) -> int:
+    """FABRIC_TPU_STORE_SEGMENT: a segment's preallocated size in bytes
+    (k and m suffixes accepted; default 16 MiB, at least 4 KiB)."""
+    if override is not None:
+        return max(_MIN_SEGMENT, int(override))
+    raw = knob("FABRIC_TPU_STORE_SEGMENT").strip().lower()
+    if not raw:
+        return DEFAULT_SEGMENT
+    mult = 1
+    if raw.endswith("k"):
+        mult, raw = 1024, raw[:-1]
+    elif raw.endswith("m"):
+        mult, raw = 1024 * 1024, raw[:-1]
+    try:
+        n = int(raw) * mult
+    except ValueError:
+        raise ValueError(
+            f"FABRIC_TPU_STORE_SEGMENT={raw!r} is not a byte size "
+            "(integer, optionally with a k/m suffix)"
+        ) from None
+    return max(_MIN_SEGMENT, n)
+
+
+class BlockStoreError(Exception):
+    pass
+
+
+class BlockStore:
+    def __init__(self, dir: str | None, index_store: KVStore | None = None,
+                 name: str = "chain", segment: int | None = None):
+        self._dir = dir
+        self._index = NamedDB(index_store or MemKVStore(), f"blkindex/{name}")
+        if self._index.get(_BSI_KEY) is not None:
+            raise NotImplementedError(
+                f"block store {name!r} was bootstrapped from a snapshot, "
+                "which the port does not support")
+        self._lock = threading.RLock()
+        self._mem_blocks: list[bytes] | None = [] if dir is None else None
+        self._height = 0
+        self._last_hash = b""
+        self._segment = segment_size(segment)
+        # the active segment's writer (r+b: records land inside the
+        # preallocated space at the checkpoint's offset)
+        self._fh = None
+        self._fh_idx = -1
+        if dir is not None:
+            os.makedirs(dir, exist_ok=True)
+            self._recover()
+        else:
+            _, _, self._height = self._checkpoint()
+
+    # -- files ----------------------------------------------------------------
+
+    def _file_path(self, idx: int) -> str:
+        return os.path.join(self._dir, f"blocks_{idx:06d}.dat")
+
+    def _checkpoint(self, index=None) -> tuple[int, int, int]:
+        """(file, offset after the last indexed record, height); `index`
+        may be a group's buffered view."""
+        raw = (index or self._index).get(b"cp")
+        if raw is None:
+            return (0, 0, 0)
+        return struct.unpack(">QQQ", raw)  # type: ignore[return-value]
+
+    def _recover(self) -> None:
+        """Re-index the records appended after the checkpoint; erase from
+        the first damaged one on (reference blockfile_helper
+        scanForLastCompleteBlock).  A group appends several records between
+        barriers, so a crash may tear one that is not the last: a record
+        that fails to parse, or whose number breaks the chain, ends what
+        can be replayed.  A zero length is the clean preallocated tail."""
+        file_idx, offset, height = self._checkpoint()
+        self._height = height
+        scanned: set[int] = set()
+        # a crash between the allocation and the rename left a .pre file
+        for fn in os.listdir(self._dir):
+            if fn.endswith(".pre"):
+                os.remove(os.path.join(self._dir, fn))
+        while True:
+            path = self._file_path(file_idx)
+            if not os.path.exists(path):
+                break
+            size = os.path.getsize(path)
+            torn = False
+            with open(path, "rb") as f:
+                f.seek(offset)
+                while True:
+                    hdr = f.read(_LEN.size)
+                    if len(hdr) < _LEN.size:
+                        torn = len(hdr) > 0
+                        break
+                    (n,) = _LEN.unpack(hdr)
+                    if n == 0:
+                        break  # the clean preallocated tail
+                    raw = f.read(n)
+                    if len(raw) < n:
+                        torn = True
+                        break
+                    try:
+                        blk = cb.Block.decode(raw)
+                    except DecodeError:
+                        torn = True
+                        break
+                    if blk.header.number != self._height:
+                        torn = True
+                        break  # not the next block: damaged or stale bytes
+                    self._index_block(blk, file_idx, offset)
+                    offset += _LEN.size + n
+                    self._height = blk.header.number + 1
+                    scanned.add(file_idx)
+            if torn:
+                self._erase_tail(path, offset, size)
+                scanned.add(file_idx)
+            if os.path.exists(self._file_path(file_idx + 1)):
+                file_idx += 1
+                offset = 0
+            else:
+                break
+        # the re-indexed records may never have been synced: make them
+        # durable before the checkpoint below points past them
+        self.sync_files(scanned)
+        self._last_hash = b""
+        if self._height > 0:
+            last = self.get_block_by_number(self._height - 1)
+            if last is not None:
+                self._last_hash = protoutil.block_header_hash(last.header)
+        self._write_checkpoint(file_idx, offset)
+
+    def _write_checkpoint(self, file_idx: int, offset: int) -> None:
+        self._index.put(b"cp", struct.pack(">QQQ", file_idx, offset,
+                                           self._height))
+
+    def _erase_tail(self, path: str, offset: int, size: int) -> None:
+        """Cut a damaged tail at the last complete record, then extend the
+        file back to the segment size with zeros (the clean tail)."""
+        with open(path, "r+b") as f:
+            f.truncate(offset)
+            if offset < self._segment and size >= self._segment:
+                f.truncate(self._segment)
+
+    def _sync_dir(self) -> None:
+        fd = os.open(self._dir, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+    def _prealloc_segment(self, idx: int, size: int) -> None:
+        """Create segment `idx` at once: allocate and fsync a temporary
+        file, rename it into place, fsync the directory."""
+        path = self._file_path(idx)
+        tmp = path + ".pre"
+        fd = os.open(tmp, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o644)
+        try:
+            try:
+                os.posix_fallocate(fd, 0, size)
+            except (AttributeError, OSError):
+                os.ftruncate(fd, size)  # sparse where fallocate is refused
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+        os.rename(tmp, path)
+        self._sync_dir()
+
+    def _segment_fh(self, idx: int):
+        """The writer of segment `idx`, allocated on first touch."""
+        if self._fh is not None and self._fh_idx == idx:
+            return self._fh
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+        path = self._file_path(idx)
+        if not os.path.exists(path):
+            self._prealloc_segment(idx, self._segment)
+        self._fh = open(path, "r+b")
+        self._fh_idx = idx
+        return self._fh
+
+    def _seal_segment(self, idx: int, data_size: int) -> None:
+        """Roll to the next segment: trim this one to its records and make
+        the new size durable."""
+        f = self._segment_fh(idx)
+        f.truncate(data_size)
+        f.flush()
+        os.fsync(f.fileno())
+        self._fh.close()
+        self._fh = None
+        self._fh_idx = -1
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+                self._fh_idx = -1
+
+    # -- the index ------------------------------------------------------------
+
+    @staticmethod
+    def _parse_txid(raw_env: bytes) -> str | None:
+        """An envelope's txid, or None where it has none or does not
+        parse."""
+        try:
+            env = cb.Envelope.decode(raw_env)
+            payload = cb.Payload.decode(env.payload)
+            chdr = cb.ChannelHeader.decode(payload.header.channel_header)
+        except DecodeError:
+            return None
+        return chdr.tx_id or None
+
+    def _index_block(self, blk: cb.Block, file_idx: int, offset: int,
+                     txids: list | None = None,
+                     checkpoint: tuple[int, int] | None = None,
+                     index=None) -> None:
+        """`txids` may carry the validator's txid of each position (a
+        position without one is parsed here); `checkpoint` rides the
+        number and hash batch."""
+        num_b = struct.pack(">Q", blk.header.number)
+        puts = {
+            b"n" + num_b: struct.pack(">QQ", file_idx, offset),
+            b"h" + protoutil.block_header_hash(blk.header): num_b,
+        }
+        if checkpoint is not None:
+            puts[b"cp"] = struct.pack(">QQQ", checkpoint[0], checkpoint[1],
+                                      self._height)
+        data = blk.data.data
+        if txids is None or len(txids) != len(data):
+            txids = [None] * len(data)
+        tx_puts: dict[bytes, bytes] = {}
+        for pos, txid in enumerate(txids):
+            if txid is None:
+                txid = self._parse_txid(data[pos])
+            if txid:
+                # the first occurrence in the block (setdefault) and across
+                # blocks (insert if absent) wins
+                tx_puts.setdefault(b"t" + txid.encode(),
+                                   num_b + struct.pack(">Q", pos))
+        index = index or self._index
+        index.write_batch_if_absent(tx_puts)
+        index.write_batch(puts)
+
+    # -- public API -----------------------------------------------------------
+
+    @property
+    def height(self) -> int:
+        return self._height
+
+    @property
+    def last_block_hash(self) -> bytes:
+        return self._last_hash
+
+    def info(self) -> dict:
+        return {"height": self._height, "currentBlockHash": self._last_hash}
+
+    def add_block(self, blk: cb.Block, txids: list | None = None,
+                  env_bytes: list | None = None, into=None,
+                  sync: bool = True) -> int | None:
+        """Append and index; returns the file written (None in memory).
+        `txids` and `env_bytes` are the validator's (see CommitAssist).
+        `into` (a WriteBatchCollector over the index's store) buffers the
+        index and checkpoint into the group's transaction, and
+        `sync=False` leaves the fdatasync to `sync_files` at the group's
+        boundary, which runs before the transaction."""
+        with self._lock:
+            if blk.header.number != self._height:
+                raise BlockStoreError(
+                    f"block number {blk.header.number} != expected "
+                    f"{self._height}")
+            index = self._index if into is None else self._index.rebase(into)
+            raw = protoutil.serialize_block(blk, env_bytes)
+            if self._mem_blocks is not None:
+                self._mem_blocks.append(raw)
+                self._height += 1
+                self._index_block(blk, 0, len(self._mem_blocks) - 1, txids,
+                                  checkpoint=(0, len(self._mem_blocks)),
+                                  index=index)
+                file_idx = None
+            else:
+                file_idx, offset, _ = self._checkpoint(index)
+                rec = _LEN.size + len(raw)
+                if offset > 0 and offset + rec > self._segment:
+                    self._seal_segment(file_idx, offset)
+                    file_idx += 1
+                    offset = 0
+                f = self._segment_fh(file_idx)
+                f.seek(offset)
+                f.write(_LEN.pack(len(raw)))
+                f.write(raw)
+                f.flush()
+                if sync:
+                    os.fdatasync(f.fileno())
+                self._height += 1
+                self._index_block(blk, file_idx, offset, txids,
+                                  checkpoint=(file_idx, offset + rec),
+                                  index=index)
+            self._last_hash = protoutil.block_header_hash(blk.header)
+            return file_idx
+
+    def truncate_to_checkpoint(self) -> None:
+        """Undo the appends that were never indexed: drop the file data
+        past the committed checkpoint and restore height and hash from
+        it (a failed group, whose index writes are lost)."""
+        with self._lock:
+            file_idx, offset, height = self._checkpoint()
+            if self._mem_blocks is not None:
+                del self._mem_blocks[offset:]
+            else:
+                if self._fh is not None:
+                    self._fh.close()
+                    self._fh = None
+                    self._fh_idx = -1
+                i = file_idx + 1
+                while os.path.exists(self._file_path(i)):
+                    os.remove(self._file_path(i))
+                    i += 1
+                path = self._file_path(file_idx)
+                if os.path.exists(path):
+                    self._erase_tail(path, offset, os.path.getsize(path))
+            self._height = height
+            self._last_hash = b""
+            if height > 0:
+                last = self.get_block_by_number(height - 1)
+                if last is not None:
+                    self._last_hash = protoutil.block_header_hash(last.header)
+
+    def sync_files(self, file_idxs) -> None:
+        """One fdatasync per touched segment: the records land inside
+        allocated space, so the files' metadata does not change."""
+        if self._mem_blocks is not None:
+            return
+        for idx in sorted(file_idxs):
+            fd = os.open(self._file_path(idx), os.O_RDONLY)
+            try:
+                os.fdatasync(fd)
+            finally:
+                os.close(fd)
+
+    def get_block_by_number(self, num: int) -> cb.Block | None:
+        if num >= self._height:
+            return None
+        loc = self._index.get(b"n" + struct.pack(">Q", num))
+        if loc is None:
+            return None
+        file_idx, offset = struct.unpack(">QQ", loc)
+        if self._mem_blocks is not None:
+            return cb.Block.decode(self._mem_blocks[offset])
+        with open(self._file_path(file_idx), "rb") as f:
+            f.seek(offset)
+            (n,) = _LEN.unpack(f.read(_LEN.size))
+            return cb.Block.decode(f.read(n))
+
+    def get_block_by_hash(self, block_hash: bytes) -> cb.Block | None:
+        raw = self._index.get(b"h" + block_hash)
+        if raw is None:
+            return None
+        return self.get_block_by_number(struct.unpack(">Q", raw)[0])
+
+    def get_tx_loc(self, txid: str) -> tuple[int, int] | None:
+        raw = self._index.get(b"t" + txid.encode())
+        if raw is None:
+            return None
+        num, pos = struct.unpack(">QQ", raw)
+        return num, pos
+
+    def tx_ids_exist(self, txids) -> set[str]:
+        """The txids of `txids` already in the index, in one round trip."""
+        got = self._index.get_many([b"t" + t.encode() for t in txids])
+        return {k[1:].decode() for k in got}
+
+    def get_tx_by_id(self, txid: str) -> cb.Envelope | None:
+        loc = self.get_tx_loc(txid)
+        if loc is None:
+            return None
+        return protoutil.extract_envelope(self.get_block_by_number(loc[0]),
+                                          loc[1])
+
+    def get_tx_validation_code(self, txid: str) -> int | None:
+        loc = self.get_tx_loc(txid)
+        if loc is None:
+            return None
+        return protoutil.tx_filter(self.get_block_by_number(loc[0]))[loc[1]]
+
+    def iterator(self, start: int = 0):
+        """The blocks from `start` to the height."""
+        num = start
+        while num < self._height:
+            yield self.get_block_by_number(num)
+            num += 1
+
+
+__all__ = ["BlockStore", "BlockStoreError", "segment_size",
+           "DEFAULT_SEGMENT"]

@@ -1,2 +1,2 @@
-"""Peer-side block validation of the port: the transaction validator and
-its validation plugins."""
+"""Peer-side validation and commit of the port: the transaction validator,
+its validation plugins, and the committer."""

@@ -36,6 +36,7 @@ import numpy as np
 
 from fabric_tpu_torch import native, protoutil
 from fabric_tpu_torch.csp.api import VerifyBatchItem
+from fabric_tpu_torch.ledger.kvledger import CommitAssist
 from fabric_tpu_torch.peer.validation_plugins import (
     IllegalWritesetError,
     PluginRegistry,
@@ -300,23 +301,45 @@ class TxValidator:
         a `Block` gets them in its TRANSACTIONS_FILTER."""
         return self._finish_block(*self._start_block(block, set()))
 
-    def validate_pipeline(self, blocks, depth: int = 2):
+    def validate_pipeline(self, blocks, depth: int = 2, release=None,
+                          rwsets_out=None):
         """Yields each block's flags in order, keeping up to `depth` blocks
         in flight, so that block k+1's host collect overlaps block k's
         device verify.  Duplicate txids are caught against the ledger and
-        every block in flight; a block's txids leave the window once its
-        flags are finished.  Key-level policy reads for block k+1 see the
-        state before block k (use depth=1 for strict adjacency)."""
+        every block in flight.  By default a block's txids leave the window
+        once its flags are finished; a caller that commits later
+        (`Committer.store_stream`) passes `release`, which receives for
+        each yielded block a callable that closes the block's window, to
+        be called once the commit has landed and the ledger's txid index
+        takes over.  The callable may run on another thread: it queues the
+        txids, and they leave the window before the next block's collect
+        (which probes the ledger once, at its start), never during one.
+        `rwsets_out` receives one `CommitAssist` per block (rwsets,
+        footprints, txids, envelope bytes) for the committer.  Key-level
+        policy reads for block k+1 see the state before block k (use
+        depth=1 for strict adjacency)."""
         q: collections.deque = collections.deque()
         seen_txids: set[str] = set()
+        released: collections.deque = collections.deque()
 
         def finish(started):
             block, flags, works, collect, txids = started
             flags = self._finish_block(block, flags, works, collect)
-            seen_txids.difference_update(txids)
+            if rwsets_out is not None:
+                rwsets_out(CommitAssist(
+                    rwsets=[w.rwset for w in works],
+                    footprints=[w.footprint for w in works],
+                    txids=[w.txid for w in works],
+                    env_bytes=block.data.data))
+            if release is None:
+                seen_txids.difference_update(txids)
+            else:
+                release(lambda: released.append(txids))
             return flags
 
         for block in blocks:
+            while released:
+                seen_txids.difference_update(released.popleft())
             before = set(seen_txids)
             started = self._start_block(block, seen_txids)
             q.append(started + (seen_txids - before,))

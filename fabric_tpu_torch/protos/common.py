@@ -1,7 +1,8 @@
 """Schemas of package `common`: `common.proto`, `configtx.proto`,
-`configuration.proto`, `policies.proto` and `msp_principal.proto` (field
-numbers from the JAX package's `fabric_tpu/protos/common/*.proto` and
-`msp/msp_principal.proto`), and `google.protobuf.Timestamp`."""
+`configuration.proto`, `policies.proto`, `ledger.proto` and
+`msp_principal.proto` (field numbers from the JAX package's
+`fabric_tpu/protos/common/*.proto` and `msp/msp_principal.proto`), and
+`google.protobuf.Timestamp`."""
 
 from fabric_tpu_torch.protos.wire import (
     BYTES,
@@ -107,6 +108,16 @@ class Block(Message):
         Field(1, "header", MESSAGE, "BlockHeader"),
         Field(2, "data", MESSAGE, "BlockData"),
         Field(3, "metadata", MESSAGE, "BlockMetadata"),
+    )
+
+
+class BlockchainInfo(Message):
+    """`ledger.proto`: a ledger's height and its last two block hashes."""
+
+    FIELDS = (
+        Field(1, "height", UINT64),
+        Field(2, "current_block_hash", BYTES),
+        Field(3, "previous_block_hash", BYTES),
     )
 
 

@@ -1,8 +1,10 @@
 """Schemas of package `protos` (the peer): `proposal.proto`,
 `proposal_response.proto`, `transaction.proto`, `chaincode.proto`,
-`chaincode_event.proto` and `collection.proto`'s `ApplicationPolicy` and
-`StaticCollectionConfig` (a collection's endorsement policy; field
-numbers from the JAX package's `fabric_tpu/protos/peer/`)."""
+`chaincode_event.proto`, `collection.proto`'s `ApplicationPolicy` and
+`StaticCollectionConfig` (a collection's endorsement policy) and
+`chaincode_shim.proto`'s `StateMetadataResult` (a key's metadata as the
+state DB stores it; field numbers from the JAX package's
+`fabric_tpu/protos/peer/`)."""
 
 from fabric_tpu_torch.protos.wire import (
     BOOL,
@@ -206,3 +208,14 @@ class StaticCollectionConfig(Message):
         Field(7, "member_only_write", BOOL),
         Field(8, "endorsement_policy", MESSAGE, "ApplicationPolicy"),
     )
+
+
+# -- chaincode_shim.proto -----------------------------------------------------
+
+
+class StateMetadata(Message):
+    FIELDS = (Field(1, "metakey", STRING), Field(2, "value", BYTES))
+
+
+class StateMetadataResult(Message):
+    FIELDS = (Field(1, "entries", MESSAGE, "StateMetadata", repeated=True),)

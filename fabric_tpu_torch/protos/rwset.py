@@ -40,6 +40,25 @@ class CollectionHashedReadWriteSet(Message):
     )
 
 
+class TxPvtReadWriteSet(Message):
+    FIELDS = (
+        Field(1, "data_model", ENUM),
+        Field(2, "ns_pvt_rwset", MESSAGE, "NsPvtReadWriteSet", repeated=True),
+    )
+
+
+class NsPvtReadWriteSet(Message):
+    FIELDS = (
+        Field(1, "namespace", STRING),
+        Field(2, "collection_pvt_rwset", MESSAGE, "CollectionPvtReadWriteSet",
+              repeated=True),
+    )
+
+
+class CollectionPvtReadWriteSet(Message):
+    FIELDS = (Field(1, "collection_name", STRING), Field(2, "rwset", BYTES))
+
+
 class Version(Message):
     FIELDS = (Field(1, "block_num", UINT64), Field(2, "tx_num", UINT64))
 

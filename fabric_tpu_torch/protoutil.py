@@ -169,7 +169,89 @@ def create_signed_tx(prop: pb.Proposal, signer,
     return cb.Envelope(payload=payload, signature=signer.sign(payload))
 
 
+def get_action_from_envelope(env: cb.Envelope
+                             ) -> tuple[pb.ChaincodeActionPayload,
+                                        pb.ChaincodeAction]:
+    """The (ChaincodeActionPayload, ChaincodeAction) of action 0."""
+    payload = cb.Payload.decode(env.payload)
+    tx = pb.Transaction.decode(payload.data)
+    cap = pb.ChaincodeActionPayload.decode(tx.actions[0].payload)
+    prp = pb.ProposalResponsePayload.decode(
+        cap.action.proposal_response_payload)
+    return cap, pb.ChaincodeAction.decode(prp.extension)
+
+
 # -- blocks (reference protoutil/blockutils.go) -------------------------------
+
+
+def _der_len(n: int) -> bytes:
+    if n < 0x80:
+        return bytes([n])
+    body = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return bytes([0x80 | len(body)]) + body
+
+
+def _der_integer(v: int) -> bytes:
+    if v == 0:
+        body = b"\x00"
+    else:
+        # one spare byte keeps the sign bit clear; drop it when unneeded
+        body = v.to_bytes((v.bit_length() + 8) // 8, "big")
+        if len(body) > 1 and body[0] == 0 and body[1] < 0x80:
+            body = body[1:]
+    return b"\x02" + _der_len(len(body)) + body
+
+
+def _der_octets(b: bytes) -> bytes:
+    return b"\x04" + _der_len(len(b)) + b
+
+
+def block_header_bytes(header: cb.BlockHeader) -> bytes:
+    """ASN.1 DER of SEQUENCE { number INTEGER, previous_hash OCTET STRING,
+    data_hash OCTET STRING }: what the header hash covers, the same in
+    every implementation."""
+    body = (_der_integer(header.number) + _der_octets(header.previous_hash)
+            + _der_octets(header.data_hash))
+    return b"\x30" + _der_len(len(body)) + body
+
+
+def block_header_hash(header: cb.BlockHeader) -> bytes:
+    return sha256(block_header_bytes(header))
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def serialize_block(block: cb.Block, env_bytes=None) -> bytes:
+    """`block.encode()`, spliced: the envelopes sit verbatim inside
+    BlockData, so the data field is framed around them and not encoded
+    again.  `env_bytes` may pass the envelopes' bytes already in hand."""
+    parts: list = []
+    if block.has("header"):
+        hb = block.header.encode()
+        parts += [b"\x0a", _varint(len(hb)), hb]
+    if block.has("data"):
+        if env_bytes is None:
+            env_bytes = block.data.data
+        dparts: list = []
+        ap = dparts.append
+        for env in env_bytes:
+            ap(b"\x0a")
+            ap(_varint(len(env)))
+            ap(env)
+        db = b"".join(dparts)
+        parts += [b"\x12", _varint(len(db)), db]
+    if block.has("metadata"):
+        mb = block.metadata.encode()
+        parts += [b"\x1a", _varint(len(mb)), mb]
+    return b"".join(parts)
 
 
 def block_data_hash(data: cb.BlockData) -> bytes:
@@ -195,6 +277,17 @@ def extract_envelope(block: cb.Block, idx: int) -> cb.Envelope:
     return cb.Envelope.decode(block.data.data[idx])
 
 
+def tx_filter(block: cb.Block) -> bytearray:
+    """The validation code of every transaction (the metadata's
+    TRANSACTIONS_FILTER); all VALID when the filter's length is not the
+    block's transaction count.  Gives the block its metadata slots."""
+    init_block_metadata(block)
+    raw = block.metadata.metadata[cb.TRANSACTIONS_FILTER]
+    if len(raw) != len(block.data.data):
+        return bytearray(len(block.data.data))
+    return bytearray(raw)
+
+
 def set_tx_filter(block: cb.Block, flags) -> None:
     init_block_metadata(block)
     block.metadata.metadata[cb.TRANSACTIONS_FILTER] = bytes(flags)
@@ -204,6 +297,8 @@ __all__ = [
     "SignedData", "random_nonce", "compute_tx_id", "check_tx_id",
     "make_channel_header", "make_signature_header", "make_payload_bytes",
     "create_chaincode_proposal", "proposal_hash", "proposal_hash2",
-    "create_proposal_response", "create_signed_tx", "block_data_hash",
-    "init_block_metadata", "new_block", "extract_envelope", "set_tx_filter",
+    "create_proposal_response", "create_signed_tx",
+    "get_action_from_envelope", "block_header_bytes", "block_header_hash",
+    "serialize_block", "block_data_hash", "init_block_metadata", "new_block",
+    "extract_envelope", "tx_filter", "set_tx_filter",
 ]

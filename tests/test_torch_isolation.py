@@ -77,13 +77,37 @@ assert CUDACSP(device="cpu").hash_batch(msgs) == [
     hashlib.sha256(m).digest() for m in msgs]
 # a port-minted world and block through the port's validator
 world = chip_smoke.validator_world(5)
-blocks, expect = chip_smoke.validator_blocks(world, 1, 8)
+blocks, expect, _ = chip_smoke.validator_blocks(world, 1, 8,
+                                                world.genesis_hash)
 from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
 from fabric_tpu_torch.peer.txvalidator import TxValidator
+bundle = bundle_from_genesis(world.genesis)
 v = TxValidator(chip_smoke.VALIDATOR_CHANNEL, chip_smoke.EmptyLedger(),
-                bundle_from_genesis(world.genesis), CUDACSP(device="cpu"))
+                bundle, CUDACSP(device="cpu"))
 flags = v.validate(blocks[0])
 assert flags == [expect.get((0, i), 0) for i in range(8)], flags
+# ... and committed into an on-disk port ledger, then read back
+import sqlite3, tempfile
+from fabric_tpu_torch.ledger import LedgerProvider
+from fabric_tpu_torch.peer.committer import Committer
+from fabric_tpu_torch.protos import common as cb
+with tempfile.TemporaryDirectory() as root:
+    provider = LedgerProvider(root)
+    ledger = provider.create(cb.Block.decode(world.genesis))
+    committer = Committer(TxValidator(chip_smoke.VALIDATOR_CHANNEL, ledger,
+                                      bundle, CUDACSP(device="cpu")), ledger)
+    assert list(committer.store_stream(blocks, depth=2)) == [flags]
+    provider.close()
+    again = LedgerProvider(root).open(chip_smoke.VALIDATOR_CHANNEL)
+    assert again.height == 2 and again.durable_height == 2
+    got = again.get_block_by_number(1)
+    assert list(got.data.data) == list(cb.Block.decode(blocks[0]).data.data)
+    assert got.metadata.metadata[cb.TRANSACTIONS_FILTER] == bytes(flags)
+    for i, f in enumerate(flags):
+        value = again.get_state(chip_smoke.VALIDATOR_CC, f"k0-{i}")
+        assert value == (b"v%d" % i if f == 0 else None), (i, f, value)
+    assert again.get_history_for_key(chip_smoke.VALIDATOR_CC, "k0-0") == \
+        [(1, 0)]
 assert not any(k in ("jax", "yaml", "cryptography")
                or k.startswith(("jax.", "fabric_tpu.", "google.protobuf"))
                for k, v in sys.modules.items() if v is not None)
@@ -115,6 +139,13 @@ def _imported(path: Path):
 
 
 def test_no_file_of_the_port_imports_forbidden_modules():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    # the commit path's modules are among the files scanned
+    assert {f"ledger/{m}.py" for m in (
+        "kvstore", "statedb", "txmgmt", "history", "pvtdatastorage",
+        "confighistory", "blkstorage", "kvledger")} | {
+        "peer/committer.py", "protoutil.py"} <= scanned
     bad = []
     for path in _port_files():
         for name in _imported(path):

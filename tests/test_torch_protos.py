@@ -20,6 +20,7 @@ from fabric_tpu.protos.common import (
     common_pb2,
     configtx_pb2,
     configuration_pb2,
+    ledger_pb2,
     policies_pb2,
 )
 from fabric_tpu.protos.ledger.rwset import rwset_pb2
@@ -30,6 +31,7 @@ from fabric_tpu.protos.orderer import raft_pb2
 from fabric_tpu.protos.peer import (
     chaincode_event_pb2,
     chaincode_pb2,
+    chaincode_shim_pb2,
     collection_pb2,
     proposal_pb2,
     proposal_response_pb2,
@@ -39,10 +41,11 @@ from fabric_tpu_torch.protos import common, msp, orderer, peer, rwset, wire
 
 _PB2 = {
     common: (common_pb2, configtx_pb2, configuration_pb2, policies_pb2,
-             msp_principal_pb2, timestamp_pb2),
+             msp_principal_pb2, timestamp_pb2, ledger_pb2),
     msp: (identities_pb2, msp_config_pb2),
     peer: (chaincode_pb2, chaincode_event_pb2, proposal_pb2,
-           proposal_response_pb2, transaction_pb2, collection_pb2),
+           proposal_response_pb2, transaction_pb2, collection_pb2,
+           chaincode_shim_pb2),
     rwset: (rwset_pb2, kv_rwset_pb2),
     orderer: (orderer_pb2, raft_pb2),
 }
