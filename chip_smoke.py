@@ -66,8 +66,29 @@
    a reopen equal, and the mask hostref's; prints committed tx/s, ms a
    block, the validator's and the commit stages' split per block, the
    group flushes, when each block was validated and when durable, B1's
-   launches and busy share, the sqlite version and settings and the
-   ledger directory's file system.
+   launches and busy share, the sqlite version and settings, the
+   ledger directory's file system, and the MVCC width (the default) with
+   the blocks whose prepare fanned out.  A snapshot requested before the
+   run is generated as block 6 commits (its export timed).
+   Snapshots: that snapshot is verified through `CUDACSP.hash_batch`, a
+   copy with one byte flipped is refused, a new ledger is created from it
+   and blocks 7-8 are streamed into it through the Committer with
+   `CUDACSP`, counted; flags, state, the txid index, the blocks and the
+   history from block 7 on must equal the original ledger's, and a txid
+   of block 2 repeated in block 8 is DUPLICATE_TXID in both.  Prints the
+   export's bytes, files and ms, the hash route and B4's launches (0 at
+   this shape), the import's ms and the stream's tx/s.
+   SmallBank (`bench.py:264-445` at its size, with real signatures: 1000
+   accounts seeded in block 1, 6 blocks of 400 payments, a quarter of
+   the endpoints from 10 hot accounts, each block simulated by the port's
+   `TxSimulator` one block behind): `Committer.store_stream(depth=6)`
+   into an on-disk ledger with `CUDACSP`, twice (counted from the first),
+   each pass followed by one at MVCC width 0, then block by block at
+   width 0; the flags must be equal in every pass and to the build
+   ledger's, the mask hostref's, and every balance the replay of the
+   committed payments.  Prints committed and conflicted counts,
+   committed tx/s, the commit stages, the workpool's counters, B1's
+   launches and the MVCC width's A/B.
 7. SHA-256 (B4): drives `CUDACSP.hash_batch` at its callers' shapes (a
    block's 1000 per-transaction calls of three endorsement messages, a
    snapshot export's call over its five files), where hashlib answers and
@@ -100,8 +121,9 @@
    multiplications beside the bound's, and sweeps it over 32 to 4096
    lanes.
 9. Prints one JSON line of kernels (B1-B4; B1's with its launches on
-   the validator and commit paths), then `{"ok": true, "device": {...}}`
-   as its last line.
+   the validator, commit, SmallBank and bootstrapped-ledger paths, B4's
+   with its launches at the snapshot's shape), then `{"ok": true,
+   "device": {...}}` as its last line.
 
 Exits non-zero, before printing any result, on a host without CUDA; any
 failed phase raises.  Inputs are made from a seed (numpy for P-256 and
@@ -123,6 +145,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -131,6 +154,7 @@ import torch
 from fabric_tpu_torch import native
 from fabric_tpu_torch import protoutil as pu
 from fabric_tpu_torch.common import configtx_builder as ctx
+from fabric_tpu_torch.common import workpool
 from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
 from fabric_tpu_torch.common.crypto import CA
 from fabric_tpu_torch.csp import hostref
@@ -1780,6 +1804,10 @@ PLANT_BLOCK = 3  # the block (number) that carries the planted validator faults
 MVCC_BLOCK = 4  # the block that carries the planted MVCC conflicts
 DUP_BLOCK = 6  # the block that repeats a txid of MVCC_BLOCK
 HIST_KEY = "hist"  # written by MVCC_BLOCK and DUP_BLOCK (its history: two)
+SNAP_BLOCK = 6  # phase_commit's snapshot: the chain up to this block
+SNAP_DUP_BLOCK = 8  # a block after the snapshot that repeats ...
+SNAP_DUP_OF = 2  # ... a transaction of this block, from before it
+SNAP_DUP_TX = 3  # (the transaction's position in both)
 WAL_CHECKPOINT = "4000"  # FABRIC_TPU_WAL_CHECKPOINT of the headline (bench.py)
 
 
@@ -1841,32 +1869,48 @@ def tx_rwset(b: int, i: int, reads=(), ranges=(), writes=()) -> rw.KVRWSet:
         + [rw.KVWrite(key=k, value=v) for k, v in writes])
 
 
-def endorsed_tx(world: ValidatorWorld, b: int, i: int, endorsers: int,
-                bad_endorsements=(), kv: rw.KVRWSet | None = None) -> bytes:
+def signed_tx(world: ValidatorWorld, cc: str, args: list, results: bytes,
+              timestamp: int, endorsers: int = ENDORSERS,
+              bad_endorsements=()) -> bytes:
     """One transaction as `_make_blocks` builds it: Org1's client signs the
-    proposal and the envelope; `endorsers` peers (Org1 first) sign
-    responses whose rwset (`kv`, by default `tx_rwset(b, i)`) writes
-    `benchcc` key k{b}-{i}; the endorsements at `bad_endorsements` are
-    signed over other bytes."""
+    proposal of chaincode `cc` and the envelope; `endorsers` peers (Org1
+    first) sign responses carrying `results` (a marshaled
+    TxReadWriteSet); the endorsements at `bad_endorsements` are signed
+    over other bytes."""
     client = world.client
     prop, _ = pu.create_chaincode_proposal(
-        client.serialize(), VALIDATOR_CHANNEL, VALIDATOR_CC,
-        [b"k%d-%d" % (b, i), b"v%d" % i], nonce=world.rng.bytes(24),
-        timestamp=VALIDATOR_TS + b)
-    kv = tx_rwset(b, i) if kv is None else kv
-    results = rw.TxReadWriteSet(ns_rwset=[rw.NsReadWriteSet(
-        namespace=VALIDATOR_CC, rwset=kv.encode())]).encode()
+        client.serialize(), VALIDATOR_CHANNEL, cc, args,
+        nonce=world.rng.bytes(24), timestamp=timestamp)
     resps = []
     for j, peer in enumerate(world.peers[:endorsers]):
         resp = pu.create_proposal_response(
             prop, results, b"", pb.Response(status=200),
-            pb.ChaincodeID(name=VALIDATOR_CC), peer)
+            pb.ChaincodeID(name=cc), peer)
         if j in bad_endorsements:
             resp.endorsement = pb.Endorsement(
                 endorser=resp.endorsement.endorser,
                 signature=peer.sign(b"not the response"))
         resps.append(resp)
     return pu.create_signed_tx(prop, client, resps).encode()
+
+
+def endorsed_tx(world: ValidatorWorld, b: int, i: int, endorsers: int,
+                bad_endorsements=(), kv: rw.KVRWSet | None = None) -> bytes:
+    """Transaction i of block index b: its rwset (`kv`, by default
+    `tx_rwset(b, i)`) writes `benchcc` key k{b}-{i}."""
+    kv = tx_rwset(b, i) if kv is None else kv
+    results = rw.TxReadWriteSet(ns_rwset=[rw.NsReadWriteSet(
+        namespace=VALIDATOR_CC, rwset=kv.encode())]).encode()
+    return signed_tx(world, VALIDATOR_CC, [b"k%d-%d" % (b, i), b"v%d" % i],
+                     results, VALIDATOR_TS + b, endorsers, bad_endorsements)
+
+
+def seal_block(num: int, prev_hash: bytes, envs: list) -> bytes:
+    """Block `num` of the envelopes, chained onto `prev_hash`."""
+    blk = pu.new_block(num, prev_hash)
+    blk.data = cb.BlockData(data=envs)
+    blk.header.data_hash = pu.block_data_hash(blk.data)
+    return blk.encode()
 
 
 def plant_validator(world: ValidatorWorld, b: int, envs: list,
@@ -1924,15 +1968,21 @@ def validator_blocks(world: ValidatorWorld, n_blocks: int, n_txs: int,
     block PLANT_BLOCK (or the last) carries the validator's faults; with
     `mvcc` (and at least DUP_BLOCK blocks), block MVCC_BLOCK carries MVCC
     conflicts, and transaction 1 of block DUP_BLOCK repeats transaction 1
-    of block MVCC_BLOCK and writes HIST_KEY again.  Returns (block bytes,
-    {(block index, tx): validator flag}, {(block index, tx): MVCC flag}):
-    the validator's flags at depth >= 3 and the flags that only the
-    commit sets."""
+    of block MVCC_BLOCK and writes HIST_KEY again; with `mvcc` and at
+    least SNAP_DUP_BLOCK blocks, transaction SNAP_DUP_TX of block
+    SNAP_DUP_BLOCK repeats that of block SNAP_DUP_OF, from before
+    phase_commit's snapshot (a validator with no ledger, whose window has
+    let block SNAP_DUP_OF go, passes it; the ledger's txid index flags
+    it).  Returns (block bytes, {(block index, tx): validator flag},
+    {(block index, tx): commit flag}): the validator's flags at depth
+    >= 3 and the flags that only the commit sets."""
     plant_at = min(PLANT_BLOCK, n_blocks) - 1 if plant else -1
+    snap_dup = mvcc and n_blocks >= SNAP_DUP_BLOCK
     mvcc = mvcc and n_blocks >= DUP_BLOCK
-    blocks, expect, conflicts = [], {}, {}
+    blocks, expect, conflicts, all_envs = [], {}, {}, []
     for b in range(n_blocks):
         envs = [endorsed_tx(world, b, i, ENDORSERS) for i in range(n_txs)]
+        all_envs.append(envs)
         if b == plant_at:
             plant_validator(world, b, envs, expect)
         if mvcc and b == MVCC_BLOCK - 1:
@@ -1943,11 +1993,11 @@ def validator_blocks(world: ValidatorWorld, n_blocks: int, n_txs: int,
             expect[b, 1] = pb.DUPLICATE_TXID
             envs[2] = endorsed_tx(world, b, 2, ENDORSERS, kv=tx_rwset(
                 b, 2, writes=[(HIST_KEY, b"h%d" % b)]))
-        blk = pu.new_block(1 + b, prev_hash)
-        blk.data = cb.BlockData(data=envs)
-        blk.header.data_hash = pu.block_data_hash(blk.data)
-        prev_hash = pu.block_header_hash(blk.header)
-        blocks.append(blk.encode())
+        if snap_dup and b == SNAP_DUP_BLOCK - 1:
+            envs[SNAP_DUP_TX] = all_envs[SNAP_DUP_OF - 1][SNAP_DUP_TX]
+            conflicts[b, SNAP_DUP_TX] = pb.DUPLICATE_TXID
+        blocks.append(seal_block(1 + b, prev_hash, envs))
+        prev_hash = pu.block_header_hash(cb.Block.decode(blocks[-1]).header)
     return blocks, expect, conflicts
 
 
@@ -2104,14 +2154,20 @@ def fs_type(path: str) -> str:
 
 
 def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
-                 conflicts: dict, depth: int = DEPTH) -> dict:
+                 conflicts: dict, depth: int = DEPTH,
+                 root_dir: str | None = None) -> dict:
     """Validate and commit the blocks through the port's
     `Committer.store_stream` into an on-disk KVLedger (B1 on the card
-    through CUDACSP), counted; then hold the flags, the state, the block
-    readers, the history and a reopen."""
+    through CUDACSP; MVCC at the default width), counted; then hold the
+    flags, the state, the block readers, the history and a reopen.  With
+    at least SNAP_BLOCK blocks, a snapshot requested before the run is
+    generated as block SNAP_BLOCK commits.  The ledger lives under
+    `root_dir`, kept for phase_snapshot, else under a temporary directory
+    removed at the end."""
+    import contextlib
     import sqlite3
-    import tempfile
 
+    from fabric_tpu_torch.ledger import snapshot as snap
     from fabric_tpu_torch.ledger.kvledger import LedgerProvider
     from fabric_tpu_torch.peer.committer import Committer
 
@@ -2121,7 +2177,9 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
     bundle = bundle_from_genesis(world.genesis)
     genesis = cb.Block.decode(world.genesis)
     csp = RecordingCSP(CUDACSP(device=device))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ledger_") as tmp:
+    place = (contextlib.nullcontext(root_dir) if root_dir is not None
+             else tempfile.TemporaryDirectory(prefix="chip_smoke_ledger_"))
+    with place as tmp:
         # warm-up in a ledger of its own, not timed: the key table and
         # quarter tables, the MSP caches, the first segment's allocation
         warm_provider = LedgerProvider(os.path.join(tmp, "warm"))
@@ -2132,7 +2190,7 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
                   warm).store_block(warm_block)
         warm_provider.close()
         root = os.path.join(tmp, "ledger")
-        provider = LedgerProvider(root)
+        provider = LedgerProvider(root, csp=csp)
         ledger = provider.create(genesis)
         check(ledger.height == 1, f"height after genesis {ledger.height}")
         validator = TxValidator(VALIDATOR_CHANNEL, ledger, bundle, csp)
@@ -2145,6 +2203,33 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
             flush(group)
 
         ledger.commit_group_flush = counted_flush
+        groups = []  # the committer's groups, for their MVCC validators
+        begin = ledger.begin_commit_group
+
+        def kept_begin():
+            groups.append(begin())
+            return groups[-1]
+
+        ledger.begin_commit_group = kept_begin
+        # the snapshot, requested before the run and generated in it, on
+        # the manager's thread, as block SNAP_BLOCK commits (timed here)
+        snapshot = n_blocks >= SNAP_BLOCK
+        export: dict = {}
+        generate = snap.generate_snapshot
+
+        def timed_generate(*args, **kwargs):
+            b4_before = sha.launches_sha256
+            t = time.perf_counter()
+            out = generate(*args, **kwargs)
+            export.update(s=time.perf_counter() - t,
+                          b4=sha.launches_sha256 - b4_before)
+            return out
+
+        if snapshot:
+            snap.generate_snapshot = timed_generate
+            got = ledger.snapshots.submit_request(SNAP_BLOCK)
+            check(got["snapshot_dir"] is None and ledger.snapshots
+                  .list_pending() == [SNAP_BLOCK], f"the request: {got}")
         # the timeline: when each block's flags are finished (validated)
         # and when it is durable (its group flushed, the listener called)
         validated, durable = [], []
@@ -2164,13 +2249,28 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
         pk.launches_lanekeys = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        flags = list(committer.store_stream(blocks, depth=depth))
-        csp.inner.drain()
-        wall = time.perf_counter() - t0
+        try:
+            flags = list(committer.store_stream(blocks, depth=depth))
+            csp.inner.drain()
+            wall = time.perf_counter() - t0
+            check(ledger.snapshots.wait_idle(60.0), "the snapshot export "
+                  "did not finish")
+        finally:
+            snap.generate_snapshot = generate
         launches = {"p256_verify_keytab": pk.launches_keytab,
                     "p256_verify_lanekeys": pk.launches_lanekeys}
         check(launches["p256_verify_keytab"] > 0,
               f"B1 did not launch on the commit path: {launches}")
+        snapshot_dir = None
+        if snapshot:
+            check(snap.list_completed(provider.snapshots_root,
+                                      VALIDATOR_CHANNEL) == [SNAP_BLOCK]
+                  and not ledger.snapshots.list_pending() and export,
+                  "no snapshot at block %d" % SNAP_BLOCK)
+            snapshot_dir = snap.completed_snapshot_dir(
+                provider.snapshots_root, VALIDATOR_CHANNEL, SNAP_BLOCK)
+        fanout = groups[0].mvcc.fanout
+        parallel = sum(g.mvcc.parallel_prepare_blocks for g in groups)
 
         # flags, height, state
         want_all = {**expect, **conflicts}
@@ -2259,12 +2359,404 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
     print(f"commit: sqlite {sqlite3.sqlite_version}, journal_mode={journal}, "
           f"synchronous={sync_level}, wal_autocheckpoint={wal_pages}; ledger "
           f"directory on {fs}")
+    print(f"commit: MVCC width {fanout} (the default: "
+          f"FABRIC_TPU_MVCC_POOL unset, {os.cpu_count()} CPUs), "
+          f"parallel_prepare_blocks {parallel} (one namespace a block: its "
+          f"prepare has one group)")
+    if snapshot:
+        print(f"commit: snapshot of block {SNAP_BLOCK} generated as it "
+              f"committed, on the manager's thread: export "
+              f"{export['s'] * 1e3:.1f} ms, {export['b4']} launches of "
+              f"{B4_NAME}")
     print(f"commit: every planted flag as expected "
           f"({sorted(set(want_all.values()))}), every other transaction "
           f"VALID; height {n_blocks + 1}; state, block readers, history of "
           f"{HIST_KEY!r} and the reopen held")
     return {"launches": launches, "wall_s": wall, "stages": stages,
-            "flushes": flushes[0], "lanes": lanes}
+            "flushes": flushes[0], "lanes": lanes, "flags": flags,
+            "root": root, "snapshot_dir": snapshot_dir,
+            "export_s": export.get("s"), "export_b4": export.get("b4"),
+            "fanout": fanout, "parallel_prepare_blocks": parallel}
+
+
+# ---------------------------------------------------------------------------
+# SmallBank: hot-key contention through the simulator and the commit path.
+# ---------------------------------------------------------------------------
+
+SB_ACCOUNTS = 1000  # bench.py:285-287, the JAX package's scenario
+SB_HOT = 10  # hot accounts ...
+SB_HOT_PROB = 0.25  # ... that draw a quarter of the endpoints
+SB_TXS = 400  # payments a block
+SB_BLOCKS = 6
+SB_SEED = 11  # random.Random of the payments
+SB_BALANCE = 1000  # every account's seeded checking and savings
+SB_CC = "checking"  # the chaincode (namespace) that bench.py's payments name
+
+
+def smallbank_blocks(world: ValidatorWorld, prev_hash: bytes,
+                     n_accounts: int = SB_ACCOUNTS, n_hot: int = SB_HOT,
+                     hot_prob: float = SB_HOT_PROB, n_txs: int = SB_TXS,
+                     n_blocks: int = SB_BLOCKS, seed: int = SB_SEED):
+    """The JAX package's SmallBank scenario (`bench.py:264-343`) with real
+    signatures: block 1 seeds every account's `checking` and `savings`
+    namespace key in one transaction; each of `n_blocks` blocks holds
+    `n_txs` payments, each reading both `checking` balances and the
+    source's `savings` and writing both `checking` balances, a quarter of
+    the endpoints drawn from `n_hot` hot accounts by `random.Random(seed)`
+    in bench.py's order.  Each block is simulated with the port's
+    TxSimulator against an in-memory build ledger one block behind (the
+    endorse-order-commit staleness), then committed there.  Returns (seed
+    block, payment blocks, [[(src, dst)] per block], the build ledger's
+    flags per block), the blocks as bytes, chained onto `prev_hash`."""
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+
+    rng = random.Random(seed)
+    accounts = [f"acct{a:04d}" for a in range(n_accounts)]
+    provider = LedgerProvider(None)
+    ledger = provider.create(cb.Block.decode(world.genesis))
+    sim = ledger.new_tx_simulator()
+    for a in accounts:
+        sim.set_state("checking", a, b"%d" % SB_BALANCE)
+        sim.set_state("savings", a, b"%d" % SB_BALANCE)
+    seed_blk = seal_block(1, prev_hash, [signed_tx(
+        world, SB_CC, [b"seed"], sim.get_tx_simulation_results(),
+        VALIDATOR_TS)])
+    ledger.commit(cb.Block.decode(seed_blk))
+
+    def pick() -> str:
+        if rng.random() < hot_prob:
+            return accounts[rng.randrange(n_hot)]
+        return accounts[rng.randrange(n_accounts)]
+
+    blocks, payments, build_flags = [], [], []
+    prev = pu.block_header_hash(cb.Block.decode(seed_blk).header)
+    for bno in range(n_blocks):
+        envs, pays = [], []
+        for i in range(n_txs):
+            src = pick()
+            dst = pick()
+            while dst == src:
+                dst = accounts[rng.randrange(n_accounts)]
+            s = ledger.new_tx_simulator()
+            a = int(s.get_state("checking", src) or b"0")
+            b = int(s.get_state("checking", dst) or b"0")
+            s.get_state("savings", src)  # the overdraft check
+            s.set_state("checking", src, b"%d" % (a - 1))
+            s.set_state("checking", dst, b"%d" % (b + 1))
+            envs.append(signed_tx(
+                world, SB_CC, [b"pay", src.encode(), dst.encode()],
+                s.get_tx_simulation_results(), VALIDATOR_TS + 2 + bno))
+            pays.append((src, dst))
+        blocks.append(seal_block(2 + bno, prev, envs))
+        blk = cb.Block.decode(blocks[-1])
+        prev = pu.block_header_hash(blk.header)
+        payments.append(pays)
+        ledger.commit(blk)
+        build_flags.append(list(pu.tx_filter(blk)))
+    provider.close()
+    return seed_blk, blocks, payments, build_flags
+
+
+def smallbank_replay(payments: list, flags: list,
+                     n_accounts: int = SB_ACCOUNTS) -> dict:
+    """Each account's `checking` balance after the VALID payments, in
+    commit order: the plain replay the ledger is held against."""
+    bal = {f"acct{a:04d}": SB_BALANCE for a in range(n_accounts)}
+    for pays, got in zip(payments, flags):
+        for (src, dst), f in zip(pays, got):
+            if f == pb.VALID:
+                bal[src] -= 1
+                bal[dst] += 1
+    return bal
+
+
+def phase_smallbank(device, world: ValidatorWorld, tmp: str,
+                    depth: int = DEPTH, **sizes) -> dict:
+    """The SmallBank stream through `Committer.store_stream(depth)` into an
+    on-disk KVLedger with CUDACSP (B1), twice, counted from the first
+    pass, each followed by a streamed pass at FABRIC_TPU_MVCC_POOL=0 (the
+    width's A/B); then once serially (width 0, store_block a block).
+    Holds the flags of the five passes and the build ledger's equal, the
+    first pass's verify mask against hostref, and every account's
+    balances against the replay of the committed payments."""
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+    from fabric_tpu_torch.peer.committer import Committer
+
+    os.environ["FABRIC_TPU_WAL_CHECKPOINT"] = WAL_CHECKPOINT
+    t0 = time.perf_counter()
+    seed_blk, blocks, payments, build_flags = smallbank_blocks(
+        world, world.genesis_hash, **sizes)
+    n_accounts = sizes.get("n_accounts", SB_ACCOUNTS)
+    print(f"smallbank setup: {len(blocks)} blocks of {len(payments[0])} "
+          f"payments over {n_accounts} accounts simulated and signed in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({sum(map(len, blocks)) / 1e6:.2f} MB)")
+    bundle = bundle_from_genesis(world.genesis)
+    genesis = cb.Block.decode(world.genesis)
+    csp = RecordingCSP(CUDACSP(device=device))
+    want_bal = smallbank_replay(payments, build_flags, n_accounts)
+
+    def run(name: str, serial: bool) -> dict:
+        provider = LedgerProvider(os.path.join(tmp, name), csp=csp)
+        ledger = provider.create(genesis)
+        groups = []
+        begin = ledger.begin_commit_group
+
+        def kept_begin():
+            groups.append(begin())
+            return groups[-1]
+
+        ledger.begin_commit_group = kept_begin
+        committer = Committer(TxValidator(VALIDATOR_CHANNEL, ledger, bundle,
+                                          csp), ledger)
+        check(committer.store_block(seed_blk) == [pb.VALID],
+              "the seed block is not VALID")
+        groups.clear()
+        ledger.commit_stage_seconds.clear()
+        csp.reset()
+        csp.inner.drain()
+        workpool.reset_stats()
+        pk.launches_keytab = 0
+        pk.launches_lanekeys = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if serial:
+            flags = [committer.store_block(b) for b in blocks]
+        else:
+            flags = list(committer.store_stream(blocks, depth=depth))
+        csp.inner.drain()
+        wall = time.perf_counter() - t1
+        out = {
+            "flags": flags, "wall_s": wall,
+            "launches": {"p256_verify_keytab": pk.launches_keytab,
+                         "p256_verify_lanekeys": pk.launches_lanekeys},
+            "stages": dict(ledger.commit_stage_seconds),
+            "pool": workpool.stats(),
+            "fanout": groups[0].mvcc.fanout,
+            "parallel": sum(g.mvcc.parallel_prepare_blocks for g in groups),
+        }
+        got_bal = dict(zip(sorted(want_bal), (
+            int(v) for v in ledger.get_state_multiple(
+                "checking", sorted(want_bal)))))
+        savings = set(ledger.get_state_multiple("savings", sorted(want_bal)))
+        check(got_bal == smallbank_replay(payments, flags, n_accounts)
+              == want_bal and savings == {b"%d" % SB_BALANCE},
+              f"smallbank {name}: balances differ from the replay")
+        check(ledger.height == len(blocks) + 2, f"smallbank {name}: height "
+              f"{ledger.height}")
+        provider.close()
+        return out
+
+    def at_width0(name: str, serial: bool = False) -> dict:
+        knob = os.environ.get("FABRIC_TPU_MVCC_POOL")
+        os.environ["FABRIC_TPU_MVCC_POOL"] = "0"
+        try:
+            return run(name, serial)
+        finally:
+            if knob is None:
+                os.environ.pop("FABRIC_TPU_MVCC_POOL")
+            else:
+                os.environ["FABRIC_TPU_MVCC_POOL"] = knob
+
+    # the default width and width 0 in turns: the width's A/B
+    first = run("pass1", serial=False)
+    lanes = check_mask(csp, "smallbank")
+    zero1 = at_width0("width0_1")
+    second = run("pass2", serial=False)
+    zero2 = at_width0("width0_2")
+    serial = at_width0("serial", serial=True)
+    check(first["flags"] == second["flags"] == zero1["flags"]
+          == zero2["flags"], "smallbank flags differ between the streamed "
+          "passes")
+    check(first["flags"] == serial["flags"] == build_flags, "smallbank "
+          "flags differ from the serial pass or the build ledger's")
+    check(first["launches"]["p256_verify_keytab"] > 0,
+          f"B1 did not launch on the smallbank path: {first['launches']}")
+    check(first["parallel"] > 0 and second["parallel"] > 0
+          and serial["parallel"] == zero1["parallel"] == zero2["parallel"]
+          == 0, "the MVCC prepare did not fan out at the default width, or "
+          "did at width 0")
+    flat = [f for got in first["flags"] for f in got]
+    committed = flat.count(pb.VALID)
+    by_code = dict(sorted(collections.Counter(
+        f for f in flat if f != pb.VALID).items()))
+    best = min(first, second, key=lambda r: r["wall_s"])
+    n_blocks = len(blocks)
+    for label, r in (("pass 1", first), ("width 0, 1", zero1),
+                     ("pass 2", second), ("width 0, 2", zero2),
+                     ("serial", serial)):
+        st = r["stages"]
+        print(f"smallbank {label}: {len(flat)} payments in "
+              f"{r['wall_s'] * 1e3:.1f} ms = "
+              f"{committed / r['wall_s']:.0f} committed tx/s "
+              f"({len(flat) / r['wall_s']:.0f} attempted); MVCC width "
+              f"{r['fanout']}, parallel_prepare_blocks {r['parallel']}, "
+              f"workpool {r['pool']}; launches {r['launches']}; "
+              "commit_stage_seconds per block: "
+              + ", ".join(f"{k} {st.get(k, 0.0) / n_blocks * 1e3:.2f} ms"
+                          for k in COMMIT_STAGES))
+    mvcc_ms = [r["stages"].get("mvcc", 0.0) / n_blocks * 1e3
+               for r in (first, second, zero1, zero2)]
+    print(f"smallbank: MVCC width {first['fanout']} against 0, in turns: "
+          f"walls {first['wall_s'] * 1e3:.1f}, {second['wall_s'] * 1e3:.1f} "
+          f"against {zero1['wall_s'] * 1e3:.1f}, {zero2['wall_s'] * 1e3:.1f} "
+          f"ms; mvcc a block {mvcc_ms[0]:.2f}, {mvcc_ms[1]:.2f} against "
+          f"{mvcc_ms[2]:.2f}, {mvcc_ms[3]:.2f} ms")
+    print(f"smallbank: {committed} committed, {len(flat) - committed} "
+          f"conflicted of {len(flat)} (invalid_by_code {by_code}); flags "
+          f"equal in the streamed passes (widths {first['fanout']} and 0), "
+          f"the serial pass (store_block a block) and the build ledger; "
+          f"{lanes} verify lanes equal to hostref's; every account's "
+          f"balances equal the replay of the committed payments; best "
+          f"{committed / best['wall_s']:.0f} committed tx/s")
+    return {"launches": first["launches"], "wall_s": first["wall_s"],
+            "best_s": best["wall_s"], "committed": committed,
+            "conflicted": len(flat) - committed, "by_code": by_code}
+
+
+# ---------------------------------------------------------------------------
+# Snapshots: verify, refuse a tampered copy, bootstrap, stream on.
+# ---------------------------------------------------------------------------
+
+
+def block_txids(raw: bytes) -> list:
+    """The txids of a block's envelopes that parse (a planted truncated
+    payload does not)."""
+    from fabric_tpu_torch.protos.wire import DecodeError
+
+    out = []
+    for env in cb.Block.decode(raw).data.data:
+        try:
+            out.append(cb.ChannelHeader.decode(cb.Payload.decode(
+                cb.Envelope.decode(env).payload).header.channel_header).tx_id)
+        except DecodeError:
+            continue
+    return out
+
+
+def phase_snapshot(device, world: ValidatorWorld, blocks: list, com: dict,
+                   tmp: str, depth: int = DEPTH) -> dict:
+    """phase_commit's snapshot (the chain to SNAP_BLOCK): verified through
+    `CUDACSP.hash_batch`, a copy with one byte flipped refused, a new
+    ledger created from it, and the blocks after it streamed into that
+    ledger through the Committer with CUDACSP (B1), counted.  The new
+    ledger must equal phase_commit's from SNAP_BLOCK + 1 on: flags, state,
+    the txid index, the blocks and the history, a txid from before the
+    snapshot flagged DUPLICATE_TXID in both."""
+    from fabric_tpu_torch.ledger import snapshot as snap
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+    from fabric_tpu_torch.peer.committer import Committer
+
+    snap_dir = com["snapshot_dir"]
+    names = sorted(os.listdir(snap_dir))
+    nbytes = sum(os.path.getsize(os.path.join(snap_dir, n)) for n in names)
+    blobs = []
+    for n in snap.DATA_FILES:
+        with open(os.path.join(snap_dir, n), "rb") as f:
+            blobs.append(f.read())
+    route = "card" if hash_on_card(blobs) else "hashlib"
+    csp = RecordingCSP(CUDACSP(device=device))
+    sha.launches_sha256 = 0
+    t0 = time.perf_counter()
+    meta = snap.verify_snapshot(snap_dir, csp=csp)
+    verify_s = time.perf_counter() - t0
+    check(meta["last_block_number"] == SNAP_BLOCK, f"snapshot metadata {meta}")
+    tampered = os.path.join(tmp, "tampered")
+    shutil.copytree(snap_dir, tampered)
+    path = os.path.join(tampered, snap.PUBLIC_STATE_FILE)
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 1]))
+    try:
+        snap.verify_snapshot(tampered, csp=csp)
+        refused = False
+    except snap.SnapshotError as e:
+        refused = snap.PUBLIC_STATE_FILE in str(e)
+    check(refused, "a snapshot with one byte flipped was not refused")
+
+    provider = LedgerProvider(os.path.join(tmp, "bootstrapped"), csp=csp)
+    t0 = time.perf_counter()
+    ledger = provider.create_from_snapshot(snap_dir)
+    import_s = time.perf_counter() - t0
+    b4 = sha.launches_sha256
+    check(b4 == 0 and com["export_b4"] == 0, f"{B4_NAME} launched at the "
+          f"snapshot's shape: export {com['export_b4']}, verify and import "
+          f"{b4}")
+    check(ledger.height == SNAP_BLOCK + 1 and ledger.block_store
+          .bootstrap_height == SNAP_BLOCK + 1, f"bootstrapped height "
+          f"{ledger.height}")
+    bundle = bundle_from_genesis(world.genesis)
+    committer = Committer(TxValidator(VALIDATOR_CHANNEL, ledger, bundle, csp),
+                          ledger)
+    after = blocks[SNAP_BLOCK:]
+    csp.inner.drain()
+    pk.launches_keytab = 0
+    pk.launches_lanekeys = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flags = list(committer.store_stream(after, depth=depth))
+    csp.inner.drain()
+    wall = time.perf_counter() - t0
+    launches = {"p256_verify_keytab": pk.launches_keytab,
+                "p256_verify_lanekeys": pk.launches_lanekeys}
+    check(launches["p256_verify_keytab"] > 0,
+          f"B1 did not launch on the bootstrapped ledger: {launches}")
+
+    orig_provider = LedgerProvider(com["root"])
+    orig = orig_provider.open(VALIDATOR_CHANNEL)
+    check(flags == com["flags"][SNAP_BLOCK:], "the bootstrapped ledger's "
+          "flags differ from the original's")
+    dup = flags[SNAP_DUP_BLOCK - SNAP_BLOCK - 1][SNAP_DUP_TX]
+    dup_orig = com["flags"][SNAP_DUP_BLOCK - 1][SNAP_DUP_TX]
+    check(dup == dup_orig == pb.DUPLICATE_TXID, f"the txid of block "
+          f"{SNAP_DUP_OF} repeated in block {SNAP_DUP_BLOCK}: flags {dup} "
+          f"(bootstrapped), {dup_orig} (original)")
+    check((ledger.height, ledger.durable_block_hash) == (
+        orig.height, orig.durable_block_hash), "heights or hashes differ")
+    check(list(ledger.state_db.export_records())
+          == list(orig.state_db.export_records()), "the state differs")
+    check(list(ledger.block_store.export_txids())
+          == list(orig.block_store.export_txids()), "the txid index differs")
+    before = {t for raw in blocks[:SNAP_BLOCK] for t in block_txids(raw)}
+    for raw in after:
+        for t in block_txids(raw):
+            got = ledger.block_store.get_tx_loc(t)
+            want = None if t in before else orig.block_store.get_tx_loc(t)
+            check(got == want, f"txid {t[:16]}: location {got}, expected "
+                  f"{want}")
+    n_txs = len(cb.Block.decode(blocks[0]).data.data)
+    keys = [HIST_KEY] + [f"k{b}-{i}" for b in range(SNAP_BLOCK, len(blocks))
+                         for i in range(n_txs)]
+    for key in keys:
+        got = ledger.get_history_for_key(VALIDATOR_CC, key)
+        want = [h for h in orig.get_history_for_key(VALIDATOR_CC, key)
+                if h[0] > SNAP_BLOCK]
+        check(got == want, f"history of {key}: {got}, expected {want}")
+    for n in range(SNAP_BLOCK + 1, len(blocks) + 1):
+        check(ledger.get_block_by_number(n).encode()
+              == orig.get_block_by_number(n).encode(), f"block {n} differs")
+    check(ledger.get_block_by_number(SNAP_BLOCK) is None,
+          "the bootstrapped ledger holds a block before its snapshot")
+    orig_provider.close()
+    provider.close()
+    n_tx = len(after) * n_txs
+    print(f"snapshot: {len(names)} files, {nbytes} bytes, export "
+          f"{com['export_s'] * 1e3:.1f} ms (phase_commit, as block "
+          f"{SNAP_BLOCK} committed); verify {verify_s * 1e3:.1f} ms, hash "
+          f"route {route} ({B4_NAME} launches: export {com['export_b4']}, "
+          f"verify and import {b4}); a copy with one byte flipped refused; "
+          f"import (create_from_snapshot, verify included) "
+          f"{import_s * 1e3:.1f} ms")
+    print(f"snapshot: blocks {SNAP_BLOCK + 1}-{len(blocks)} ({n_tx} "
+          f"transactions) streamed into the bootstrapped ledger in "
+          f"{wall * 1e3:.1f} ms = {n_tx / wall:.0f} committed tx/s; launches "
+          f"{launches}; flags, state, txid index, blocks and history equal "
+          f"the original's; the txid of block {SNAP_DUP_OF} repeated in "
+          f"block {SNAP_DUP_BLOCK} DUPLICATE_TXID in both")
+    return {"launches": launches, "wall_s": wall, "b4": b4 + com["export_b4"],
+            "export_s": com["export_s"], "import_s": import_s, "bytes": nbytes}
 
 
 def main() -> int:
@@ -2306,9 +2798,14 @@ def main() -> int:
           f"of {N_TXS} transactions {time.perf_counter() - t1:.1f} s "
           f"({sum(map(len, blocks)) / 1e6:.2f} MB)")
     val = phase_validator(device, world, blocks, expect)
-    com = phase_commit(device, world, blocks, expect, conflicts)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        com = phase_commit(device, world, blocks, expect, conflicts,
+                           root_dir=os.path.join(tmp, "commit"))
+        snp = phase_snapshot(device, world, blocks, com, tmp)
+        sb = phase_smallbank(device, world, os.path.join(tmp, "smallbank"))
     b1 = next(row for row in rows if row["name"] == B1_NAME)
-    for label, run in (("validator", val), ("commit", com)):
+    for label, run in (("validator", val), ("commit", com),
+                       ("smallbank", sb), ("bootstrap", snp)):
         b1[f"launches_{label}"] = run["launches"][B1_NAME]
         busy = b1[f"launches_{label}"] * b1["ms"]
         wall = run["wall_s"] * 1e3
@@ -2317,6 +2814,7 @@ def main() -> int:
               "lanes)")
     phase_churn(rng, device)
     rows.append(phase_sha256(rng, device, errs))
+    rows[-1]["launches_snapshot"] = snp["b4"]
 
     t0 = time.perf_counter()
     world = idemix_world(SEED)
@@ -2331,6 +2829,7 @@ def main() -> int:
     phase_crossover(world, device)
     rows.append(phase_b3_kernel(main_b3, errs))
     phase_b3_sweep(main_b3["tensors"])
+    workpool.shutdown()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,12 @@
-"""The port's ledger (a copy of `fabric_tpu/ledger/`'s commit path): the
-KV store SPI on sqlite, the versioned state DB, MVCC validation, the
-history DB, the private-data and config-history stores, the block store,
-and `KVLedger` with its `LedgerProvider`.  Snapshots, the transaction
-simulator and query executor, rich queries and the sharded store are not
-ported."""
+"""The port's ledger (a copy of `fabric_tpu/ledger/`): the KV store SPI on
+sqlite, the versioned state DB with rich-query indexes (`richquery`), the
+transaction simulator and MVCC validation (its prepare and preload fanned
+out per namespace on `common/workpool`), the history DB, the private-data
+and config-history stores, the block store, snapshots (export, verify,
+import, the request manager) with their bookkeeping, and `KVLedger` with
+its query executor and `LedgerProvider`.  The namespace-sharded store,
+the transient store, chaincode event management, the admin tools and the
+remote snapshot fetch are not ported."""
 
 from fabric_tpu_torch.ledger.kvstore import (
     KVStore,
@@ -15,11 +18,13 @@ from fabric_tpu_torch.ledger.kvstore import (
 from fabric_tpu_torch.ledger.statedb import Height, VersionedDB, VersionedValue
 from fabric_tpu_torch.ledger.blkstorage import BlockStore, BlockStoreError
 from fabric_tpu_torch.ledger.history import HistoryDB
-from fabric_tpu_torch.ledger.txmgmt import MVCCValidator
+from fabric_tpu_torch.ledger.txmgmt import MVCCValidator, TxSimulator
+from fabric_tpu_torch.ledger.snapshot import SnapshotError, SnapshotManager
 from fabric_tpu_torch.ledger.kvledger import (
     CommitGroup,
     KVLedger,
     LedgerProvider,
+    QueryExecutor,
     extract_rwsets,
 )
 
@@ -37,7 +42,11 @@ __all__ = [
     "BlockStoreError",
     "HistoryDB",
     "MVCCValidator",
+    "TxSimulator",
+    "SnapshotError",
+    "SnapshotManager",
     "KVLedger",
     "LedgerProvider",
+    "QueryExecutor",
     "extract_rwsets",
 ]

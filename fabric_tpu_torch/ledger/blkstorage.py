@@ -1,5 +1,5 @@
 """Block storage: preallocated segment files and a KV index (the port's
-copy of `fabric_tpu/ledger/blkstorage.py`, without snapshot bootstrap).
+copy of `fabric_tpu/ledger/blkstorage.py`).
 
 Reference: common/ledger/blkstorage (blockfile_mgr.go's append-only
 files, blockindex.go's indexes by number, hash and txid, restart recovery
@@ -18,10 +18,15 @@ The index, under `blkindex/<name>`:
     cp              ->  >QQQ file, offset after the last indexed record, height
     n + >Q number   ->  >QQ file, offset
     h + header hash ->  >Q number
-    t + txid        ->  >QQ number, position (the first occurrence wins)
+    t + txid        ->  >QQ number, position (the first occurrence wins;
+                        all ones for a txid imported from a snapshot)
+    bsi             ->  >Q last block number of the snapshot, its hash
+    cfg             ->  the channel's config block, for a store created
+                        from a snapshot (it holds no block 0)
 
-A store bootstrapped from a snapshot (`bsi` in its index) is not opened:
-the port has no snapshots yet.
+A store bootstrapped from a snapshot (reference blkstorage
+BootstrapFromSnapshottedTxIDs) starts at the snapshot's height with no
+block files below it.
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ _LEN = struct.Struct(">I")
 DEFAULT_SEGMENT = 16 * 1024 * 1024
 _MIN_SEGMENT = 4096
 _BSI_KEY = b"bsi"
+_CFG_KEY = b"cfg"
+# the txid index's location of a transaction from before the snapshot: it
+# exists (the duplicate guard sees it) but has no block here
+_SNAPSHOT_TX_LOC = struct.pack(">QQ", 0xFFFFFFFFFFFFFFFF, 0xFFFFFFFFFFFFFFFF)
 
 
 def segment_size(override: int | None = None) -> int:
@@ -69,15 +78,21 @@ class BlockStoreError(Exception):
     pass
 
 
+def _bsi_height(raw: bytes | None) -> int:
+    return 0 if raw is None else struct.unpack(">Q", raw[:8])[0] + 1
+
+
+def read_bootstrap_height(index_store: KVStore, name: str) -> int:
+    """A store's snapshot-bootstrap height read from its index alone,
+    without opening the store (no recovery scan, no checkpoint write)."""
+    return _bsi_height(NamedDB(index_store, f"blkindex/{name}").get(_BSI_KEY))
+
+
 class BlockStore:
     def __init__(self, dir: str | None, index_store: KVStore | None = None,
                  name: str = "chain", segment: int | None = None):
         self._dir = dir
         self._index = NamedDB(index_store or MemKVStore(), f"blkindex/{name}")
-        if self._index.get(_BSI_KEY) is not None:
-            raise NotImplementedError(
-                f"block store {name!r} was bootstrapped from a snapshot, "
-                "which the port does not support")
         self._lock = threading.RLock()
         self._mem_blocks: list[bytes] | None = [] if dir is None else None
         self._height = 0
@@ -92,6 +107,9 @@ class BlockStore:
             self._recover()
         else:
             _, _, self._height = self._checkpoint()
+            raw = self._index.get(_BSI_KEY)
+            if self._height and raw is not None:
+                self._last_hash = raw[8:]
 
     # -- files ----------------------------------------------------------------
 
@@ -163,12 +181,20 @@ class BlockStore:
         # the re-indexed records may never have been synced: make them
         # durable before the checkpoint below points past them
         self.sync_files(scanned)
-        self._last_hash = b""
-        if self._height > 0:
-            last = self.get_block_by_number(self._height - 1)
-            if last is not None:
-                self._last_hash = protoutil.block_header_hash(last.header)
+        self._last_hash = self._bootstrap_hash_if_empty()
         self._write_checkpoint(file_idx, offset)
+
+    def _bootstrap_hash_if_empty(self) -> bytes:
+        """The last block's hash where no block of the height is stored:
+        a store bootstrapped from a snapshot keeps it in its bootstrap
+        info."""
+        if self._height == 0:
+            return b""
+        last = self.get_block_by_number(self._height - 1)
+        if last is not None:
+            return protoutil.block_header_hash(last.header)
+        raw = self._index.get(_BSI_KEY)
+        return raw[8:] if raw is not None else b""
 
     def _write_checkpoint(self, file_idx: int, offset: int) -> None:
         self._index.put(b"cp", struct.pack(">QQQ", file_idx, offset,
@@ -296,6 +322,66 @@ class BlockStore:
     def info(self) -> dict:
         return {"height": self._height, "currentBlockHash": self._last_hash}
 
+    # -- snapshot bootstrap ---------------------------------------------------
+
+    @property
+    def bootstrap_height(self) -> int:
+        """The height at the snapshot the store was created from (0: not
+        created from one).  No block below it exists here."""
+        return _bsi_height(self._index.get(_BSI_KEY))
+
+    @property
+    def bootstrap_hash(self) -> bytes:
+        """The snapshot's last block hash (b"" when not bootstrapped): the
+        previous hash the first appended block must carry."""
+        raw = self._index.get(_BSI_KEY)
+        return raw[8:] if raw is not None else b""
+
+    def bootstrap(self, last_block_num: int, last_block_hash: bytes,
+                  config_block: bytes | None = None) -> None:
+        """Start an empty store at a snapshot: it reports height
+        last_block_num + 1 and takes the next block at that number."""
+        with self._lock:
+            if self._height:
+                raise BlockStoreError(
+                    "cannot bootstrap a non-empty block store "
+                    f"(height {self._height})")
+            self._height = last_block_num + 1
+            self._last_hash = last_block_hash
+            puts = {_BSI_KEY: struct.pack(">Q", last_block_num)
+                    + last_block_hash}
+            if config_block is not None:
+                puts[_CFG_KEY] = config_block
+            self._index.write_batch(puts)
+            self._write_checkpoint(0, 0)
+
+    def config_block_bytes(self) -> bytes | None:
+        """The config block stored at a snapshot's import (None where the
+        config is in block 0)."""
+        return self._index.get(_CFG_KEY)
+
+    def import_snapshot_txids(self, txids) -> None:
+        """Enter a snapshot's committed txids into the index at the
+        sentinel location: tx_ids_exist sees them (the duplicate guard
+        spans the snapshot), location queries do not (the reference's
+        'details not available from snapshot')."""
+        chunk: dict[bytes, bytes] = {}
+        for txid in txids:
+            chunk[b"t" + txid.encode()] = _SNAPSHOT_TX_LOC
+            if len(chunk) >= 10000:
+                self._index.write_batch_if_absent(chunk)
+                chunk = {}
+        if chunk:
+            self._index.write_batch_if_absent(chunk)
+
+    def export_txids(self):
+        """Every indexed txid, appended and imported ones (so that a
+        snapshot of a bootstrapped ledger is whole), in index order."""
+        for k, _ in self._index.iterate(b"t", b"u"):
+            yield k[1:].decode()
+
+    # -- blocks ---------------------------------------------------------------
+
     def add_block(self, blk: cb.Block, txids: list | None = None,
                   env_bytes: list | None = None, into=None,
                   sync: bool = True) -> int | None:
@@ -361,11 +447,7 @@ class BlockStore:
                 if os.path.exists(path):
                     self._erase_tail(path, offset, os.path.getsize(path))
             self._height = height
-            self._last_hash = b""
-            if height > 0:
-                last = self.get_block_by_number(height - 1)
-                if last is not None:
-                    self._last_hash = protoutil.block_header_hash(last.header)
+            self._last_hash = self._bootstrap_hash_if_empty()
 
     def sync_files(self, file_idxs) -> None:
         """One fdatasync per touched segment: the records land inside
@@ -401,8 +483,8 @@ class BlockStore:
 
     def get_tx_loc(self, txid: str) -> tuple[int, int] | None:
         raw = self._index.get(b"t" + txid.encode())
-        if raw is None:
-            return None
+        if raw is None or raw == _SNAPSHOT_TX_LOC:
+            return None  # not committed, or committed before the snapshot
         num, pos = struct.unpack(">QQ", raw)
         return num, pos
 
@@ -432,5 +514,5 @@ class BlockStore:
             num += 1
 
 
-__all__ = ["BlockStore", "BlockStoreError", "segment_size",
-           "DEFAULT_SEGMENT"]
+__all__ = ["BlockStore", "BlockStoreError", "read_bootstrap_height",
+           "segment_size", "DEFAULT_SEGMENT"]

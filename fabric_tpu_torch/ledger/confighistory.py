@@ -52,5 +52,19 @@ class ConfigHistoryMgr:
     def retriever(self) -> ConfigHistoryRetriever:
         return ConfigHistoryRetriever(self._db)
 
+    # -- snapshot export and import (reference confighistory db_helper
+    # ExportConfigHistory / ImportConfigHistory) ------------------------------
+
+    def export_entries(self):
+        """Every (key, value) entry in key order: what a snapshot carries,
+        so that a ledger bootstrapped from it still answers
+        most_recent_below for blocks before the snapshot."""
+        return self._db.iterate(b"", None)
+
+    def import_entries(self, entries) -> None:
+        puts = dict(entries)
+        if puts:
+            self._db.write_batch(puts)
+
 
 __all__ = ["ConfigHistoryMgr", "ConfigHistoryRetriever"]

@@ -9,18 +9,22 @@ replay the blocks newer than their savepoints).
 A commit group buffers every KV write of up to `depth` blocks in one
 WriteBatchCollector and lands them as one block-file fdatasync, then one
 sqlite transaction; a failure rolls the group back to the durable height.
-Snapshots, the query executor and the transaction simulator, rich-query
-indexes, tracing, metrics and fault injection are not ported.
+The ledger hands out transaction simulators and query executors, defines
+rich-query indexes, and exports, verifies and imports snapshots
+(`ledger/snapshot.py`).  Tracing, metrics and fault injection are not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import threading
 import time
 
 from fabric_tpu_torch import protoutil
+from fabric_tpu_torch.ledger import snapshot as snap
 from fabric_tpu_torch.ledger.blkstorage import BlockStore, BlockStoreError
 from fabric_tpu_torch.ledger.confighistory import ConfigHistoryMgr
 from fabric_tpu_torch.ledger.history import HistoryDB
@@ -30,12 +34,14 @@ from fabric_tpu_torch.ledger.kvstore import (
     WriteBatchCollector,
     knob,
     open_store_root,
+    wipe_prefix,
 )
 from fabric_tpu_torch.ledger.pvtdatastorage import PvtDataStore
 from fabric_tpu_torch.ledger.statedb import Height, VersionedDB, VersionedValue
 from fabric_tpu_torch.ledger.txmgmt import (
     VALID,
     MVCCValidator,
+    TxSimulator,
     decode_metadata,
     hash_ns,
     key_hash,
@@ -74,6 +80,11 @@ class CommitGroup:
     mvcc: MVCCValidator
     blocks: int = 0
     dirty_files: set = dataclasses.field(default_factory=set)
+    # the buffered blocks' numbers, for the snapshot trigger at the flush
+    snap_notify: list = dataclasses.field(default_factory=list)
+    # a buffered block has a pending snapshot request: the streaming
+    # committer flushes there, so that the export is at that height
+    boundary_hint: bool = False
 
 
 def extract_rwsets(block: cb.Block) -> list[bytes | None]:
@@ -140,7 +151,9 @@ class KVLedger:
         self._history = HistoryDB(kv, f"historydb/{ledger_id}")
         self.pvt_store = PvtDataStore(kv, ledger_id)
         self.config_history = ConfigHistoryMgr(kv, ledger_id)
-        self.snapshots = None  # snapshots are not ported
+        # the SnapshotManager, wired by the provider (it needs the ledger);
+        # each group flush tells it the blocks made durable
+        self.snapshots: snap.SnapshotManager | None = None
         # cumulative seconds per commit stage: mvcc (and its mvcc_preload,
         # mvcc_check, mvcc_prepare), block_append, pvt, state, history,
         # fsync, kv_txn
@@ -247,6 +260,10 @@ class KVLedger:
         Without `group` the block is flushed at once (one fdatasync, one KV
         transaction); with it, the block becomes durable and visible at
         the group's next `commit_group_flush`."""
+        if self.snapshots is not None:
+            # a background export pinned to the last flush's height takes
+            # the commit lock before state moves on
+            self.snapshots.wait_generation_turn()
         with self.commit_lock:
             g = group if group is not None else self.begin_commit_group()
             if self._active_group is not None and g is not self._active_group:
@@ -267,7 +284,10 @@ class KVLedger:
 
     def commit_group_flush(self, group: CommitGroup) -> None:
         """Land an open group: fdatasync its block files first, then
-        commit its one KV transaction, as a single block's commit does."""
+        commit its one KV transaction, as a single block's commit does;
+        then hand the durable blocks to the snapshot trigger."""
+        if self.snapshots is not None:
+            self.snapshots.wait_generation_turn()
         with self.commit_lock:
             self._flush_group(group)
 
@@ -306,7 +326,11 @@ class KVLedger:
                              into=group.collector)
         t5 = t()
         group.blocks += 1
+        group.snap_notify.append(num)
         self._active_group = group
+        if self.snapshots is not None and \
+                self.snapshots.has_pending_request(num):
+            group.boundary_hint = True
         sub = group.mvcc.last_stage_seconds
         self._observe_stages(
             mvcc=t1 - t0, block_append=t2 - t1, pvt=t3 - t2, state=t4 - t3,
@@ -331,10 +355,15 @@ class KVLedger:
             self._state.invalidate_caches()
             self._durable_height = self._blocks.height
             self._durable_hash = self._blocks.last_block_hash
+        notify, group.snap_notify = group.snap_notify, []
         group.blocks = 0
         group.dirty_files.clear()
+        group.boundary_hint = False
         if self._active_group is group:
             self._active_group = None
+        if self.snapshots is not None:
+            for num in notify:
+                self.snapshots.on_block_committed(num)
 
     def _rollback_group(self, group: CommitGroup) -> None:
         """Drop a group's buffered writes and its unindexed appends."""
@@ -342,6 +371,8 @@ class KVLedger:
         self._blocks.truncate_to_checkpoint()
         group.blocks = 0
         group.dirty_files.clear()
+        group.snap_notify.clear()
+        group.boundary_hint = False
         group.state.invalidate_caches()
         if self._active_group is group:
             self._active_group = None
@@ -424,9 +455,61 @@ class KVLedger:
         collection namespace) carries metadata."""
         return self._state.may_have_metadata(ns)
 
+    def define_index(self, ns: str, field) -> None:
+        """Create and backfill a rich-query index on a dotted JSON field
+        of a namespace (or a compound one over a list of fields), the
+        statecouchdb index definition (statecouchdb.go:53) that a
+        chaincode's META-INF/statedb/indexes feed."""
+        self._state.define_index(ns, field)
+
+    def new_tx_simulator(self) -> TxSimulator:
+        return TxSimulator(self._state)
+
+    def new_query_executor(self) -> "QueryExecutor":
+        """A read-only executor (reference ledger.QueryExecutor,
+        core/ledger/ledger_interface.go:214)."""
+        return QueryExecutor(self._state)
+
+    def get_state(self, ns: str, key: str) -> bytes | None:
+        return self.new_query_executor().get_state(ns, key)
+
+    def get_state_multiple(self, ns: str, keys) -> list[bytes | None]:
+        return self.new_query_executor().get_state_multiple(ns, keys)
+
+    def get_state_range(self, ns: str, start: str, end: str):
+        return self.new_query_executor().get_state_range(ns, start, end)
+
+    def get_private_data(self, ns: str, coll: str, key: str) -> bytes | None:
+        return self.new_query_executor().get_private_data(ns, coll, key)
+
+    def get_private_data_hash(self, ns: str, coll: str,
+                              key: str) -> bytes | None:
+        return self.new_query_executor().get_private_data_hash(ns, coll, key)
+
+    def get_state_metadata(self, ns: str, key: str) -> dict[str, bytes]:
+        """A key's decoded metadata entries; `ns` may be a hashed
+        collection namespace."""
+        return self.new_query_executor().get_state_metadata(ns, key)
+
+    def get_history_for_key(self, ns: str, key: str) -> list[tuple[int, int]]:
+        return self._history.get_history_for_key(ns, key)
+
+
+class QueryExecutor:
+    """Read-only state access for system chaincodes and endorser queries
+    (reference QueryExecutor, ledger_interface.go:214).  Records no
+    reads: it is never part of a transaction."""
+
+    def __init__(self, state: VersionedDB):
+        self._state = state
+
     def get_state(self, ns: str, key: str) -> bytes | None:
         vv = self._state.get_state(ns, key)
         return vv.value if vv else None
+
+    def get_state_multiple(self, ns: str, keys) -> list[bytes | None]:
+        return [vv.value if vv else None
+                for vv in self._state.get_state_multiple(ns, keys)]
 
     def get_state_range(self, ns: str, start: str, end: str):
         for key, vv in self._state.get_state_range(ns, start, end):
@@ -442,29 +525,33 @@ class KVLedger:
         return vv.value if vv else None
 
     def get_state_metadata(self, ns: str, key: str) -> dict[str, bytes]:
-        """A key's decoded metadata entries; `ns` may be a hashed
-        collection namespace."""
+        """A key's decoded metadata entries, as the simulator's
+        get_state_metadata; `ns` may be a hashed collection namespace."""
         if not self._state.may_have_metadata(ns):
             return {}
         vv = self._state.get_state(ns, key)
         return decode_metadata(vv.metadata) if vv else {}
 
-    def get_history_for_key(self, ns: str, key: str) -> list[tuple[int, int]]:
-        return self._history.get_history_for_key(ns, key)
-
-
-_IMPORT_IN_PROGRESS = b"in_progress"
+    def done(self) -> None:
+        pass
 
 
 class LedgerProvider:
     """Creates and opens the channels' ledgers under one root (reference
     kv_ledger_provider.go and ledgermgmt): one sqlite file
     `<root>/index.sqlite` for every channel's KV data, block files under
-    `<root>/<channel>/chains`; `root_dir=None` keeps everything in
-    memory."""
+    `<root>/<channel>/chains`, snapshots under `snapshots_dir` (default
+    `<root>/snapshots`); `root_dir=None` keeps everything in memory.
+    `csp` hashes the snapshots' files (`CUDACSP.hash_batch` on the card;
+    the host's hashlib when None)."""
 
-    def __init__(self, root_dir: str | None = None):
+    def __init__(self, root_dir: str | None = None, csp=None,
+                 snapshots_dir: str | None = None):
         self._root = root_dir
+        self._csp = csp
+        if snapshots_dir is None and root_dir is not None:
+            snapshots_dir = os.path.join(root_dir, "snapshots")
+        self._snapshots_dir = snapshots_dir
         if root_dir is not None:
             os.makedirs(root_dir, exist_ok=True)
         self._kv = open_store_root(root_dir)
@@ -481,31 +568,116 @@ class LedgerProvider:
             ledger.commit(genesis_block)
         return ledger
 
+    def _block_dir(self, ledger_id: str) -> str | None:
+        return (None if self._root is None
+                else os.path.join(self._root, ledger_id, "chains"))
+
+    def _half_import(self, ledger_id: str) -> bool:
+        """A crashed join from a snapshot leaves the stores with part of
+        it; such a channel is refused, not served."""
+        return (snap.import_marker(self._kv, ledger_id)
+                == snap.IMPORT_IN_PROGRESS)
+
+    def _add(self, ledger_id: str, store: BlockStore) -> KVLedger:
+        ledger = KVLedger(ledger_id, store, self._kv)
+        ledger.snapshots = snap.SnapshotManager(
+            ledger, self._snapshots_dir, self._kv, csp=self._csp)
+        self._ledgers[ledger_id] = ledger
+        return ledger
+
     def open(self, ledger_id: str) -> KVLedger:
         if ledger_id in self._ledgers:
             return self._ledgers[ledger_id]
-        if NamedDB(self._kv, f"snapimport/{ledger_id}").get(b"state") \
-                == _IMPORT_IN_PROGRESS:
-            raise BlockStoreError(
-                f"channel {ledger_id!r} has a half-finished snapshot import, "
-                "which the port cannot repair")
-        block_dir = (None if self._root is None
-                     else os.path.join(self._root, ledger_id, "chains"))
-        ledger = KVLedger(ledger_id,
-                          BlockStore(block_dir, self._kv, name=ledger_id),
-                          self._kv)
-        self._ledgers[ledger_id] = ledger
-        return ledger
+        if self._half_import(ledger_id):
+            raise snap.SnapshotError(
+                f"channel {ledger_id!r} has a half-finished snapshot "
+                "import (the importing process crashed); run "
+                "discard_failed_import() and re-join from the snapshot")
+        return self._add(ledger_id, BlockStore(self._block_dir(ledger_id),
+                                               self._kv, name=ledger_id))
+
+    def create_from_snapshot(self, snapshot_dir: str) -> KVLedger:
+        """A channel's ledger with no blocks, from a verified snapshot
+        (reference kv_ledger_provider.go CreateFromSnapshot): the block
+        store resumes at the snapshot's height and hash, the state DB
+        holds the snapshot's state with its savepoint there.  Every
+        file's digest is computed again through the provider's CSP first,
+        and a tampered snapshot is refused."""
+        meta = snap.verify_snapshot(snapshot_dir, csp=self._csp)
+        ledger_id = meta["channel_id"]
+        if ledger_id in self._ledgers:
+            raise snap.SnapshotError(f"ledger {ledger_id!r} already exists")
+        if self._half_import(ledger_id):
+            raise snap.SnapshotError(
+                f"channel {ledger_id!r} has a half-finished snapshot "
+                "import; run discard_failed_import() before re-joining")
+        store = BlockStore(self._block_dir(ledger_id), self._kv,
+                           name=ledger_id)
+        if store.height:
+            raise snap.SnapshotError(
+                f"channel {ledger_id!r} already has {store.height} blocks")
+        snap.import_snapshot(meta, snapshot_dir, store, self._kv, ledger_id)
+        return self._add(ledger_id, store)
+
+    # every namespace of a channel on the shared KV store, which a discard
+    # must clear, or a retried import lands on residue (bookkeeping is two
+    # levels deep: bookkeeping/<lid>/<category>)
+    _CHANNEL_NAMESPACES = (
+        "blkindex/{lid}", "statedb/{lid}", "historydb/{lid}",
+        "pvtdata/{lid}", "confighistory/{lid}", "transient/{lid}",
+        "bookkeeping/{lid}/", "snapimport/{lid}",
+    )
+
+    def discard_failed_import(self, ledger_id: str) -> int:
+        """Clear what a crashed snapshot import left, so that the channel
+        can join again.  Refused unless the channel's import marker is
+        IMPORT_IN_PROGRESS: this is no channel delete.  Clears every
+        namespace of the channel on the KV store (the marker last, so
+        that a crash midway leaves the channel refused and the discard
+        can run again) and its block directory.  Returns the KV keys
+        deleted."""
+        if not self._half_import(ledger_id):
+            raise snap.SnapshotError(
+                f"channel {ledger_id!r} has no half-finished snapshot "
+                "import to discard")
+        deleted = 0
+        marker_prefix = f"snapimport/{ledger_id}".encode() + NamedDB._SEP
+        for ns in self._CHANNEL_NAMESPACES:
+            name = ns.format(lid=ledger_id)
+            # bookkeeping/<lid>/ spans its categories: its name is the
+            # prefix itself
+            prefix = (name.encode() if name.endswith("/")
+                      else name.encode() + NamedDB._SEP)
+            if prefix == marker_prefix:
+                continue  # the marker goes last, below
+            deleted += wipe_prefix(self._kv, prefix)
+        if self._root is not None:
+            chain_dir = os.path.join(self._root, ledger_id)
+            if os.path.isdir(chain_dir):
+                shutil.rmtree(chain_dir)
+        NamedDB(self._kv, f"snapimport/{ledger_id}").delete(b"state")
+        return deleted
 
     @property
     def kv(self) -> KVStore:
         return self._kv
 
+    @property
+    def snapshots_root(self) -> str | None:
+        """The completed / in_progress snapshot tree of this provider's
+        ledgers."""
+        return self._snapshots_dir
+
+    def list(self) -> list[str]:
+        return sorted(self._ledgers)
+
     def close(self) -> None:
         for led in self._ledgers.values():
+            if led.snapshots is not None:
+                led.snapshots.close()
             led.block_store.close()
         self._kv.close()
 
 
 __all__ = ["CommitAssist", "CommitGroup", "KVLedger", "LedgerProvider",
-           "extract_rwsets"]
+           "QueryExecutor", "extract_rwsets"]

@@ -18,11 +18,12 @@ import os
 import threading
 from typing import Iterator
 
-# the environment variables the port's ledger reads (as the JAX package's
-# ledger does, with the same defaults and errors)
+# the environment variables the port's ledger and commit path read (as the
+# JAX package does, with the same defaults and errors)
 KNOBS = ("FABRIC_TPU_SQLITE_SYNC", "FABRIC_TPU_WAL_CHECKPOINT",
          "FABRIC_TPU_STORE_SEGMENT", "FABRIC_TPU_RECOVERY_GROUP",
-         "FABRIC_TPU_STORE_SHARDS")
+         "FABRIC_TPU_STORE_SHARDS", "FABRIC_TPU_MVCC_POOL",
+         "FABRIC_TPU_COLLECT_POOL")
 
 
 def knob(name: str) -> str:

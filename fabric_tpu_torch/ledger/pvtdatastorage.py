@@ -1,5 +1,5 @@
 """Private-data store: each block's private write sets (the port's copy of
-`fabric_tpu/ledger/pvtdatastorage.py`, without snapshot bootstrap).
+`fabric_tpu/ledger/pvtdatastorage.py`).
 
 Reference: core/ledger/pvtdatastorage/store.go and kv_encoding.go.  Keeps
 the cleartext TxPvtReadWriteSets committed with each block, the
@@ -11,6 +11,7 @@ collection's data is purged after its block-to-live (BTL).
 from __future__ import annotations
 
 import json
+import struct
 import threading
 
 from fabric_tpu_torch.ledger.kvstore import KVStore, NamedDB
@@ -20,6 +21,7 @@ from fabric_tpu_torch.protos.wire import DecodeError
 _DATA = b"d"  # d<block:16x><tx:8x> -> TxPvtReadWriteSet
 _MISS = b"m"  # m<block:16x><tx:8x> -> json [[ns, coll], ...]
 _EXP = b"x"   # x<expiry:16x><block:16x> -> json [[tx, ns, coll], ...]
+_BOOT = b"b"  # >Q the height of the snapshot the store was created from
 
 
 def _dkey(block: int, tx: int) -> bytes:
@@ -133,6 +135,20 @@ class PvtDataStore:
                     deletes.append(dkey)
         if deletes or rewrites:
             db.write_batch(rewrites, deletes)
+
+    # -- snapshot bootstrap ---------------------------------------------------
+
+    def init_bootstrap_height(self, height: int) -> None:
+        """Record that the store was created from a snapshot at `height`
+        (reference pvtdatastorage InitLastCommittedBlock): below it there
+        is no cleartext, only the hashes in the state DB, until the
+        reconciler fetches it from the collection's peers."""
+        self._db.put(_BOOT, struct.pack(">Q", height))
+
+    @property
+    def bootstrap_height(self) -> int:
+        raw = self._db.get(_BOOT)
+        return 0 if raw is None else struct.unpack(">Q", raw)[0]
 
     # -- queries --------------------------------------------------------------
 

@@ -7,7 +7,8 @@ then CommitLegacy) and core/committer/committer_impl.go.
 `store_stream` overlaps three stages across blocks: the validator's host
 collect, the device verify (the CSP's asynchronous batch), and MVCC with
 persistence on a committer thread that commits up to `depth` blocks as one
-group (one block-file fdatasync and one KV transaction).
+group (one block-file fdatasync and one KV transaction), flushing early at
+a block with a pending snapshot request.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ class Committer:
         Key-level policy reads for block k+1 may precede block k's commit,
         as in `validate_pipeline`; depth=1 keeps strict adjacency.  The
         committer thread buffers up to `depth` blocks into one CommitGroup
-        and flushes when `depth` are buffered or its queue is empty.
+        and flushes when `depth` are buffered, its queue is empty, or a
+        buffered block has a pending snapshot request.
         Listeners, the release of each block's txids from the validator's
         duplicate window, and the yielded flags all wait for the flush:
         nothing is announced before it is durable.  An error on the
@@ -105,7 +107,10 @@ class Committer:
                     with self._lock:
                         self._ledger.commit(blk, assist=assist, group=group)
                         grouped.append((blk, release))
-                        if len(grouped) >= depth or commit_q.empty():
+                        # a buffered block with a pending snapshot request
+                        # flushes here: the export is at that height
+                        if (len(grouped) >= depth or commit_q.empty()
+                                or group.boundary_hint):
                             self._ledger.commit_group_flush(group)
                             flushed = True
                     if flushed:

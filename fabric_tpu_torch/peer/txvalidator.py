@@ -16,10 +16,13 @@ Three phases, as in the reference:
      closures over the mask -> ENDORSEMENT_POLICY_FAILURE; the flags go
      into the block's TRANSACTIONS_FILTER.
 
-Collect is serial.  The JAX package's parallel collect, tracing spans,
-metrics and fault-injection seams are not part of this copy.  There is
-no Python fallback for the C++ walk: where the port's library cannot
-build, `validate` raises.
+With a collect width chosen (`collect_width`, or FABRIC_TPU_COLLECT_POOL),
+the rwset decode of the walk's well-formed lanes fans out over the
+process workpool in deterministic chunks before the per-transaction loop;
+the flags are the same at every width.  Tracing spans, metrics and
+fault-injection seams are not part of this copy.  There is no Python
+fallback for the C++ walk: where the port's library cannot build,
+`validate` raises.
 
 The ledger is duck-typed: `tx_id_exists(txid)`, optionally
 `tx_ids_exist(txids) -> set`, `get_state_metadata(ns, key) -> dict` and
@@ -35,8 +38,10 @@ import time
 import numpy as np
 
 from fabric_tpu_torch import native, protoutil
+from fabric_tpu_torch.common import workpool
 from fabric_tpu_torch.csp.api import VerifyBatchItem
 from fabric_tpu_torch.ledger.kvledger import CommitAssist
+from fabric_tpu_torch.ledger.kvstore import knob
 from fabric_tpu_torch.peer.validation_plugins import (
     IllegalWritesetError,
     PluginRegistry,
@@ -47,6 +52,9 @@ from fabric_tpu_torch.peer.validation_plugins import (
 from fabric_tpu_torch.protos import common as cb
 from fabric_tpu_torch.protos import peer as V
 from fabric_tpu_torch.protoutil import SignedData
+
+# a block of fewer transactions collects serially whatever the width
+_PARALLEL_MIN_TXS = 32
 
 
 class _ItemSink:
@@ -122,10 +130,18 @@ class TxValidator:
     def __init__(self, channel_id: str, ledger, bundle, csp,
                  definition_provider=None,
                  plugin_registry: PluginRegistry | None = None,
-                 faithful: bool = False):
+                 faithful: bool = False, collect_pool=None,
+                 collect_width: int | None = None):
         """`faithful=True` keeps the reference's cost model: no item
-        dedup, no endorsement plans, no per-block creator memo.  The flags
-        are the same."""
+        dedup, no endorsement plans, no per-block creator memo, and a
+        serial collect.  The flags are the same.
+
+        `collect_width` > 1 fans the rwset decode of the collect out over
+        `collect_pool` (default: the process workpool) in that many
+        chunks; None reads FABRIC_TPU_COLLECT_POOL, 0 keeps it serial.
+        Unlike MVCC's, the collect's width has no auto default: what is
+        left per transaction after the C++ walk holds the GIL, and the
+        JAX package measured its default fan-out a loss there."""
         self.channel_id = channel_id
         self._ledger = ledger
         self._bundle = bundle
@@ -138,6 +154,18 @@ class TxValidator:
         self._registry = plugin_registry or PluginRegistry(plans=not faithful)
         self._policy_provider = PolicyProvider(
             bundle.policy_manager, bundle.msp_manager, definition_provider)
+        if faithful:
+            self._collect_width = 0
+        elif collect_width is not None:
+            self._collect_width = max(0, collect_width)
+        elif knob("FABRIC_TPU_COLLECT_POOL").strip():
+            self._collect_width = workpool.stage_width(
+                "FABRIC_TPU_COLLECT_POOL")
+        else:
+            self._collect_width = 0
+        self._collect_pool = collect_pool
+        # blocks whose collect fanned out
+        self.parallel_collect_blocks = 0
         # cumulative seconds per stage: host collect, waiting for the
         # device verify, host policy finish
         self.validate_stage_seconds: dict[str, float] = {}
@@ -348,6 +376,15 @@ class TxValidator:
         while q:
             yield finish(q.popleft())
 
+    def _collect_fanout(self, n: int) -> int:
+        """The chunk count of a block's parallel collect; 0 keeps it
+        serial, as does a small block (the chunks would cost more than
+        they save)."""
+        width = self._collect_width
+        if width <= 1 or n < _PARALLEL_MIN_TXS:
+            return 0
+        return min(width, n)
+
     def _start_block(self, block, seen_txids: set):
         """Phases 1 and 2: collect every transaction, dispatch the verify."""
         t0 = time.perf_counter()
@@ -418,6 +455,52 @@ class TxValidator:
         es_off = co["e_sig_off"].tolist()
         es_len = co["e_sig_len"].tolist()
 
+        # the rwset decode of the endorser lanes the walk validated, fanned
+        # out before the loop below, which then runs as it would serially;
+        # a decode that fails carries its flag in place of the footprint,
+        # applied where the inline decode would have failed
+        prefetched: list | None = None
+        width = self._collect_fanout(len(data))
+        if width:
+            def _prefetch(off, lanes):
+                out = []
+                for i in lanes:
+                    try:
+                        fp = parse_footprint(
+                            buf[rwset_off_l[i]:rwset_off_l[i]
+                                + rwset_len_l[i]])
+                    except IllegalWritesetError:
+                        fp = V.ILLEGAL_WRITESET
+                    except Exception:
+                        fp = V.BAD_RWSET
+                    out.append(fp)
+                return out
+
+            # endorser lanes (not CONFIG) that the duplicate check keeps: a
+            # duplicate's rwset is never decoded.  A lane left out here
+            # that turns out clean decodes inline; the flags never depend
+            # on what was prefetched.
+            lanes = []
+            for i in range(len(data)):
+                if status_l[i] < 0 or status_l[i] == 1:
+                    continue
+                if txid_len_l[i]:
+                    try:
+                        t = buf[txid_off_l[i]:txid_off_l[i]
+                                + txid_len_l[i]].decode()
+                    except UnicodeDecodeError:
+                        continue  # the loop collects this lane in Python
+                    if t in seen_txids or txid_known(t):
+                        continue
+                lanes.append(i)
+            got = workpool.run_chunked(
+                self._collect_pool or workpool.default_pool(), _prefetch,
+                lanes, width)
+            prefetched = [None] * len(data)
+            for i, fp in zip(lanes, got):
+                prefetched[i] = fp
+            self.parallel_collect_blocks += 1
+
         for i in range(len(data)):
             st = status_l[i]
             if st < 0:  # the Python collect decides every such lane
@@ -460,8 +543,12 @@ class TxValidator:
                     b"", ident_intern.setdefault(ident, ident),
                     buf[es_off[k]:es_off[k] + es_len[k]],
                     digest=edigs[32 * k:32 * k + 32]))
+            fp = prefetched[i] if prefetched is not None else None
+            if isinstance(fp, int):
+                flags[i] = fp  # the prefetched decode failed
+                continue
             flags[i] = self._prepare_namespaces(
-                w, signed, cc_id, buf[ro:ro + rl], sink)
+                w, signed, cc_id, buf[ro:ro + rl], sink, footprint=fp)
 
     def _prepare_namespaces(self, w, signed, cc_id, rwset_bytes,
                             sink: _ItemSink, footprint=None) -> int:

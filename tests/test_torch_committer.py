@@ -243,7 +243,7 @@ def test_the_sharded_store_and_a_missing_sqlite3_raise(tmp_path, monkeypatch):
         LedgerProvider(str(tmp_path / "nosqlite"))
     assert not os.path.exists(tmp_path / "nosqlite" / "index.sqlite")
     with pytest.raises(KeyError):
-        kvstore.knob("FABRIC_TPU_MVCC_POOL")
+        kvstore.knob("FABRIC_TPU_NOT_A_SETTING")
 
 
 def test_txids_repeated_depth_blocks_later_are_caught_while_commits_land(

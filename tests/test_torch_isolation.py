@@ -108,6 +108,37 @@ with tempfile.TemporaryDirectory() as root:
         assert value == (b"v%d" % i if f == 0 else None), (i, f, value)
     assert again.get_history_for_key(chip_smoke.VALIDATOR_CC, "k0-0") == \
         [(1, 0)]
+# the read side, parallel MVCC, an index and a snapshot round trip
+import os
+from fabric_tpu_torch.common import workpool
+with tempfile.TemporaryDirectory() as root:
+    seed, sb, pays, sb_flags = chip_smoke.smallbank_blocks(
+        world, world.genesis_hash, n_accounts=40, n_txs=36, n_blocks=2)
+    provider = LedgerProvider(root, csp=CUDACSP(device="cpu"))
+    ledger = provider.create(cb.Block.decode(world.genesis))
+    ledger.define_index("checking", "color")
+    committer = Committer(TxValidator(
+        chip_smoke.VALIDATOR_CHANNEL, ledger, bundle,
+        CUDACSP(device="cpu", min_device_batch=1 << 30)), ledger)
+    assert committer.store_block(seed) == [0]
+    assert list(committer.store_stream(sb, depth=2)) == sb_flags
+    snap_dir = ledger.snapshots.submit_request(0)["snapshot_dir"]
+    other = LedgerProvider(os.path.join(root, "joined"),
+                           csp=CUDACSP(device="cpu"))
+    joined = other.create_from_snapshot(snap_dir)
+    assert joined.height == ledger.height == 4
+    assert joined.get_state_multiple("checking", ["acct0000", "acct0039"]) \
+        == ledger.get_state_multiple("checking", ["acct0000", "acct0039"])
+    assert joined.new_query_executor().get_state("savings", "acct0001") \
+        == b"1000"
+    sim = joined.new_tx_simulator()
+    assert sim.get_query_result("checking", '{"selector": {}}') == []
+    assert [k for k, _ in sim.get_state_range("checking", "", "acct0002")] \
+        == ["acct0000", "acct0001"]
+    assert sim.get_tx_simulation_results()
+    other.close()
+    provider.close()
+workpool.shutdown()
 assert not any(k in ("jax", "yaml", "cryptography")
                or k.startswith(("jax.", "fabric_tpu.", "google.protobuf"))
                for k, v in sys.modules.items() if v is not None)
@@ -144,8 +175,9 @@ def test_no_file_of_the_port_imports_forbidden_modules():
     # the commit path's modules are among the files scanned
     assert {f"ledger/{m}.py" for m in (
         "kvstore", "statedb", "txmgmt", "history", "pvtdatastorage",
-        "confighistory", "blkstorage", "kvledger")} | {
-        "peer/committer.py", "protoutil.py"} <= scanned
+        "confighistory", "blkstorage", "kvledger", "richquery",
+        "bookkeeping", "snapshot")} | {
+        "peer/committer.py", "protoutil.py", "common/workpool.py"} <= scanned
     bad = []
     for path in _port_files():
         for name in _imported(path):

@@ -212,14 +212,31 @@ def test_versioned_db_writes_the_reference_pairs(seed):
 
 
 def test_versioned_db_refuses_a_store_with_rich_query_indexes():
+    """A store whose indexes the JAX package defined: the port no longer
+    refuses it, it maintains the index entries in apply_updates as the
+    JAX package does (the pairs of both stores stay equal)."""
     store = jax_kv.MemKVStore()
     jdb = jax_sdb.VersionedDB(store, "statedb/ch")
     jdb.define_index("cc", "color")
+    jdb.define_index("cc", ["color", "size"])
     port_store = port_kv.MemKVStore()
     port_store.write_batch(dict(store.iterate()))
     pdb = port_sdb.VersionedDB(port_store, "statedb/ch")
-    with pytest.raises(NotImplementedError, match="rich-query"):
-        pdb.apply_updates({"cc": {}}, port_sdb.Height(1, 0))
+    batches = [
+        {"cc": {"a": b'{"color": "red", "size": 1}', "b": b'{"color": 2}',
+                "c": b"not json", "d": b'{"size": 3}'}},
+        {"cc": {"a": b'{"color": "blue", "size": 1}', "b": None,
+                "d": b'{"color": null, "size": 3}'}, "other": {"x": b"{}"}},
+    ]
+    for n, raw in enumerate(batches, 1):
+        for db, mod in ((jdb, jax_sdb), (pdb, port_sdb)):
+            db.apply_updates({ns: {k: None if v is None else _vv(
+                mod, v, (n, 0)) for k, v in kvs.items()}
+                for ns, kvs in raw.items()}, mod.Height(n, 0))
+        assert list(port_store.iterate()) == list(store.iterate())
+    for spec in ("color", "color\x1fsize"):
+        assert list(pdb.index_scan("cc", spec, None, None)) == list(
+            jdb.index_scan("cc", spec, None, None))
 
 
 def test_metadata_helpers_encode_as_the_reference():
