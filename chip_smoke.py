@@ -120,10 +120,40 @@
    times the kernel at 1024 lanes, prints its own count of field
    multiplications beside the bound's, and sweeps it over 32 to 4096
    lanes.
-9. Prints one JSON line of kernels (B1-B4; B1's with its launches on
+9. The degraded mode (`phase_degraded`): a 4000-lane block through
+   `CUDACSP` under faultline plans.  On a card the host answers nothing
+   in the device's place, so each fault must reach the caller, counted:
+   a collect fault raises out of both collectors of its flush (the
+   breaker counts 1); 3 dispatch faults, each raised, open the breaker,
+   and a held call is refused with no flush and no launch of B1; the
+   next held call probes through B1 and closes it, its mask hostref's; a
+   hash fault raises, and B4's digests after equal hashlib's; the B3
+   path raising (its entry swapped for one that raises) raises out of
+   IdemixCSP, counted; a collect stalled by a 1 s `delay` is sat out
+   (no race on a card); host_fraction is refused on a card.  Prints
+   libcrypto's and hostref's lanes/s on this host, each step's times,
+   the breaker's trace and its /metrics lines.  Every other phase prints
+   the degraded-mode counters of the providers it used and fails the run
+   if any is not 0.
+10. Prints one JSON line of kernels (B1-B4; B1's with its launches on
    the validator, commit, SmallBank and bootstrapped-ledger paths, B4's
    with its launches at the snapshot's shape), then `{"ok": true,
    "device": {...}}` as its last line.
+
+    python3 chip_smoke.py --commit-ab PARENT_TREE [TURNS]
+
+runs `phase_commit` (the headline: committed tx/s) of another tree of
+this repository, unpacked by `git archive`, and of this one in turns
+(parent, this, this, parent, ...), each in a process of its own, and
+prints each turn's committed tx/s.
+
+    python3 chip_smoke.py --multi-card
+
+needs two cards or more: it puts 8 flushes of a 4000-lane block through
+`CUDACSP(device=[every card])`, enqueued together as pipelined callers
+enqueue, and checks that each flush took the next card, that B1 ran once
+a flush and that every mask is the planted one; then it times the same 8
+flushes on one card and on every card, in turns, and prints lanes/s.
 
 Exits non-zero, before printing any result, on a host without CUDA; any
 failed phase raises.  Inputs are made from a seed (numpy for P-256 and
@@ -157,6 +187,7 @@ from fabric_tpu_torch.common import configtx_builder as ctx
 from fabric_tpu_torch.common import workpool
 from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
 from fabric_tpu_torch.common.crypto import CA
+from fabric_tpu_torch.common.metrics import CSPMetrics, PrometheusProvider
 from fabric_tpu_torch.csp import hostref
 from fabric_tpu_torch.csp.api import (
     P256_B,
@@ -176,10 +207,12 @@ from fabric_tpu_torch.csp.cuda import bn254_batch as bb
 from fabric_tpu_torch.csp.cuda import bn254_kernel as bk
 from fabric_tpu_torch.csp.cuda import build
 from fabric_tpu_torch.csp.cuda import p256_kernel as pk
+from fabric_tpu_torch.csp.cuda import provider as cuda_provider
 from fabric_tpu_torch.csp.cuda import sha256 as sha
 from fabric_tpu_torch.csp.cuda.limbs import int_to_words, words_to_int
 from fabric_tpu_torch.csp.cuda.provider import CUDACSP, hash_on_card
 from fabric_tpu_torch.csp.idemix_provider import IdemixCSP, IdemixVerifyItem
+from fabric_tpu_torch.devtools import faultline
 from fabric_tpu_torch.idemix import bn254 as bn
 from fabric_tpu_torch.idemix import schnorr
 from fabric_tpu_torch.idemix import signature as isig
@@ -314,6 +347,48 @@ BN_WORD_PRODUCTS = 136
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+# Every provider a phase makes, for the host check after it.
+PROVIDERS: list = []
+DEGRADED_KEYS = ("host_lanes", "host_hashes", "races", "device_failures",
+                 "trips")
+
+
+def new_cuda_csp(**kw) -> CUDACSP:
+    """A CUDACSP with the arguments users pass (race armed, host_fraction
+    0 unless given), registered for `host_check`."""
+    csp = CUDACSP(**kw)
+    PROVIDERS.append(csp)
+    return csp
+
+
+def new_idemix_csp(**kw) -> IdemixCSP:
+    csp = IdemixCSP(**kw)
+    PROVIDERS.append(csp)
+    return csp
+
+
+def host_check(label: str, degraded: bool = False) -> dict:
+    """Sums the degraded-mode counters of every provider made since the
+    last check and prints them.  Outside phase_degraded (`degraded`), a
+    lane or digest the host answered in the device's place, a race, a
+    device failure or a breaker trip fails the run."""
+    total = dict.fromkeys(DEGRADED_KEYS, 0)
+    for csp in PROVIDERS:
+        for k, v in csp.degraded_stats().items():
+            if k in total:
+                total[k] += v
+    n = len(PROVIDERS)
+    PROVIDERS.clear()
+    print(f"{label}: host_lanes {total['host_lanes']}, host_hashes "
+          f"{total['host_hashes']}, races {total['races']}, device_failures "
+          f"{total['device_failures']}, trips {total['trips']} ({n} "
+          f"providers)")
+    if not degraded:
+        check(not any(total.values()), f"{label}: the host answered in the "
+              f"device's place: {total}")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -731,7 +806,7 @@ def phase_main(rng, device, n_txs: int = N_TXS, n_blocks: int = N_BLOCKS,
     batches = [bad_block if b == n_blocks // 2 else block
                for b in range(n_blocks)]
 
-    csp = CUDACSP(device=device, min_device_batch=1)
+    csp = new_cuda_csp(device=device, min_device_batch=1)
     pk.launches_keytab = 0
     pk.launches_lanekeys = 0
     torch.cuda.synchronize()
@@ -1203,7 +1278,8 @@ def phase_idemix_main(world: IdemixWorld, device,
     bad = {5: "challenge", n - 3: "off_curve"}
     items = [IdemixVerifyItem(tamper(s, bad[j]) if j in bad else s, m)
              for j, (s, m) in enumerate(lanes)]
-    csp = IdemixCSP(rng=random.Random(SEED), device=device, use_device=True)
+    csp = new_idemix_csp(rng=random.Random(SEED), device=device,
+                         use_device=True)
     bk.launches_bn254 = 0
     bk.kernel_launches_bn254 = 0
     torch.cuda.synchronize()
@@ -1329,8 +1405,8 @@ def phase_crossover(world: IdemixWorld, device,
                  idemix_lanes(world, size, b"crossover-%d" % size)]
         times = {}
         for use_device in (True, False):
-            csp = IdemixCSP(rng=random.Random(SEED), device=device,
-                            use_device=use_device)
+            csp = new_idemix_csp(rng=random.Random(SEED), device=device,
+                                 use_device=use_device)
             t0 = time.perf_counter()
             mask = csp.verify_batch(items, ipk)
             times[use_device] = time.perf_counter() - t0
@@ -1609,7 +1685,7 @@ def phase_sha256(rng, device, errs: dict, n_wide: int = HASH_WIDE_MSGS,
     hash_batch call and hashlib timed on the wide batch, the kernel and
     hashlib on the snapshot's files; the routing rule against both
     routes.  Returns the kernels-line row."""
-    csp = CUDACSP(device=device)
+    csp = new_cuda_csp(device=device)
     phase_hash_callers(rng, csp)
     edge = random_messages(rng, np.array(edge_lengths))
     wide = random_messages(rng, rng.integers(
@@ -1774,7 +1850,7 @@ def phase_churn(rng, device, n_keys: int = CHURN_KEYS,
     for name, warm, seq in (("held", [a], [a] * flushes),
                             ("revisit", [a, b], [a, b] * (flushes // 2)),
                             ("fresh", [a], fresh)):
-        csp = CUDACSP(device=device, min_device_batch=1)
+        csp = new_cuda_csp(device=device, min_device_batch=1)
         for items in warm:
             check(all(csp.verify_batch(items)),
                   f"key churn ({name}): untimed flush")
@@ -2091,7 +2167,7 @@ def phase_validator(device, world: ValidatorWorld, blocks: list, expect: dict,
     bundle = bundle_from_genesis(world.genesis)
     native.load()
     print(f"validator: collect.cc SHA-256 = {native.sha256_impl()}")
-    csp = RecordingCSP(CUDACSP(device=device))
+    csp = RecordingCSP(new_cuda_csp(device=device))
     validator = TxValidator(VALIDATOR_CHANNEL, EmptyLedger(), bundle, csp)
     # warm-up on a block not timed: key table, quarter tables, MSP caches
     validator.validate(validator_blocks(world, 1, 64, world.genesis_hash,
@@ -2176,7 +2252,7 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
     n_txs = len(cb.Block.decode(blocks[0]).data.data)
     bundle = bundle_from_genesis(world.genesis)
     genesis = cb.Block.decode(world.genesis)
-    csp = RecordingCSP(CUDACSP(device=device))
+    csp = RecordingCSP(new_cuda_csp(device=device))
     place = (contextlib.nullcontext(root_dir) if root_dir is not None
              else tempfile.TemporaryDirectory(prefix="chip_smoke_ledger_"))
     with place as tmp:
@@ -2493,7 +2569,7 @@ def phase_smallbank(device, world: ValidatorWorld, tmp: str,
           f"({sum(map(len, blocks)) / 1e6:.2f} MB)")
     bundle = bundle_from_genesis(world.genesis)
     genesis = cb.Block.decode(world.genesis)
-    csp = RecordingCSP(CUDACSP(device=device))
+    csp = RecordingCSP(new_cuda_csp(device=device))
     want_bal = smallbank_replay(payments, build_flags, n_accounts)
 
     def run(name: str, serial: bool) -> dict:
@@ -2655,7 +2731,7 @@ def phase_snapshot(device, world: ValidatorWorld, blocks: list, com: dict,
         with open(os.path.join(snap_dir, n), "rb") as f:
             blobs.append(f.read())
     route = "card" if hash_on_card(blobs) else "hashlib"
-    csp = RecordingCSP(CUDACSP(device=device))
+    csp = RecordingCSP(new_cuda_csp(device=device))
     sha.launches_sha256 = 0
     t0 = time.perf_counter()
     meta = snap.verify_snapshot(snap_dir, csp=csp)
@@ -2759,7 +2835,406 @@ def phase_snapshot(device, world: ValidatorWorld, blocks: list, com: dict,
             "export_s": com["export_s"], "import_s": import_s, "bytes": nbytes}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# The degraded mode (CUDACSP's breaker and probe, each fault raised on
+# the card; the idemix path's), driven by faultline plans, and the host
+# verifier.
+# ---------------------------------------------------------------------------
+
+DEGRADED_THRESHOLD = 3
+DEGRADED_PROBE_EVERY = 2
+DEGRADED_DELAY_S = 1.0  # the stalled collect a card sits out
+HOST_RATE_SIZES = (1000, 8000)  # libcrypto's batches; hostref at the first
+IDEMIX_DEGRADED_SIGS = 64
+
+
+def hostref_mask(items) -> list[bool]:
+    """hostref's verdicts, in 8 worker processes."""
+    workers = min(8, os.cpu_count() or 1)
+    step = -(-len(items) // workers)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return [ok for part in ex.map(
+            hostref.verify_batch,
+            [items[i:i + step] for i in range(0, len(items), step)])
+            for ok in part]
+
+
+def breaker_state(csp: CUDACSP) -> str:
+    b = csp.breaker
+    return (f"open {b.open}, trips {b.trips}, consecutive {b._consecutive}, "
+            f"probes {b.probes}")
+
+
+def host_rates(items, sizes=HOST_RATE_SIZES, reps: int = 3) -> dict:
+    """Lanes/s of the host verifiers on this host: libcrypto's batch
+    (`native.ecdsa_verify_host`, one thread) at each of `sizes`, median
+    of `reps`, and hostref at the smallest, once."""
+    out = {}
+    for n in sizes:
+        lanes = items[:n]
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            mask = native.ecdsa_verify_host(lanes)
+            times.append(time.perf_counter() - t0)
+        check(mask is not None, "no libcrypto loads on this host")
+        out[f"libcrypto_{n}"] = n / statistics.median(times)
+        out[f"mask_{n}"] = mask
+    n = sizes[0]
+    t0 = time.perf_counter()
+    ref = hostref.verify_batch(items[:n])
+    out[f"hostref_{n}"] = n / (time.perf_counter() - t0)
+    check(ref == out[f"mask_{n}"], "hostref and libcrypto disagree")
+    return out
+
+
+def phase_degraded(rng, device, world: IdemixWorld, n_txs: int = N_TXS,
+                   rate_sizes=HOST_RATE_SIZES, frac_lanes: int = 8000,
+                   n_idemix: int = IDEMIX_DEGRADED_SIGS,
+                   n_msgs: int = HASH_WIDE_MSGS) -> dict:
+    """CUDACSP's and IdemixCSP's degraded mode on the card, driven by
+    faultline plans.  On a card the host answers nothing in the device's
+    place, so every fault must reach the caller, counted:
+    1. a collect fault raises out of both collectors of a two-segment
+       flush; the breaker counts 1, and the next flush (hostref's mask)
+       resets the count;
+    2. `threshold` dispatch faults, each raised, open the breaker; a held
+       call is refused (BreakerOpenError) with no flush queued and no
+       launch of B1, and the health check fails;
+    3. the next held call probes through B1, which closes the breaker,
+       and the call itself runs on the card (B1's launches rise);
+    4. a hash fault raises out of hash_batch, counted; B4's digests then
+       equal hashlib's;
+    5. the B3 path raising (its entry swapped for one that raises): the
+       idemix verify raises, counted, and the card's masks after are
+       right;
+    6. a `delay` at tpu.collect: no race on a card; the collector sits
+       it out and returns the card's mask;
+    7. host_fraction is refused on a card.
+    Also the host verifiers' lanes/s on this host at `rate_sizes` over
+    a `frac_lanes`-lane flush (the rate the CPU provider's deadlines
+    assume).  Returns the numbers printed."""
+    client, peers = block_world(rng)
+    block = block_items(rng, client, peers[:ENDORSERS], n_txs)
+    items, bad = plant_bad(block)
+    want = [i not in bad for i in range(len(items))]
+    t0 = time.perf_counter()
+    ref = hostref_mask(items)
+    check(ref == want, "hostref's mask of the degraded block is not the "
+          "planted one")
+    print(f"degraded: block of {len(items)} lanes, planted {bad}; hostref's "
+          f"mask in {time.perf_counter() - t0:.1f} s (8 processes)")
+    copies = -(-frac_lanes // len(items))
+    eight = ((items + block) * copies)[:frac_lanes]
+    want8 = ((want + [True] * len(block)) * copies)[:frac_lanes]
+    rates = host_rates(eight, rate_sizes)
+    top = rate_sizes[-1]
+    check(rates[f"mask_{top}"] == want8[:top],
+          "libcrypto's mask is not hostref's")
+    print(f"degraded: host verifier on this host ({native.ecdsa_impl()}): "
+          + ", ".join(f"libcrypto {rates[f'libcrypto_{n}']:.0f} lanes/s at "
+                      f"{n}" for n in rate_sizes)
+          + f"; hostref {rates[f'hostref_{rate_sizes[0]}']:.0f} "
+          f"lanes/s at {rate_sizes[0]} (one thread each; the "
+          f"provider's HOST_RATE_HINT {cuda_provider.HOST_RATE_HINT:.0f})")
+    out = {k: v for k, v in rates.items() if not k.startswith("mask")}
+
+    prom = PrometheusProvider()
+    csp = new_cuda_csp(device=device, breaker_threshold=DEGRADED_THRESHOLD,
+                       breaker_probe_every=DEGRADED_PROBE_EVERY,
+                       metrics=CSPMetrics(prom),
+                       coalesce_lanes=2 * len(items))
+    check(csp.verify_batch(items) == want, "the healthy flush's mask")
+
+    def raising(point: str, **rule) -> dict:
+        return {"faults": [dict(point=point, action="raise",
+                                error="DeviceUnavailable", **rule)]}
+
+    def raises(fn, exc_type) -> float:
+        """Milliseconds until `fn()` raised `exc_type`; fails the run if
+        it returned."""
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except exc_type:
+            return (time.perf_counter() - t0) * 1e3
+        raise RuntimeError(f"{fn} did not raise {exc_type.__name__}")
+
+    # 1. a collect fault reaches both collectors of the flush
+    half = len(items) // 2
+    with faultline.use_plan(raising("tpu.collect", nth=1)):
+        cols = [csp.verify_batch_async(items[:half]),
+                csp.verify_batch_async(items[half:])]
+        ms = [raises(col, faultline.DeviceUnavailable) for col in cols]
+    st = csp.degraded_stats()
+    check(st["device_failures"] == 1 and st["host_lanes"] == 0
+          and not csp.breaker_open and csp.breaker._consecutive == 1,
+          f"collect fault: {st}, {breaker_state(csp)}")
+    out["collect_fault_ms"] = ms[0]
+    print(f"degraded 1, collect fault: both collectors of a {len(items)}-"
+          f"lane flush raised DeviceUnavailable ({ms[0]:.1f} ms, then "
+          f"{ms[1]:.1f} ms); breaker {breaker_state(csp)}; host_lanes 0")
+    check(csp.verify_batch(items) == want and csp.breaker._consecutive == 0,
+          "a healthy flush after the fault did not reset the count")
+
+    # 2. threshold dispatch faults open the breaker
+    with faultline.use_plan(raising("tpu.dispatch",
+                                    count=DEGRADED_THRESHOLD)):
+        for _ in range(DEGRADED_THRESHOLD):
+            raises(lambda: csp.verify_batch(items),
+                   faultline.DeviceUnavailable)
+    t_open = time.perf_counter()
+    check(csp.breaker_open and csp.breaker.trips == 1,
+          f"the breaker did not open: {breaker_state(csp)}")
+    b1 = pk.launches_keytab
+    gen = csp._gen
+    held_ms = raises(lambda: csp.verify_batch(items),
+                     cuda_provider.BreakerOpenError)
+    health = csp.health_checker()
+    check(csp.breaker_open and csp._gen == gen and pk.launches_keytab == b1,
+          f"held call: gen {csp._gen - gen}, B1 {pk.launches_keytab - b1}")
+    raises(health, RuntimeError)
+    print(f"degraded 2, {DEGRADED_THRESHOLD} dispatch faults, each raised: "
+          f"breaker {breaker_state(csp)}; a held call refused "
+          f"(BreakerOpenError) in {held_ms:.3f} ms, no flush queued, B1 "
+          "launches +0; the health check fails")
+
+    # 3. the probe closes the breaker
+    t0 = time.perf_counter()
+    mask = csp.verify_batch(items)
+    t_close = time.perf_counter()
+    probe_b1 = pk.launches_keytab - b1
+    check(mask == want and not csp.breaker_open and health()
+          and csp.breaker.probes == {"ok": 1, "fail": 0} and probe_b1 >= 2,
+          f"probe: {breaker_state(csp)}, B1 +{probe_b1}")
+    out["open_to_close_calls"] = 2
+    out["open_to_close_ms"] = (t_close - t_open) * 1e3
+    out["probe_call_ms"] = (t_close - t0) * 1e3
+    print(f"degraded 3, recovery: the probe ran through B1 and closed the "
+          f"breaker; open -> closed in 2 calls, "
+          f"{out['open_to_close_ms']:.1f} ms (the probing call "
+          f"{out['probe_call_ms']:.1f} ms, probe and the call's own flush "
+          f"on the card, mask hostref's); B1 launches +{probe_b1}")
+
+    # 4. a hash fault
+    msgs = random_messages(rng, rng.integers(*HASH_WIDE_BYTES, n_msgs))
+    check(hash_on_card(msgs), "the degraded hash batch is not card-wide")
+    with faultline.use_plan(raising("tpu.hash", nth=1)):
+        raises(lambda: csp.hash_batch(msgs), faultline.DeviceUnavailable)
+    check(csp.degraded_stats()["host_hashes"] == 0
+          and csp.breaker._consecutive == 1,
+          f"hash fault: {csp.degraded_stats()}")
+    sha.launches_sha256 = 0
+    check(csp.hash_batch(msgs) == hashlib_digests(msgs)
+          and sha.launches_sha256 >= 1 and csp.breaker._consecutive == 0,
+          "B4 after the hash fault")
+    print(f"degraded 4, hash fault: hash_batch of {len(msgs)} messages "
+          f"raised, counted (consecutive 1); unarmed, {B4_NAME} "
+          f"({sha.launches_sha256} launches) gave hashlib's digests")
+    deg1 = csp.degraded_stats()
+    exposed = [line for line in prom.registry.expose().splitlines()
+               if line.startswith("csp_tpu_")]
+    print(f"degraded: /metrics {'; '.join(exposed)}")
+    csp.close()
+
+    # 5. the B3 path raising
+    ipk = world.ipk
+    lanes = idemix_lanes(world, n_idemix, b"degraded")
+    ibad = {3: "challenge"}
+    iitems = [IdemixVerifyItem(tamper(s, ibad[j]) if j in ibad else s, m)
+              for j, (s, m) in enumerate(lanes)]
+    icsp = new_idemix_csp(rng=random.Random(SEED), device=device,
+                          use_device=True)
+    entry = bb.schnorr_commitments_batch
+
+    class Lost(RuntimeError):
+        pass
+
+    def lost(*args, **kwargs):
+        raise Lost("injected: the B3 path lost its device")
+
+    bb.schnorr_commitments_batch = lost
+    try:
+        raises(lambda: icsp.verify_batch(iitems, ipk), Lost)
+    finally:
+        bb.schnorr_commitments_batch = entry
+    bk.launches_bn254 = 0
+    card_mask = icsp.verify_batch(iitems, ipk)
+    check(card_mask == mask_of(len(iitems), ibad)
+          and icsp.degraded_stats() == {"host_lanes": 0,
+                                        "device_failures": 1}
+          and bk.launches_bn254 >= 1, f"B3 fault: {icsp.degraded_stats()}")
+    print(f"degraded 5, B3 path fault: the idemix verify of {len(iitems)} "
+          f"signatures raised, counted; after it the card's mask is right "
+          f"({B3_NAME} {bk.launches_bn254} launches)")
+
+    # 6. a delayed collect: no race on a card
+    # flushes at enqueue, so that the collect alone is timed
+    rcsp = new_cuda_csp(device=device, coalesce_lanes=len(items))
+    check(rcsp.verify_batch(items) == want, "delay warm-up")
+    with faultline.use_plan({"faults": [
+            {"point": "tpu.collect", "action": "delay",
+             "delay_s": DEGRADED_DELAY_S, "nth": 1}]}):
+        col = rcsp.verify_batch_async(items)
+        t0 = time.perf_counter()
+        mask = col()
+        delay_ms = (time.perf_counter() - t0) * 1e3
+    st = rcsp.degraded_stats()
+    check(mask == want and st["races"] == 0 and st["host_lanes"] == 0
+          and delay_ms >= DEGRADED_DELAY_S * 1e3,
+          f"delay: {st}, {delay_ms:.1f} ms")
+    out["delayed_collect_ms"] = delay_ms
+    print(f"degraded 6, delay: a {DEGRADED_DELAY_S:.1f} s delay at "
+          f"tpu.collect; the collector returned the card's mask after "
+          f"{delay_ms:.1f} ms, races 0, host_lanes 0")
+    rcsp.close()
+
+    # 7. host_fraction stays on the CPU
+    raises(lambda: CUDACSP(device=device, host_fraction=0.25), ValueError)
+    print("degraded 7, host_fraction 0.25 on the card: refused "
+          "(ValueError)")
+    total = host_check("degraded", degraded=True)
+    check(total["trips"] == 1 and deg1["probes_ok"] == 1
+          and total["host_lanes"] == total["host_hashes"] == 0
+          and total["races"] == 0, "degraded totals")
+    return out
+
+
+def commit_ab(parent: str, turns: int = 4) -> int:
+    """`python3 chip_smoke.py --commit-ab PARENT_TREE [TURNS]`: the
+    headline's committed tx/s (phase_commit at full size) of another tree
+    of this repository (the parent, unpacked by `git archive`) and of
+    this one, in turns (parent, this, this, parent, ...), each in a
+    process of its own on card 0.  Prints one line a turn and the
+    ranges."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "this": here}
+    order = [("parent", "this", "this", "parent")[k % 4]
+             for k in range(turns)]
+    code = (
+        "import json, sys, torch\n"
+        "import chip_smoke as c\n"
+        "c.phase_build()\n"
+        "w = c.validator_world(c.SEED)\n"
+        "b, e, m = c.validator_blocks(w, c.N_BLOCKS, c.N_TXS, "
+        "w.genesis_hash, mvcc=True)\n"
+        "r = c.phase_commit(torch.device('cuda', 0), w, b, e, m)\n"
+        "c.workpool.shutdown()\n"
+        "print('AB ' + json.dumps({'wall_s': r['wall_s'], 'n': "
+        "c.N_BLOCKS * c.N_TXS}))\n"
+    )
+    got: dict = {"parent": [], "this": []}
+    for label in order:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=trees[label],
+                              capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            if line.startswith("commit: 8 blocks"):
+                print(f"{label}: {line}")
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+            return proc.returncode
+        res = json.loads(proc.stdout.split("AB ", 1)[1].splitlines()[0])
+        got[label].append(res["n"] / res["wall_s"])
+        print(f"commit A/B turn {len(got['parent']) + len(got['this'])}: "
+              f"{label} {got[label][-1]:.0f} committed tx/s")
+    for label, vals in got.items():
+        print(f"commit A/B {label}: {', '.join(f'{v:.0f}' for v in vals)} "
+              f"committed tx/s")
+    return 0
+
+
+MULTI_FLUSHES = 8
+
+
+def multi_card(turns: int = 3, n_flushes: int = MULTI_FLUSHES,
+               cards=None, n_txs: int = N_TXS) -> int:
+    """`python3 chip_smoke.py --multi-card`: CUDACSP over every visible
+    card (two or more; `cards` and `n_txs` rehearse it on the CPU at a
+    small size), each flush on the next card; see the module's
+    docstring."""
+    if cards is None:
+        if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+            print("chip_smoke: --multi-card needs two CUDA devices or more",
+                  file=sys.stderr)
+            return 1
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        print(f"device: {len(cards)} x {torch.cuda.get_device_name(0)}")
+        print("nvidia-smi: " + "; ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()))
+        phase_build()
+    n = len(cards)
+    rng = np.random.default_rng(SEED)
+    client, peers = block_world(rng)
+    items, bad = plant_bad(block_items(rng, client, peers[:ENDORSERS],
+                                       n_txs))
+    want = [i not in bad for i in range(len(items))]
+    providers = {"one card": CUDACSP(device=cards[:1],
+                                     coalesce_lanes=len(items)),
+                 f"{n} cards": CUDACSP(device=cards,
+                                       coalesce_lanes=len(items))}
+    for csp in providers.values():  # each card loads B1, gets its table
+        for _ in range(n):
+            check(csp.verify_batch(items) == want, "warm-up mask")
+
+    def run(csp: CUDACSP) -> tuple[float, list]:
+        """Seconds for n_flushes flushes enqueued together, then
+        collected; the cards each flush took."""
+        if cards[0].type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols, used = [], []
+        for _ in range(n_flushes):
+            cols.append(csp.verify_batch_async(items))  # flushes here
+            used.append(csp.last_dispatch_devices)
+        masks = [col() for col in cols]
+        wall = time.perf_counter() - t0
+        check(all(m == want for m in masks), "a flush's mask")
+        return wall, used
+
+    multi = providers[f"{n} cards"]
+    b1 = pk.launches_keytab
+    _, used = run(multi)
+    check(pk.launches_keytab - b1 == n_flushes,
+          f"B1 launches {pk.launches_keytab - b1} for {n_flushes} flushes")
+    turn = [u[0].index for u in used]
+    check(all(len(u) == 1 for u in used)
+          and all((b - a) % n == 1 for a, b in zip(turn, turn[1:])),
+          f"the flushes' cards: {used}")
+    print(f"multi-card: {n_flushes} flushes of {len(items)} lanes took "
+          f"cards {turn} in turn, B1 {n_flushes} launches, every mask the "
+          f"planted one")
+    got: dict = {label: [] for label in providers}
+    for k in range(turns):
+        for label in (list(providers) if k % 2 == 0
+                      else list(providers)[::-1]):
+            wall, _ = run(providers[label])
+            got[label].append(n_flushes * len(items) / wall)
+    for label, rates in got.items():
+        print(f"multi-card: {label}: "
+              f"{', '.join(f'{r:.0f}' for r in rates)} lanes/s "
+              f"({n_flushes} flushes enqueued together, in turns)")
+    for csp in providers.values():
+        csp.close()
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--commit-ab"] and len(argv) in (2, 3):
+        return commit_ab(argv[1], *(int(a) for a in argv[2:]))
+    if argv == ["--multi-card"]:
+        return multi_card()
+    if argv:
+        print("usage: chip_smoke.py [--commit-ab PARENT_TREE [TURNS] | "
+              "--multi-card]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2781,6 +3256,7 @@ def main() -> int:
     errs: dict = {}
     phase_edges(rng, device, errs)
     launches, walls, shapes = phase_main(rng, device)
+    host_check("main path")
     rows = phase_kernels(device, launches, shapes, errs)
     for row in rows:
         # device share of the main path's wall, from the launches and the
@@ -2798,11 +3274,15 @@ def main() -> int:
           f"of {N_TXS} transactions {time.perf_counter() - t1:.1f} s "
           f"({sum(map(len, blocks)) / 1e6:.2f} MB)")
     val = phase_validator(device, world, blocks, expect)
+    host_check("validator")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         com = phase_commit(device, world, blocks, expect, conflicts,
                            root_dir=os.path.join(tmp, "commit"))
+        host_check("commit")
         snp = phase_snapshot(device, world, blocks, com, tmp)
+        host_check("snapshot")
         sb = phase_smallbank(device, world, os.path.join(tmp, "smallbank"))
+        host_check("smallbank")
     b1 = next(row for row in rows if row["name"] == B1_NAME)
     for label, run in (("validator", val), ("commit", com),
                        ("smallbank", sb), ("bootstrap", snp)):
@@ -2813,7 +3293,9 @@ def main() -> int:
               f"ms wall ({busy / wall:.1%}; launches x B1's ms at 8000 "
               "lanes)")
     phase_churn(rng, device)
+    host_check("churn")
     rows.append(phase_sha256(rng, device, errs))
+    host_check("sha256")
     rows[-1]["launches_snapshot"] = snp["b4"]
 
     t0 = time.perf_counter()
@@ -2826,9 +3308,12 @@ def main() -> int:
           "not verify on the host")
     phase_b3_edges(world, device, errs)
     main_b3 = phase_idemix_main(world, device)
+    host_check("idemix")
     phase_crossover(world, device)
+    host_check("crossover")
     rows.append(phase_b3_kernel(main_b3, errs))
     phase_b3_sweep(main_b3["tensors"])
+    phase_degraded(rng, device, world)
     workpool.shutdown()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

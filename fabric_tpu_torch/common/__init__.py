@@ -1,3 +1,5 @@
 """Shared host pieces of the port: the SHA-256 seam (`hashing`), the
 channel-config bundle (`channelconfig`), and the in-memory CA and
-config-tree builder that mint a channel (`crypto`, `configtx_builder`)."""
+config-tree builder that mint a channel (`crypto`, `configtx_builder`),
+the shared host work pool (`workpool`), and the metrics providers and
+logging registry (`metrics`, `flogging`)."""

@@ -1,0 +1,913 @@
+"""Metrics provider SPI + prometheus-text / statsd-line / disabled impls.
+
+The port's copy of the JAX package's `fabric_tpu/common/metrics.py`,
+whole: the provider SPI (Counter/Gauge/Histogram created from *Opts, each
+supporting With(label pairs)), the prometheus provider whose registry
+renders the text exposition format, the statsd and disabled providers,
+and the metric catalogs.  The exposition names are the JAX package's
+(``csp_tpu_breaker_state`` and the rest), so dashboards read the port's
+``CUDACSP`` as they read the JAX package's provider.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class CounterOpts:
+    namespace: str = ""
+    subsystem: str = ""
+    name: str = ""
+    help: str = ""
+    label_names: tuple[str, ...] = ()
+    statsd_format: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class GaugeOpts:
+    namespace: str = ""
+    subsystem: str = ""
+    name: str = ""
+    help: str = ""
+    label_names: tuple[str, ...] = ()
+    statsd_format: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class HistogramOpts:
+    namespace: str = ""
+    subsystem: str = ""
+    name: str = ""
+    help: str = ""
+    label_names: tuple[str, ...] = ()
+    buckets: tuple[float, ...] = (
+        0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10,
+    )
+    statsd_format: str = ""
+
+
+def _fqname(opts) -> str:
+    return "_".join(p for p in (opts.namespace, opts.subsystem, opts.name) if p)
+
+
+def _label_key(
+    label_names: Sequence[str], label_values: Sequence[str]
+) -> tuple[tuple[str, str], ...]:
+    if len(label_values) % 2 == 0 and not label_names:
+        # With("name", "value", ...) pairs form
+        it = iter(label_values)
+        return tuple(sorted(zip(it, it)))
+    raise ValueError("labels must be alternating name/value pairs")
+
+
+class _Metric:
+    """Base: holds per-labelset series."""
+
+    def __init__(self, opts, registry):
+        self.opts = opts
+        self.name = _fqname(opts)
+        self._series: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+        self._labels: tuple[tuple[str, str], ...] = ()
+        if registry is not None:
+            registry._register(self)
+
+    def with_labels(self, *pairs: str) -> "_Metric":
+        c = type(self).__new__(type(self))
+        c.opts = self.opts
+        c.name = self.name
+        c._series = self._series
+        c._lock = self._lock
+        it = iter(pairs)
+        c._labels = tuple(sorted(self._labels + tuple(zip(it, it))))
+        return c
+
+    # go-kit naming
+    With = with_labels
+
+
+class Counter(_Metric):
+    def add(self, delta: float = 1.0) -> None:
+        with self._lock:
+            self._series[self._labels] = (
+                self._series.get(self._labels, 0.0) + delta
+            )
+
+
+class Gauge(_Metric):
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._series[self._labels] = value
+
+    def add(self, delta: float) -> None:
+        with self._lock:
+            self._series[self._labels] = (
+                self._series.get(self._labels, 0.0) + delta
+            )
+
+
+class Histogram(_Metric):
+    def __init__(self, opts, registry):
+        super().__init__(opts, registry)
+        self._obs: dict[tuple, list] = {}
+
+    def with_labels(self, *pairs: str) -> "Histogram":
+        c = super().with_labels(*pairs)
+        c._obs = self._obs
+        return c
+
+    With = with_labels
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            rec = self._obs.setdefault(
+                self._labels, [0, 0.0, [0] * len(self.opts.buckets)]
+            )
+            rec[0] += 1
+            rec[1] += value
+            # per-bucket counts are NON-cumulative here; expose()
+            # cumulates once.  (The old form incremented every bucket
+            # >= value AND re-cumulated at exposition, so a rendered
+            # _bucket count could exceed _count — non-monotonic output
+            # that a strict scraper rejects.)
+            for i, b in enumerate(self.opts.buckets):
+                if value <= b:
+                    rec[2][i] += 1
+                    break
+
+
+class PrometheusRegistry:
+    """Collects metrics and renders the prometheus text format for the
+    operations endpoint."""
+
+    def __init__(self):
+        self._metrics: list[_Metric] = []
+        self._collectors: list = []
+        self._lock = threading.Lock()
+
+    def _register(self, m: _Metric) -> None:
+        with self._lock:
+            self._metrics.append(m)
+
+    def register_collector(self, fn) -> None:
+        """Register a zero-arg callable invoked at the top of every
+        expose() — the prometheus Collector idiom for values that are
+        READ at scrape time rather than observed as they change
+        (process CPU/RSS/fds, GC totals).  A collector that raises is
+        skipped for that scrape, never fails the endpoint."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    @staticmethod
+    def _escape_label_value(v) -> str:
+        """Prometheus text-format label-value escaping: backslash,
+        double quote, and newline (exposition format spec) — a label
+        value carrying any of them must not corrupt the line framing
+        the netscope parser (and any real scraper) relies on."""
+        return (
+            str(v)
+            .replace("\\", "\\\\")
+            .replace('"', '\\"')
+            .replace("\n", "\\n")
+        )
+
+    @classmethod
+    def _fmt_labels(cls, labels) -> str:
+        if not labels:
+            return ""
+        inner = ",".join(
+            f'{k}="{cls._escape_label_value(v)}"' for k, v in labels
+        )
+        return "{" + inner + "}"
+
+    def expose(self) -> str:
+        lines: list[str] = []
+        with self._lock:
+            metrics = list(self._metrics)
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:
+                pass
+        for m in metrics:
+            kind = (
+                "counter" if isinstance(m, Counter)
+                else "histogram" if isinstance(m, Histogram)
+                else "gauge"
+            )
+            if m.opts.help:
+                lines.append(f"# HELP {m.name} {m.opts.help}")
+            lines.append(f"# TYPE {m.name} {kind}")
+            if isinstance(m, Histogram):
+                for labels, (count, total, buckets) in sorted(
+                    m._obs.items()
+                ):
+                    cum = 0
+                    for b, n in zip(m.opts.buckets, buckets):
+                        cum += n
+                        lb = dict(labels)
+                        lb["le"] = (
+                            f"{b:g}" if not math.isinf(b) else "+Inf"
+                        )
+                        lines.append(
+                            f"{m.name}_bucket"
+                            f"{self._fmt_labels(sorted(lb.items()))} {cum}"
+                        )
+                    inf = dict(labels)
+                    inf["le"] = "+Inf"
+                    lines.append(
+                        f"{m.name}_bucket"
+                        f"{self._fmt_labels(sorted(inf.items()))} {count}"
+                    )
+                    lines.append(
+                        f"{m.name}_sum{self._fmt_labels(labels)} {total:g}"
+                    )
+                    lines.append(
+                        f"{m.name}_count{self._fmt_labels(labels)} {count}"
+                    )
+            else:
+                for labels, v in sorted(m._series.items()):
+                    lines.append(
+                        f"{m.name}{self._fmt_labels(labels)} {v:g}"
+                    )
+        return "\n".join(lines) + "\n"
+
+
+class PrometheusProvider:
+    """Reference prometheus/provider.go: NewCounter/NewGauge/NewHistogram."""
+
+    def __init__(self, registry: PrometheusRegistry | None = None):
+        self.registry = registry or PrometheusRegistry()
+
+    def new_counter(self, opts: CounterOpts) -> Counter:
+        return Counter(opts, self.registry)
+
+    def new_gauge(self, opts: GaugeOpts) -> Gauge:
+        return Gauge(opts, self.registry)
+
+    def new_histogram(self, opts: HistogramOpts) -> Histogram:
+        return Histogram(opts, self.registry)
+
+
+class StatsdProvider:
+    """Emits statsd lines through a supplied `send(line: str)` callable
+    (reference statsd/provider.go; the gokit statsd emitter is replaced by
+    the callable so tests/deployments choose the socket)."""
+
+    def __init__(self, send, prefix: str = ""):
+        self._send = send
+        self._prefix = prefix
+
+    def _name(self, opts, labels=()) -> str:
+        base = _fqname(opts)
+        if self._prefix:
+            base = f"{self._prefix}.{base}"
+        fmt = opts.statsd_format
+        if fmt:
+            for k, v in labels:
+                fmt = fmt.replace("%{" + k + "}", v)
+            return f"{base}.{fmt}" if fmt else base
+        if labels:
+            base += "." + ".".join(v for _, v in labels)
+        return base.replace("_", ".")
+
+    def new_counter(self, opts: CounterOpts):
+        return _StatsdCounter(self, opts)
+
+    def new_gauge(self, opts: GaugeOpts):
+        return _StatsdGauge(self, opts)
+
+    def new_histogram(self, opts: HistogramOpts):
+        return _StatsdHistogram(self, opts)
+
+
+class _StatsdMetric:
+    def __init__(self, provider, opts, labels=()):
+        self._p = provider
+        self.opts = opts
+        self._labels = labels
+
+    def with_labels(self, *pairs):
+        it = iter(pairs)
+        return type(self)(
+            self._p, self.opts, self._labels + tuple(zip(it, it))
+        )
+
+    With = with_labels
+
+
+class _StatsdCounter(_StatsdMetric):
+    def add(self, delta: float = 1.0) -> None:
+        self._p._send(
+            f"{self._p._name(self.opts, self._labels)}:{delta:g}|c"
+        )
+
+
+class _StatsdGauge(_StatsdMetric):
+    def set(self, value: float) -> None:
+        self._p._send(
+            f"{self._p._name(self.opts, self._labels)}:{value:g}|g"
+        )
+
+    def add(self, delta: float) -> None:
+        sign = "+" if delta >= 0 else ""
+        self._p._send(
+            f"{self._p._name(self.opts, self._labels)}:{sign}{delta:g}|g"
+        )
+
+
+class _StatsdHistogram(_StatsdMetric):
+    def observe(self, value: float) -> None:
+        self._p._send(
+            f"{self._p._name(self.opts, self._labels)}:{value:g}|ms"
+        )
+
+
+class DisabledProvider:
+    """No-op provider (reference disabled/provider.go)."""
+
+    def new_counter(self, opts):
+        return _Noop()
+
+    def new_gauge(self, opts):
+        return _Noop()
+
+    def new_histogram(self, opts):
+        return _Noop()
+
+
+class _Noop:
+    def with_labels(self, *p):
+        return self
+
+    With = with_labels
+
+    def add(self, *_):
+        pass
+
+    def set(self, *_):
+        pass
+
+    def observe(self, *_):
+        pass
+
+
+class SnapshotMetrics:
+    """Channel-snapshot workload metrics (the gendoc-catalog role for
+    the new subsystem): generation latency, bytes pushed through the
+    CSP hash_batch path with its observed throughput, and the pending-
+    request gauge.  Built from any metrics provider; the operations
+    System exposes a prometheus-registered instance
+    (common/operations.py snapshot_metrics())."""
+
+    def __init__(self, provider):
+        self.generation_duration = provider.new_histogram(HistogramOpts(
+            namespace="snapshot",
+            name="generation_duration",
+            help="Seconds to generate one channel snapshot.",
+            statsd_format="%{channel}",
+        ))
+        self.bytes_hashed = provider.new_counter(CounterOpts(
+            namespace="snapshot",
+            name="bytes_hashed",
+            help="Total snapshot bytes digested through the CSP "
+                 "hash_batch path.",
+            statsd_format="%{channel}",
+        ))
+        self.hash_mb_per_s = provider.new_gauge(GaugeOpts(
+            namespace="snapshot",
+            name="hash_batch_mb_per_s",
+            help="hash_batch throughput observed during the last "
+                 "snapshot export (MB/s).",
+            statsd_format="%{channel}",
+        ))
+        self.pending_requests = provider.new_gauge(GaugeOpts(
+            namespace="snapshot",
+            name="pending_requests",
+            help="Number of pending snapshot requests.",
+            statsd_format="%{channel}",
+        ))
+
+
+class ValidateMetrics:
+    """Per-stage block-validate timing: host collect (parse + identity
+    + policy prepare, possibly fanned out over the work pool), the wait
+    on the device verify batch, and the host policy finish — the
+    validate-side counterpart of CommitMetrics, so the /metrics reader
+    can see which side of the validate->commit pipeline owns the p99."""
+
+    STAGES = ("collect", "verify_wait", "policy")
+
+    def __init__(self, provider):
+        self.stage_duration = provider.new_histogram(HistogramOpts(
+            namespace="validator",
+            subsystem="block",
+            name="stage_duration",
+            help="Seconds spent in one validate stage for one block "
+                 "(collect/verify_wait/policy).",
+            buckets=(
+                0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+            statsd_format="%{channel}.%{stage}",
+        ))
+
+
+class CommitMetrics:
+    """Per-stage ledger-commit pipeline timing (the group-commit
+    tentpole's instrumentation): one histogram labeled (channel, stage)
+    over the stages mvcc / block_append / pvt / state / history (per
+    block) and fsync / kv_txn (per group boundary), plus how many
+    blocks each fsync+txn boundary made durable — the breakdown the
+    next optimisation round reads off /metrics and bench.py's JSON
+    line."""
+
+    STAGES = (
+        "mvcc", "block_append", "pvt", "state", "history",
+        "fsync", "kv_txn",
+    )
+
+    def __init__(self, provider):
+        self.stage_duration = provider.new_histogram(HistogramOpts(
+            namespace="ledger",
+            subsystem="commit",
+            name="stage_duration",
+            help="Seconds spent in one commit-pipeline stage for one "
+                 "block (mvcc/block_append/pvt/state/history) or one "
+                 "group boundary (fsync/kv_txn).",
+            buckets=(
+                0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+            statsd_format="%{channel}.%{stage}",
+        ))
+        self.blocks_per_sync = provider.new_histogram(HistogramOpts(
+            namespace="ledger",
+            subsystem="commit",
+            name="blocks_per_sync",
+            help="Blocks made durable by one group-commit fsync+txn "
+                 "boundary (1 = no coalescing).",
+            buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
+            statsd_format="%{channel}",
+        ))
+
+
+class CSPMetrics:
+    """TPU-CSP degraded-mode instrumentation (the faultline tentpole's
+    hardening half): the circuit breaker's state and trip counts, raw
+    device-path failures, and recovery probes — the signals an operator
+    watches to know the node is serving from the host oracle."""
+
+    def __init__(self, provider):
+        self.breaker_state = provider.new_gauge(GaugeOpts(
+            namespace="csp",
+            subsystem="tpu",
+            name="breaker_state",
+            help="1 while the TPU degraded-mode circuit breaker is open "
+                 "(verify/hash served by the host path, no device "
+                 "queuing), 0 when closed.",
+        ))
+        self.breaker_trips = provider.new_counter(CounterOpts(
+            namespace="csp",
+            subsystem="tpu",
+            name="breaker_trips_total",
+            help="Times the breaker opened after consecutive device "
+                 "failures.",
+        ))
+        self.device_failures = provider.new_counter(CounterOpts(
+            namespace="csp",
+            subsystem="tpu",
+            name="device_failures_total",
+            help="Device-path failures observed by the TPU provider "
+                 "(dispatch, collect, or hash).",
+        ))
+        self.probes = provider.new_counter(CounterOpts(
+            namespace="csp",
+            subsystem="tpu",
+            name="breaker_probes_total",
+            help="Recovery probe batches sent while the breaker was "
+                 "open, labeled by result.",
+            statsd_format="%{result}",
+        ))
+        self.breaker_state.set(0)
+
+
+class WorkpoolMetrics:
+    """Shared host-work-pool observability (the pool had none before):
+    how deep the executor's queue is, how many run_chunked chunks are
+    in flight, and how saturated the worker set is — the signals that
+    say whether FABRIC_TPU_COLLECT_POOL/_MVCC_POOL widths are starving
+    or flooding the one process-wide pool."""
+
+    def __init__(self, provider):
+        self.queue_depth = provider.new_gauge(GaugeOpts(
+            namespace="workpool",
+            name="queue_depth",
+            help="Tasks waiting in the shared host work pool's "
+                 "executor queue at the last fan-out.",
+        ))
+        self.in_flight = provider.new_gauge(GaugeOpts(
+            namespace="workpool",
+            name="in_flight_chunks",
+            help="run_chunked chunks currently submitted and not yet "
+                 "collected.",
+        ))
+        self.saturation = provider.new_gauge(GaugeOpts(
+            namespace="workpool",
+            name="worker_saturation",
+            help="In-flight chunks over the pool's worker cap, capped "
+                 "at 1.0 — sustained 1.0 means fan-outs queue behind "
+                 "each other.",
+        ))
+
+
+class RaftMetrics:
+    """Raft cluster-comm instrumentation: the silent-loss counters the
+    transport used to drop into the void.  `send_dropped` counts
+    StepRequests discarded on a full outbound queue (raft retransmits,
+    so an occasional drop is benign — sustained growth means a peer is
+    down or a link is saturated); `dials` counts outbound connection
+    attempts, so reconnect storms are visible next to the backoff."""
+
+    def __init__(self, provider):
+        self.send_dropped = provider.new_counter(CounterOpts(
+            namespace="raft",
+            name="send_dropped_total",
+            help="StepRequests dropped because a peer's outbound queue "
+                 "was full.",
+            statsd_format="%{dest}",
+        ))
+        self.dials = provider.new_counter(CounterOpts(
+            namespace="raft",
+            name="dial_total",
+            help="Outbound link connection attempts, labeled by "
+                 "destination node.",
+            statsd_format="%{dest}",
+        ))
+        # netscope gap closure: the consensus-state signals the
+        # telemetry plane reads per scrape round
+        self.term = provider.new_gauge(GaugeOpts(
+            namespace="raft",
+            name="term",
+            help="This node's current raft term.",
+        ))
+        self.leader_changes = provider.new_counter(CounterOpts(
+            namespace="raft",
+            name="leader_changes_total",
+            help="Observed leadership transitions (any leader -> a "
+                 "different nonzero leader).",
+        ))
+        self.committed_index = provider.new_gauge(GaugeOpts(
+            namespace="raft",
+            name="last_committed_index",
+            help="Last raft log index known committed on this node.",
+        ))
+        self.queue_depth = provider.new_gauge(GaugeOpts(
+            namespace="raft",
+            name="outbound_queue_depth",
+            help="Depth of the per-peer outbound send queue at the "
+                 "last enqueue, labeled by destination node.",
+            statsd_format="%{dest}",
+        ))
+        self.wal_append = provider.new_histogram(HistogramOpts(
+            namespace="raft",
+            subsystem="wal",
+            name="append_seconds",
+            help="Seconds writing one WAL record batch (pre-fsync).",
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25,
+            ),
+        ))
+        self.wal_fsync = provider.new_histogram(HistogramOpts(
+            namespace="raft",
+            subsystem="wal",
+            name="fsync_seconds",
+            help="Seconds in one WAL fsync.",
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25,
+            ),
+        ))
+
+
+class GossipMetrics:
+    """Gossip-plane instrumentation (a netscope gap closure: the gossip
+    stack had NO metrics): message flow in/out, the state-transfer
+    request/served-block counters that make catch-up visible, and the
+    membership gauge the health rollup reads."""
+
+    def __init__(self, provider):
+        self.messages_received = provider.new_counter(CounterOpts(
+            namespace="gossip",
+            name="messages_received_total",
+            help="Verified inbound gossip messages dispatched to "
+                 "subscribers, labeled by content kind.",
+            statsd_format="%{content}",
+        ))
+        self.messages_sent = provider.new_counter(CounterOpts(
+            namespace="gossip",
+            name="messages_sent_total",
+            help="Outbound gossip messages signed and handed to a "
+                 "transport.",
+        ))
+        self.state_requests_sent = provider.new_counter(CounterOpts(
+            namespace="gossip",
+            name="state_requests_sent_total",
+            help="Anti-entropy state-transfer requests sent while "
+                 "behind a peer's advertised height.",
+        ))
+        self.state_requests_served = provider.new_counter(CounterOpts(
+            namespace="gossip",
+            name="state_requests_served_total",
+            help="Inbound state-transfer requests answered with at "
+                 "least one block.",
+        ))
+        self.state_blocks_served = provider.new_counter(CounterOpts(
+            namespace="gossip",
+            name="state_blocks_served_total",
+            help="Blocks shipped in state-transfer responses.",
+        ))
+        self.membership = provider.new_gauge(GaugeOpts(
+            namespace="gossip",
+            name="membership_size",
+            help="Alive peers known to discovery at the last tick "
+                 "(excluding self).",
+        ))
+
+
+class DeliverMetrics:
+    """Deliver-client instrumentation (netscope gap closure): blocks
+    pulled from the ordering service, reconnect episodes, and the
+    cumulative backoff the client has waited out — a climbing
+    reconnect counter with a flat block counter is the silent-wedge
+    signature the stall detector confirms from the outside."""
+
+    def __init__(self, provider):
+        self.blocks = provider.new_counter(CounterOpts(
+            namespace="deliver",
+            name="blocks_total",
+            help="Blocks verified and handed to the sink.",
+            statsd_format="%{channel}",
+        ))
+        self.reconnects = provider.new_counter(CounterOpts(
+            namespace="deliver",
+            name="reconnects_total",
+            help="Reconnect/rotation episodes (a stream ended or "
+                 "failed and the client moved to the next endpoint).",
+            statsd_format="%{channel}",
+        ))
+        self.backoff_seconds = provider.new_counter(CounterOpts(
+            namespace="deliver",
+            name="backoff_seconds_total",
+            help="Cumulative seconds the client has spent in "
+                 "reconnect backoff.",
+            statsd_format="%{channel}",
+        ))
+
+
+class GatewayMetrics:
+    """Gateway submission front-end instrumentation: admission queue
+    depth and the adaptive in-flight window (the backpressure pair —
+    depth pinned at the window with zero resolutions is the
+    stuck-gateway signature), dedup hits, backpressure rejections,
+    orderer failover episodes, per-status resolution counters, and the
+    submit→commit latency histogram netscope's SLO rollup reads."""
+
+    def __init__(self, provider):
+        self.queue_depth = provider.new_gauge(GaugeOpts(
+            namespace="gateway",
+            name="queue_depth",
+            help="Envelopes accepted but not yet written to an "
+                 "orderer broadcast stream.",
+            statsd_format="%{channel}",
+        ))
+        self.in_flight = provider.new_gauge(GaugeOpts(
+            namespace="gateway",
+            name="in_flight",
+            help="Accepted txids not yet resolved to a commit status.",
+            statsd_format="%{channel}",
+        ))
+        self.window = provider.new_gauge(GaugeOpts(
+            namespace="gateway",
+            name="window",
+            help="Current admission window (max unresolved txids), "
+                 "adapted to the deliver-observed commit rate.",
+            statsd_format="%{channel}",
+        ))
+        self.dedup_hits = provider.new_counter(CounterOpts(
+            namespace="gateway",
+            name="dedup_hits_total",
+            help="Resubmissions answered idempotently from the txid "
+                 "dedup map.",
+            statsd_format="%{channel}",
+        ))
+        self.rejections = provider.new_counter(CounterOpts(
+            namespace="gateway",
+            name="rejections_total",
+            help="Submissions rejected with retry-after because the "
+                 "admission window was full.",
+            statsd_format="%{channel}",
+        ))
+        self.failovers = provider.new_counter(CounterOpts(
+            namespace="gateway",
+            name="failovers_total",
+            help="Orderer stream failover episodes (connection loss "
+                 "-> rotation + in-flight resubmission).",
+            statsd_format="%{channel}",
+        ))
+        self.resolved = provider.new_counter(CounterOpts(
+            namespace="gateway",
+            name="resolved_total",
+            help="Txids resolved to a definitive commit status, by "
+                 "status (VALID/INVALID/TIMEOUT).",
+            statsd_format="%{channel}.%{status}",
+        ))
+        self.submit_to_commit_seconds = provider.new_histogram(HistogramOpts(
+            namespace="gateway",
+            name="submit_to_commit_seconds",
+            help="Latency from gateway admission to commit-status "
+                 "resolution via the deliver tail.",
+            statsd_format="%{channel}",
+        ))
+
+
+class LedgerMetrics:
+    """Per-channel ledger progress (netscope gap closure): the height
+    and durability-watermark gauges the telemetry plane derives
+    cross-peer commit lag from, plus committed block/tx counters for
+    sustained-throughput SLO rollups."""
+
+    def __init__(self, provider):
+        self.height = provider.new_gauge(GaugeOpts(
+            namespace="ledger",
+            name="height",
+            help="Committed block height (next block number), per "
+                 "channel.",
+            statsd_format="%{channel}",
+        ))
+        self.durable_height = provider.new_gauge(GaugeOpts(
+            namespace="ledger",
+            name="durable_height",
+            help="Durability watermark: every block at or below it has "
+                 "its block file fsynced and its KV txn committed.",
+            statsd_format="%{channel}",
+        ))
+        self.blocks_committed = provider.new_counter(CounterOpts(
+            namespace="ledger",
+            name="blocks_committed_total",
+            help="Blocks committed since process start, per channel.",
+            statsd_format="%{channel}",
+        ))
+        self.transactions = provider.new_counter(CounterOpts(
+            namespace="ledger",
+            name="transactions_total",
+            help="VALID transactions committed since process start, "
+                 "per channel.",
+            statsd_format="%{channel}",
+        ))
+
+
+class LockMetrics:
+    """Lock-contention observability (profscope): per-role
+    acquire-wait and hold-time histograms — the runtime complement to
+    fabriclint's static lock-order graph.  Fed by
+    ``profile.note_lock_wait/note_lock_hold`` (lockwatch's watched and
+    profiled lock wrappers) only while profiling is armed, so a
+    disarmed node's /metrics is unchanged."""
+
+    # lock waits live in the microsecond..second range, far below the
+    # default request buckets
+    _BUCKETS = (
+        1e-6, 1e-5, 1e-4, 1e-3, 5e-3, 0.025, 0.1, 0.5, 2.0,
+    )
+
+    def __init__(self, provider):
+        self.wait = provider.new_histogram(HistogramOpts(
+            namespace="lock",
+            name="wait_seconds",
+            help="Seconds a thread spent blocked acquiring the lock "
+                 "with this role (profscope armed only).",
+            buckets=self._BUCKETS,
+            statsd_format="%{role}",
+        ))
+        self.hold = provider.new_histogram(HistogramOpts(
+            namespace="lock",
+            name="hold_seconds",
+            help="Seconds the lock with this role was held, outermost "
+                 "acquire to final release (profscope armed only).",
+            buckets=self._BUCKETS,
+            statsd_format="%{role}",
+        ))
+
+
+# process-wide GC pause accounting for ProcessMetrics: one idempotent
+# gc callback accumulates collection time; plain float adds are
+# GIL-atomic enough for a monotone scrape-time read
+_gc_pause_total = [0.0]
+_gc_cb_state = {"installed": False, "t0": None}
+
+
+def _install_gc_callback() -> None:
+    if _gc_cb_state["installed"]:
+        return
+    _gc_cb_state["installed"] = True
+    import gc
+    import time
+
+    def _cb(phase, info):
+        if phase == "start":
+            _gc_cb_state["t0"] = time.monotonic()
+        else:
+            t0 = _gc_cb_state["t0"]
+            if t0 is not None:
+                _gc_pause_total[0] += time.monotonic() - t0
+                _gc_cb_state["t0"] = None
+
+    gc.callbacks.append(_cb)
+
+
+class ProcessMetrics:
+    """Standard process-level gauges (the prometheus client-library
+    conventions) so netscope series can correlate node saturation with
+    commit lag: CPU seconds, RSS, open fds, GC collections and pause
+    time.  Values are read at scrape time — register :meth:`collect`
+    with ``PrometheusRegistry.register_collector``."""
+
+    def __init__(self, provider):
+        self.cpu_seconds = provider.new_gauge(GaugeOpts(
+            name="process_cpu_seconds_total",
+            help="Total user+system CPU seconds of this process "
+                 "(monotone; exposed as a scrape-time gauge).",
+        ))
+        self.rss_bytes = provider.new_gauge(GaugeOpts(
+            name="process_resident_memory_bytes",
+            help="Resident set size in bytes.",
+        ))
+        self.open_fds = provider.new_gauge(GaugeOpts(
+            name="process_open_fds",
+            help="Open file descriptors.",
+        ))
+        self.gc_collections = provider.new_gauge(GaugeOpts(
+            name="process_gc_collections_total",
+            help="Cyclic GC collections since process start, per "
+                 "generation.",
+        ))
+        self.gc_pause_seconds = provider.new_gauge(GaugeOpts(
+            name="process_gc_pause_seconds_total",
+            help="Cumulative seconds spent inside cyclic GC "
+                 "collections (gc callback timing).",
+        ))
+        _install_gc_callback()
+
+    def collect(self) -> None:
+        import gc
+        import os
+
+        t = os.times()
+        self.cpu_seconds.set(t.user + t.system)
+        try:
+            with open("/proc/self/statm", "r", encoding="ascii") as f:
+                pages = int(f.read().split()[1])
+            self.rss_bytes.set(pages * (os.sysconf("SC_PAGE_SIZE")))
+        except (OSError, ValueError, IndexError):
+            pass
+        try:
+            self.open_fds.set(len(os.listdir("/proc/self/fd")))
+        except OSError:
+            pass
+        for gen, st in enumerate(gc.get_stats()):
+            self.gc_collections.With(
+                "generation", str(gen)
+            ).set(st.get("collections", 0))
+        self.gc_pause_seconds.set(_gc_pause_total[0])
+
+
+__all__ = [
+    "CounterOpts",
+    "GaugeOpts",
+    "HistogramOpts",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "PrometheusProvider",
+    "PrometheusRegistry",
+    "StatsdProvider",
+    "DisabledProvider",
+    "SnapshotMetrics",
+    "CommitMetrics",
+    "CSPMetrics",
+    "RaftMetrics",
+    "WorkpoolMetrics",
+    "GossipMetrics",
+    "DeliverMetrics",
+    "GatewayMetrics",
+    "LedgerMetrics",
+    "LockMetrics",
+    "ProcessMetrics",
+]

@@ -7,8 +7,10 @@ the flags and the compiler path: a changed source builds anew, an
 unchanged one loads, and one source's change leaves the others' builds
 in place.  The libraries are bound with `ctypes`.  The sources that need
 a build compile in parallel, one `nvcc` each.  On a host without `nvcc`,
-or when a build fails, this raises with the compiler's output: there is
-no fallback.
+when a build fails, or when a built library will not load, this raises
+`KernelBuildError` with the compiler's or the loader's output: there is
+no fallback, and the CSP's degraded mode, which counts runtime device
+faults, lets it through.
 """
 
 from __future__ import annotations
@@ -65,6 +67,14 @@ _SIGNATURES = {
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
+
+class KernelBuildError(RuntimeError):
+    """A kernel's library could not be built or loaded (no nvcc, a
+    compile error, a library that will not load or lacks a symbol).  Never
+    a device failure: no breaker counts it and no host path answers in
+    its place."""
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
@@ -107,11 +117,11 @@ def _build_key(src: str, nvcc: str) -> str:
 
 def build_all() -> dict[str, Path]:
     """Compile every source whose library is missing, all at once; returns
-    {name: library path}.  Raises RuntimeError without nvcc or when a
+    {name: library path}.  Raises KernelBuildError without nvcc or when a
     compile fails (with its output)."""
     nvcc = find_nvcc()
     if nvcc is None:
-        raise RuntimeError(
+        raise KernelBuildError(
             "nvcc not found ($CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
             "the CUDA kernels cannot be built on this host"
         )
@@ -144,7 +154,7 @@ def build_all() -> dict[str, Path]:
             continue
         os.replace(tmp, paths[name])
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
     return paths
 
 
@@ -153,10 +163,14 @@ def load(name: str = "p256_verify") -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all()[name]))
-            for fn, (args, res) in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = res
+            path = build_all()[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+                for fn, (args, res) in _SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = args
+                    getattr(lib, fn).restype = res
+            except (OSError, AttributeError) as e:
+                raise KernelBuildError(f"{path} does not load: {e}") from e
             _libs[name] = lib
         return lib
 
@@ -169,7 +183,8 @@ def load_probe() -> tuple[ctypes.CDLL, Path]:
     `build_all` does."""
     nvcc = find_nvcc()
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the field probe cannot be built")
+        raise KernelBuildError("nvcc not found: the field probe cannot be "
+                               "built")
     out = BUILD_DIR / f"p256_field_probe-{_build_key(PROBE, nvcc)}"
     path = out / "libp256_field_probe.so"
     with _lock:
@@ -180,12 +195,16 @@ def load_probe() -> tuple[ctypes.CDLL, Path]:
             proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n$ {' '.join(cmd)}\n"
-                                   f"{proc.stdout}")
+                raise KernelBuildError(f"nvcc failed:\n$ {' '.join(cmd)}\n"
+                                       f"{proc.stdout}")
             os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-    lib.p256_field_probe.argtypes = [_INT] + [_VOID] * 3 + [_INT] * 3 + [_VOID]
-    lib.p256_field_probe.restype = _INT
+        try:
+            lib = ctypes.CDLL(str(path))
+            probe = lib.p256_field_probe
+        except (OSError, AttributeError) as e:
+            raise KernelBuildError(f"{path} does not load: {e}") from e
+    probe.argtypes = [_INT] + [_VOID] * 3 + [_INT] * 3 + [_VOID]
+    probe.restype = _INT
     return lib, path
 
 
@@ -227,5 +246,5 @@ def build_seconds(name: str = "p256_verify") -> float | None:
     return _seconds.get(name)
 
 
-__all__ = ["build_all", "load", "load_probe", "sass", "find_nvcc",
-           "build_log", "build_seconds"]
+__all__ = ["KernelBuildError", "build_all", "load", "load_probe", "sass",
+           "find_nvcc", "build_log", "build_seconds"]

@@ -10,12 +10,15 @@ signatures and revocation come with a later slice.
 `verify_batch` picks the device path by batch size, as the reference
 provider does, but the device is fixed at construction: `device="cuda"`
 (the default) raises there on a host without a card, and `device="cpu"`
-runs the kernel's plain PyTorch version (for tests).
+runs the kernel's plain PyTorch version (for tests).  A runtime fault of
+the device path is counted (`degraded_stats`): on a card it raises, on
+the CPU the host answers, logged; a build failure raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Sequence
 
 import torch
@@ -69,6 +72,22 @@ class IdemixCSP:
             if device_crossover is not None
             else self.DEVICE_CROSSOVER
         )
+        self._stats_lock = threading.Lock()
+        self._host_lanes = 0
+        self._device_failures = 0
+
+    def degraded_stats(self) -> dict:
+        """Runtime faults of the device path (`device_failures`), and the
+        signatures the host answered after them on the CPU
+        (`host_lanes`)."""
+        with self._stats_lock:
+            return {"host_lanes": self._host_lanes,
+                    "device_failures": self._device_failures}
+
+    def _note_device_fault(self, n: int) -> None:
+        with self._stats_lock:
+            self._host_lanes += n
+            self._device_failures += 1
 
     # -- key generation ------------------------------------------------------
 
@@ -144,7 +163,8 @@ class IdemixCSP:
         msgs = [i.msg for i in items]
         if use_device:
             return signature.verify_batch_device(
-                sigs, ipk, msgs, rng=self._rng, device=self.device
+                sigs, ipk, msgs, rng=self._rng, device=self.device,
+                on_device_fault=self._note_device_fault,
             )
         return signature.verify_batch(sigs, ipk, msgs, rng=self._rng)
 

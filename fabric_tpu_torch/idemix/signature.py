@@ -43,7 +43,11 @@ from __future__ import annotations
 
 import dataclasses
 
-from fabric_tpu_torch.csp.cuda import bn254_batch
+import torch
+
+from fabric_tpu_torch import native
+from fabric_tpu_torch.common.flogging import must_get_logger
+from fabric_tpu_torch.csp.cuda import bn254_batch, build
 from fabric_tpu_torch.idemix import bn254 as bn
 from fabric_tpu_torch.idemix import schnorr
 from fabric_tpu_torch.idemix.credential import Credential
@@ -329,14 +333,34 @@ def verify_batch_device(
     msgs: list[bytes],
     rng=None,
     device="cuda",
+    on_device_fault=None,
 ) -> list[bool]:
     """verify_batch with the Schnorr commitment recomputation batched on
     `device` (csp/cuda/bn254_batch.py: one call of the hand-written
     kernel re-derives every signature's T1/T2/T3 G1 MSMs; a CPU device
     runs its plain PyTorch version); challenge re-hash and the
-    RLC-collapsed pairings stay on host.  A device error propagates:
-    there is no fallback to host verify."""
-    comms = bn254_batch.schnorr_commitments_batch(sigs, ipk, device=device)
+    RLC-collapsed pairings stay on host.  A runtime fault of the device
+    path calls `on_device_fault(host_lanes)` and, on a card, raises; on
+    the CPU the host implementation answers, logged, as the reference
+    does (`host_lanes` is then len(sigs), else 0).  A kernel or C++
+    library that cannot build raises."""
+    try:
+        comms = bn254_batch.schnorr_commitments_batch(sigs, ipk,
+                                                      device=device)
+    except (build.KernelBuildError, native.NativeBuildError):
+        raise
+    except Exception as exc:
+        on_cpu = torch.device(device).type == "cpu"
+        if on_device_fault is not None:
+            on_device_fault(len(sigs) if on_cpu else 0)
+        if not on_cpu:
+            raise
+        # loud: otherwise a broken device path silently re-runs the host
+        must_get_logger("idemix").warning(
+            "device Schnorr path failed (%s: %s); falling back to host",
+            type(exc).__name__, exc,
+        )
+        return verify_batch(sigs, ipk, msgs, rng=rng)
     ok: list[bool] = []
     for sig, msg, tri in zip(sigs, msgs, comms):
         if tri is None:

@@ -3,11 +3,14 @@
 The port's own copy of the JAX package's `fabric_tpu/native`: the batch
 signature packer (`marshal.cc`) that feeds the P-256 kernels, BN254 G1
 multiplication, MSM (`bn254.cc`) and the pairing check (`pairing.cc`,
-both on `fp254.h`) for the idemix host path, and the validator's block
-walk (`collect.cc`: envelope checks, offsets and SHA-256 digests).  They
-include the C++ standard library and, for `collect.cc`'s `dlopen` of the
-host's libcrypto (its SHA-256 when present, else a scalar loop;
-`sha256_impl` says which), `<dlfcn.h>`.
+both on `fp254.h`) for the idemix host path, the validator's block
+walk (`collect.cc`: envelope checks, offsets and SHA-256 digests), and the
+host ECDSA batch verifier of the CSP's degraded mode (`ecverify.cc`).
+They include the C++ standard library and, for the `dlopen` of the
+host's libcrypto, `<dlfcn.h>`: `collect.cc` takes its SHA-256 when
+present, else a scalar loop (`sha256_impl` says which); `ecverify.cc`
+verifies through it and answers nothing without it
+(`ecdsa_verify_host` returns None, and the caller takes `hostref`).
 
 The library is built at first use with the host C++ compiler (`g++ -O2
 -std=c++17 -shared -fPIC`) into the git-ignored `build/` beside this file,
@@ -15,8 +18,10 @@ under a key that hashes the sources, the flags and the compiler's path and
 version: an unchanged tree loads the library it built before.  A build
 goes to a temporary file renamed into place under a file lock, so
 processes that start at once (test workers) build it once.  There is no
-fallback: where the library cannot build, every entry point raises with
-the compiler's log (the JAX package falls back to Python there).
+fallback: where the library cannot build or load, every entry point
+raises `NativeBuildError` with the compiler's or the loader's log (the
+JAX package falls back to Python there).  A build failure is never taken for a device failure:
+the CSP's degraded mode lets it through.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import numpy as np
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "build"
-SOURCES = ("marshal.cc", "bn254.cc", "pairing.cc", "collect.cc")
+SOURCES = ("marshal.cc", "bn254.cc", "pairing.cc", "collect.cc",
+           "ecverify.cc")
 HEADERS = ("fp254.h",)
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 LIBS = ("-ldl",)
@@ -43,6 +49,12 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 _BN254_R = 0x30644e72e131a029b85045b68181585d2833e84879b9709143e1f593f0000001
+
+
+class NativeBuildError(RuntimeError):
+    """The C++ host library could not be built or loaded (no g++, a
+    compile error, a library that will not load or lacks a symbol).  Never a device failure: no breaker counts it and no host
+    path answers in its place."""
 
 
 def _build_key(cxx: str, version: str) -> str:
@@ -58,12 +70,12 @@ def _build_key(cxx: str, version: str) -> str:
 
 def build() -> Path:
     """Build the library unless this tree's build exists; returns its
-    path.  Raises RuntimeError without g++ or when the compile fails (with
-    the compiler's output, also kept beside the library)."""
+    path.  Raises NativeBuildError without g++ or when the compile fails
+    (with the compiler's output, also kept beside the library)."""
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found on PATH: the port's C++ host "
-                           "library cannot be built on this host")
+        raise NativeBuildError("g++ not found on PATH: the port's C++ host "
+                               "library cannot be built on this host")
     version = subprocess.run([cxx, "--version"], capture_output=True,
                              text=True).stdout
     out = BUILD_DIR / f"libfabricnative-{_build_key(cxx, version)}.so"
@@ -82,8 +94,8 @@ def build() -> Path:
         out.with_suffix(".log").write_text(proc.stdout)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed:\n$ {' '.join(cmd)}\n"
-                               f"{proc.stdout}")
+            raise NativeBuildError(f"g++ failed:\n$ {' '.join(cmd)}\n"
+                                   f"{proc.stdout}")
         os.replace(tmp, out)
     return out
 
@@ -93,41 +105,54 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
-            u32p = np.ctypeslib.ndpointer(np.uint32, flags="C")
-            fn = lib.fabric_marshal_batch
-            fn.restype = ctypes.c_int
-            fn.argtypes = (
-                [ctypes.c_int] + [ctypes.c_char_p] * 4
-                + [np.ctypeslib.ndpointer(np.int32, flags="C")]
-                + [u32p] * 5 + [u8p] * 2)
-            msm = lib.bn254_g1_msm
-            msm.restype = ctypes.c_int
-            msm.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 3 + [u8p] * 2
-            mm = lib.bn254_g1_mul_many
-            mm.restype = ctypes.c_int
-            mm.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 3 + [u8p] * 3
-            pc = lib.bn254_pairing_check
-            pc.restype = ctypes.c_int
-            pc.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 6
-            i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
-            i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
-            cb = lib.fabric_collect_block
-            cb.restype = ctypes.c_int
-            cb.argtypes = (
-                [ctypes.c_int, ctypes.c_char_p, i64p, ctypes.c_char_p,
-                 ctypes.c_int]
-                + [i32p, i32p]                    # status, type
-                + [i64p, i32p] * 2 + [u8p]        # creator, sig, payload_digest
-                + [i64p, i32p] * 4                # txid, prp, rwset, ccid
-                + [i32p, i32p, ctypes.c_int]      # endo_start/count, max
-                + [i64p, i32p] * 2 + [u8p]        # endorser, esig, edigest
-            )
-            lib.fabric_collect_sha256_impl.restype = ctypes.c_int
-            lib.fabric_collect_sha256_impl.argtypes = []
-            _lib = lib
+            path = build()
+            try:
+                _lib = _bind(ctypes.CDLL(str(path)))
+            except (OSError, AttributeError) as e:
+                raise NativeBuildError(f"{path} does not load: {e}") from e
         return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of the library's entry points;
+    raises AttributeError where one is missing."""
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C")
+    fn = lib.fabric_marshal_batch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_char_p] * 4
+        + [np.ctypeslib.ndpointer(np.int32, flags="C")]
+        + [u32p] * 5 + [u8p] * 2)
+    msm = lib.bn254_g1_msm
+    msm.restype = ctypes.c_int
+    msm.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 3 + [u8p] * 2
+    mm = lib.bn254_g1_mul_many
+    mm.restype = ctypes.c_int
+    mm.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 3 + [u8p] * 3
+    pc = lib.bn254_pairing_check
+    pc.restype = ctypes.c_int
+    pc.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 6
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
+    cb = lib.fabric_collect_block
+    cb.restype = ctypes.c_int
+    cb.argtypes = (
+        [ctypes.c_int, ctypes.c_char_p, i64p, ctypes.c_char_p,
+         ctypes.c_int]
+        + [i32p, i32p]                    # status, type
+        + [i64p, i32p] * 2 + [u8p]        # creator, sig, payload_digest
+        + [i64p, i32p] * 4                # txid, prp, rwset, ccid
+        + [i32p, i32p, ctypes.c_int]      # endo_start/count, max
+        + [i64p, i32p] * 2 + [u8p]        # endorser, esig, edigest
+    )
+    lib.fabric_collect_sha256_impl.restype = ctypes.c_int
+    lib.fabric_collect_sha256_impl.argtypes = []
+    ev = lib.fabric_ecdsa_verify_host
+    ev.restype = ctypes.c_int
+    ev.argtypes = [ctypes.c_int] + [ctypes.c_char_p] * 3 + [i32p] * 2 \
+        + [u8p]
+    return lib
 
 
 def marshal_batch(xs: bytes, ys: bytes, digests: bytes, sigs: bytes,
@@ -162,6 +187,55 @@ def marshal_batch(xs: bytes, ys: bytes, digests: bytes, sigs: bytes,
         "cand1_ok": c1ok.astype(bool),
         "valid": valid.astype(bool),
     }
+
+
+def ecdsa_verify_host(items) -> list[bool] | None:
+    """Batched host ECDSA-P256 verification through the host's libcrypto
+    (`ecverify.cc`, `EVP_PKEY_verify` with one context per distinct key):
+    the degraded mode's host verifier.  Verdicts are `hostref.verify`'s
+    (strict DER, low-S, a digest of 32 bytes).  Returns None where no
+    libcrypto loads (the caller takes `hostref`); raises NativeBuildError
+    where the library cannot build.  The call releases the GIL."""
+    lib = load()
+    n = len(items)
+    if n == 0:
+        return []
+    qxy = bytearray(64 * n)
+    digs = bytearray(32 * n)
+    sig_off = np.empty(n, np.int32)
+    sig_len = np.empty(n, np.int32)
+    sigs = bytearray()
+    for i, it in enumerate(items):
+        key = it.key
+        pub = key.public_key() if getattr(key, "is_private", False) else key
+        try:
+            qxy[64 * i:64 * i + 32] = pub.x_bytes
+            qxy[64 * i + 32:64 * i + 64] = pub.y_bytes
+        except (AttributeError, ValueError):
+            pass  # a zero key verifies no signature
+        if len(it.digest) == 32:
+            digs[32 * i:32 * i + 32] = it.digest
+        sig_off[i] = len(sigs)
+        sig_len[i] = len(it.signature)
+        sigs += it.signature
+    out = np.zeros(n, np.uint8)
+    if lib.fabric_ecdsa_verify_host(n, bytes(qxy), bytes(digs), bytes(sigs),
+                                    sig_off, sig_len, out) != 0:
+        return None  # no libcrypto on this host
+    mask = out.astype(bool)
+    for i, it in enumerate(items):
+        if len(it.digest) != 32:
+            mask[i] = False  # hostref rejects it; the zero row would too
+    return mask.tolist()
+
+
+def ecdsa_impl() -> str:
+    """Which verifier `ecdsa_verify_host` runs: "libcrypto", or "none"
+    where no libcrypto loads (it then returns None)."""
+    none = np.zeros(0, np.int32)
+    rc = load().fabric_ecdsa_verify_host(0, b"", b"", b"", none, none,
+                                          np.zeros(0, np.uint8))
+    return "libcrypto" if rc == 0 else "none"
 
 
 def _g1_buffers(points, scalars):
@@ -285,5 +359,6 @@ def sha256_impl() -> str:
     return "libcrypto" if load().fabric_collect_sha256_impl() else "scalar"
 
 
-__all__ = ["build", "load", "marshal_batch", "bn254_msm", "bn254_mul_many",
+__all__ = ["NativeBuildError", "build", "load", "marshal_batch",
+           "ecdsa_verify_host", "ecdsa_impl", "bn254_msm", "bn254_mul_many",
            "bn254_pairing_check", "collect_block", "sha256_impl"]

@@ -279,3 +279,74 @@ def test_txids_repeated_depth_blocks_later_are_caught_while_commits_land(
     assert flags == [[0] * 3] * depth + [[0] * 3 + [9]] * (n_blocks - depth)
     assert ledger.height == n_blocks + 1
     provider.close()
+
+
+def _txid(env: bytes) -> str:
+    payload = cb.Payload.decode(cb.Envelope.decode(env).payload)
+    return cb.ChannelHeader.decode(payload.header.channel_header).tx_id
+
+
+class ReleasingLedger(chip_smoke.EmptyLedger):
+    """A ledger whose commits land between a block's one batched txid
+    probe and its window check: `tx_ids_exist` answers from the txids
+    committed so far, then lands every commit handed to `stage` (their
+    txids become known, and their release callables run), as a committer
+    thread finishing during a collect would."""
+
+    def __init__(self, txids_of: list):
+        self.txids_of = txids_of
+        self.committed: set = set()
+        self.pending: list = []
+
+    def stage(self, release) -> None:
+        self.pending.append((self.txids_of[len(self.pending)], release))
+
+    def tx_id_exists(self, txid: str) -> bool:
+        return txid in self.committed
+
+    def tx_ids_exist(self, txids) -> set:
+        answer = {t for t in txids if t in self.committed}
+        for txids, release in self.pending:
+            if not txids <= self.committed:
+                self.committed |= txids
+                release()
+        return answer
+
+
+def test_txid_window_release_racing_the_probe_diverges_from_the_reference(
+        world):
+    """24 blocks at depth 3, each repeating a transaction of the block 3
+    before it, with every release landing right after the repeating
+    block's ledger probe.  The JAX package's window drops the txids at
+    once (`seen_txids.difference_update` on the releasing thread), so the
+    repeat meets neither the probe nor the window and is VALID (0): its
+    txid would be committed twice.  The port queues the release until the
+    next block's collect, so every repeat is DUPLICATE_TXID (9).  A
+    recorded fault of the reference (ROADMAP, Queue C)."""
+    w = world.world
+    n_blocks, depth, prev = 24, 3, w.genesis_hash
+    blocks, envs, txids_of = [], [], []
+    for b in range(n_blocks):
+        envs.append([chip_smoke.endorsed_tx(w, 200 + b, i, 3)
+                     for i in range(3)])
+        data = list(envs[b]) + ([envs[b - depth][1]] if b >= depth else [])
+        blk = port_pu.new_block(1 + b, prev)
+        blk.data = cb.BlockData(data=data)
+        blk.header.data_hash = port_pu.block_data_hash(blk.data)
+        prev = port_pu.block_header_hash(blk.header)
+        blocks.append(blk.encode())
+        txids_of.append({_txid(e) for e in data})
+    jax_ledger = ReleasingLedger(txids_of)
+    jax = JaxValidator(CH, jax_ledger, world.jax_bundle, SWCSP())
+    jax_flags = [list(f) for f in jax.validate_pipeline(
+        [common_pb2.Block.FromString(b) for b in blocks], depth=depth,
+        release=jax_ledger.stage)]
+    port_ledger = ReleasingLedger(txids_of)
+    port = TxValidator(CH, port_ledger, world.port_bundle,
+                       CUDACSP(device="cpu", min_device_batch=1 << 30))
+    port_flags = [list(f) for f in port.validate_pipeline(
+        [cb.Block.decode(b) for b in blocks], depth=depth,
+        release=port_ledger.stage)]
+    first = [[0] * 3] * depth
+    assert jax_flags == first + [[0] * 4] * (n_blocks - depth)
+    assert port_flags == first + [[0] * 3 + [9]] * (n_blocks - depth)

@@ -232,7 +232,7 @@ def _record_dispatch(monkeypatch):
         calls.append("host")
         return [True] * len(sigs)
 
-    def device(sigs, ipk, msgs, rng=None, device=None):
+    def device(sigs, ipk, msgs, rng=None, device=None, on_device_fault=None):
         calls.append(("device", str(device)))
         return [True] * len(sigs)
 
@@ -280,25 +280,67 @@ def test_idemixcsp_rejects_other_devices():
 
 
 def test_device_error_propagates(msp, monkeypatch):
-    """A failing engine raises out of the batched verify; no host verify
-    runs in its place."""
+    """A failing engine at run time raises out of the batched verify on a
+    card, with no host verify in its place.  On the CPU the host answers,
+    as the JAX package's verify_batch_device does: the masks are the host
+    verify's, and the provider counts the signatures and the fault.  A
+    build failure raises everywhere (test_build_error_propagates)."""
     (_, _, _, _), cases, pipk = msp
     host_calls = []
+    real_verify_batch = psig.verify_batch
 
     def boom(*a, **k):
         raise RuntimeError("device exploded")
 
+    def host(*a, **k):
+        host_calls.append("verify_batch")
+        return real_verify_batch(*a, **k)
+
+    monkeypatch.setattr(bb, "schnorr_commitments_batch", boom)
+    monkeypatch.setattr(psig, "verify_batch", host)
+    sigs = [_to_port(c[1]) for c in cases[:2]]
+    msgs = [c[2] for c in cases[:2]]
+    want = [c[3] for c in cases[:2]]
+    answered = []
+    with pytest.raises(RuntimeError, match="device exploded"):
+        psig.verify_batch_device(sigs, pipk, msgs, device="cuda",
+                                 on_device_fault=answered.append)
+    assert answered == [0] and host_calls == []
+    assert psig.verify_batch_device(sigs, pipk, msgs, device="cpu",
+                                    on_device_fault=answered.append) == want
+    assert answered == [0, 2] and host_calls == ["verify_batch"]
+    csp = ip.IdemixCSP(device="cpu", use_device=True)
+    assert csp.verify_batch([ip.IdemixVerifyItem(s, m)
+                             for s, m in zip(sigs, msgs)], pipk) == want
+    assert csp.degraded_stats() == {"host_lanes": 2, "device_failures": 1}
+    assert host_calls == ["verify_batch"] * 2
+
+
+@pytest.mark.parametrize("error", ["kernel", "native"])
+def test_build_error_propagates(error, msp, monkeypatch):
+    """A kernel or C++ library that cannot build raises out of the
+    batched verify; no host verify runs in its place."""
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.csp.cuda import build
+
+    (_, _, _, _), cases, pipk = msp
+    exc = (build.KernelBuildError("nvcc failed") if error == "kernel"
+           else native.NativeBuildError("g++ failed"))
+    host_calls = []
+
+    def boom(*a, **k):
+        raise exc
+
     monkeypatch.setattr(bb, "schnorr_commitments_batch", boom)
     monkeypatch.setattr(psig, "verify_batch",
                         lambda *a, **k: host_calls.append("verify_batch"))
-    monkeypatch.setattr(psig, "_check_schnorr",
-                        lambda *a, **k: host_calls.append("_check_schnorr"))
     sigs = [_to_port(c[1]) for c in cases[:2]]
     msgs = [c[2] for c in cases[:2]]
-    with pytest.raises(RuntimeError, match="device exploded"):
+    with pytest.raises(type(exc)):
         psig.verify_batch_device(sigs, pipk, msgs, device="cpu")
     csp = ip.IdemixCSP(device="cpu", use_device=True)
-    with pytest.raises(RuntimeError, match="device exploded"):
+    with pytest.raises(type(exc)):
         csp.verify_batch([ip.IdemixVerifyItem(s, m)
                           for s, m in zip(sigs, msgs)], pipk)
     assert host_calls == []
+    assert csp.degraded_stats() == {"host_lanes": 0, "device_failures": 0}

@@ -52,6 +52,7 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 import numpy as np
+from fabric_tpu_torch import native
 from fabric_tpu_torch.csp import hostref
 from fabric_tpu_torch.csp.api import VerifyBatchItem
 from fabric_tpu_torch.csp.cuda.provider import CUDACSP
@@ -64,13 +65,31 @@ for i in range(3):
 items[1] = VerifyBatchItem(items[1].key, bytes(32), items[1].signature)
 mask = CUDACSP(device="cpu", min_device_batch=1).verify_batch(items)
 assert mask == [True, False, True], mask
+# the degraded mode: one breaker trip on an injected collect fault (the
+# host answers), then the probe closes it, on /metrics
+from fabric_tpu_torch.common import metrics
+from fabric_tpu_torch.devtools import faultline
+prom = metrics.PrometheusProvider()
+csp = CUDACSP(device="cpu", min_device_batch=1, breaker_threshold=1,
+              breaker_probe_every=1, metrics=metrics.CSPMetrics(prom))
+with faultline.use_plan({"faults": [{"point": "tpu.collect",
+                                     "action": "raise",
+                                     "error": "DeviceUnavailable",
+                                     "nth": 1}]}):
+    assert csp.verify_batch(items) == mask and csp.breaker_open
+    assert csp.verify_batch(items) == mask and not csp.breaker_open
+assert native.ecdsa_impl() in ("libcrypto", "none")
+assert csp.degraded_stats()["host_lanes"] == 3
+exposed = prom.registry.expose()
+assert "csp_tpu_breaker_trips_total 1" in exposed, exposed
+assert 'csp_tpu_breaker_probes_total{result="ok"} 1' in exposed, exposed
+csp.close()
 from fabric_tpu_torch.csp.idemix_provider import IdemixCSP
 from fabric_tpu_torch.idemix import bn254 as bn
 csp = IdemixCSP(device="cpu")
 assert bn.pairing_check([(bn.G1_GEN, bn.G2_GEN),
                          (bn.g1_neg(bn.G1_GEN), bn.G2_GEN)])
 import hashlib
-from fabric_tpu_torch import native
 assert native.bn254_msm([bn.G1_GEN], [5]) == bn._g1_mul_py(bn.G1_GEN, 5)
 msgs = [bytes([i % 256]) * (i % 50) for i in range(1300)]  # wide: B4's route
 assert CUDACSP(device="cpu").hash_batch(msgs) == [
@@ -177,7 +196,9 @@ def test_no_file_of_the_port_imports_forbidden_modules():
         "kvstore", "statedb", "txmgmt", "history", "pvtdatastorage",
         "confighistory", "blkstorage", "kvledger", "richquery",
         "bookkeeping", "snapshot")} | {
-        "peer/committer.py", "protoutil.py", "common/workpool.py"} <= scanned
+        "peer/committer.py", "protoutil.py", "common/workpool.py",
+        "common/metrics.py", "common/flogging.py", "devtools/faultline.py",
+        "devtools/clockskew.py", "devtools/knob_registry.py"} <= scanned
     bad = []
     for path in _port_files():
         for name in _imported(path):
@@ -222,6 +243,16 @@ def test_collect_cc_includes_the_standard_library_and_dlfcn_only():
     assert set(_ANGLE_INCLUDE.findall(text)) <= {
         "cstdint", "cstring", "string", "new", "dlfcn.h"}
     assert "collect.cc" in native.SOURCES
+
+
+def test_ecverify_cc_includes_the_standard_library_and_dlfcn_only():
+    """The host ECDSA verifier dlopens libcrypto: it includes no OpenSSL
+    header, no header of the JAX package, and no other file."""
+    text = (PORT / "native" / "ecverify.cc").read_text()
+    assert not _QUOTED_INCLUDE.findall(text)
+    assert set(_ANGLE_INCLUDE.findall(text)) <= {
+        "cstdint", "cstring", "map", "string", "vector", "dlfcn.h"}
+    assert "ecverify.cc" in native.SOURCES
 
 
 def test_cudacsp_defaults_to_the_card_and_raises_without_one():

@@ -306,16 +306,25 @@ def test_more_than_256_keys_fall_back_to_lane_keys(sw, monkeypatch):
 
 
 def test_dispatch_error_reaches_every_collector(sw, monkeypatch):
+    """A launch that fails at run time degrades the whole flush to the
+    host, as TPUCSP does: every collector gets the host's verdicts for its
+    own segment, the breaker counts one device failure (and stays closed
+    under its threshold of 3), and the host's lanes are counted.  A build
+    failure still raises (tests/test_torch_degraded.py)."""
     def broken(t):
         raise RuntimeError("launch failed")
 
     monkeypatch.setattr(pk, "verify_packed", broken)
-    csp = CUDACSP(device="cpu", min_device_batch=1, coalesce_lanes=10**6)
+    csp = CUDACSP(device="cpu", min_device_batch=1, coalesce_lanes=10**6,
+                  breaker_threshold=3)
     items = _block(sw, 2)
     cols = [csp.verify_batch_async(items[:4]), csp.verify_batch_async(items[4:])]
-    for col in cols:
-        with pytest.raises(RuntimeError, match="launch failed"):
-            col()
+    assert [col() for col in cols] == [sw.verify_batch(items[:4]),
+                                       sw.verify_batch(items[4:])]
+    assert (csp.breaker.open, csp.breaker._consecutive) == (False, 1)
+    stats = csp.degraded_stats()
+    assert (stats["device_failures"], stats["host_lanes"]) == (1, len(items))
+    csp.close()
 
 
 def test_hostref_matches_sw(sw):

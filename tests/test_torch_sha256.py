@@ -246,18 +246,32 @@ def test_hash_batch_across_the_launch_limit(monkeypatch):
 
 
 def test_hash_batch_has_no_hashlib_fallback(monkeypatch):
-    """A hash kernel that fails raises out of hash_batch, and hashlib does
-    not answer in its place (TPUCSP.hash_batch falls back to hashlib)."""
+    """A hash kernel that fails at run time has hashlib answer, as
+    TPUCSP.hash_batch does: the digests are hashlib's, the breaker counts
+    the failure, and the messages are counted.  A build failure still
+    raises, and hashlib does not answer in its place."""
+    from fabric_tpu_torch.csp.cuda import build
 
     def broken(buf, offs):
         raise RuntimeError("sha256 kernel launch failed")
+
+    msgs = _wide_batch()
+    monkeypatch.setattr(sha, "sha256_digests", broken)
+    csp = CUDACSP(device="cpu", breaker_threshold=3)
+    assert csp.hash_batch(msgs) == _hashlib(msgs)
+    assert (csp.breaker.open, csp.breaker._consecutive) == (False, 1)
+    assert csp.degraded_stats()["host_hashes"] == len(msgs)
+
+    def unbuildable(buf, offs):
+        raise build.KernelBuildError("nvcc failed: sha256.cu")
 
     class NoHashlib:
         @staticmethod
         def sha256(data=b""):
             raise AssertionError("hashlib answered")
 
-    monkeypatch.setattr(sha, "sha256_digests", broken)
+    monkeypatch.setattr(sha, "sha256_digests", unbuildable)
     monkeypatch.setattr(prov, "hashlib", NoHashlib)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        CUDACSP(device="cpu").hash_batch(_wide_batch())
+    with pytest.raises(build.KernelBuildError, match="nvcc failed"):
+        csp.hash_batch(msgs)
+    assert csp.breaker._consecutive == 1  # the build error is not counted
