@@ -89,6 +89,14 @@
    committed payments.  Prints committed and conflicted counts,
    committed tx/s, the commit stages, the workpool's counters, B1's
    launches and the MVCC width's A/B.
+   The sharded store (`phase_commit_sharded`): the commit cell again, into
+   a fresh root at FABRIC_TPU_STORE_SHARDS=4 (the namespace-sharded store
+   with its two-phase group flush), counted; the flags, every KV pair and
+   the snapshot of block 6, file for file, must equal the single-file
+   run's, B1 launch as often, and the root reopen sharded at height 9
+   with the knob unset.  Prints committed tx/s and ms a block beside the
+   single file's, and the flush's kv stages (kv_txn, prepare, commit,
+   apply, a shard's) beside the single file's kv_txn.
 7. SHA-256 (B4): drives `CUDACSP.hash_batch` at its callers' shapes (a
    block's 1000 per-transaction calls of three endorsement messages, a
    snapshot export's call over its five files), where hashlib answers and
@@ -116,10 +124,26 @@
    16-signature batch with a forged pairing, whose MSMs and pairing
    checks the C++ library and the pure-Python functions must agree on;
    splits the batch's wall time
-   by stage; times both paths at 1 to 256 signatures (the crossover);
+   by stage; times both paths at 1 to 256 signatures and prints the
+   measured crossover (the smallest size from which the card wins at
+   every size swept);
    times the kernel at 1024 lanes, prints its own count of field
    multiplications beside the bound's, and sweeps it over 32 to 4096
    lanes.
+   The idemix MSP (`phase_idemix_msp`): an issuer, 4 signer configs and
+   an `IdemixMSP` built from its own config bytes; 256 identities (fresh
+   nyms of the signers' credentials) deserialized, 8 of them planted (an
+   OU lie, a role lie, a wrong disclosure, a proof not bound to its nym,
+   a nym off the curve, a cut proof, a tampered challenge, another MSP's
+   id), each verdict and error checked; the 256 identity proofs (message
+   b"", 8 tampered) through one `IdemixCSP.verify_batch`, which takes the
+   card by its crossover, with B3's launch count set to 0 just before and
+   read just after, its mask the MSP's verdicts; 256 nym signatures
+   signed and verified, one flipped and refused; a CRI created and
+   verified on the port's P-384 (`csp/hostref384.py`), a flipped
+   signature byte and a flipped epoch_pk byte refused.  Prints
+   identities/s, proofs/s, nym signs and verifies a second, the CRI's
+   and P-384's sign and verify ms.
 9. The degraded mode (`phase_degraded`): a 4000-lane block through
    `CUDACSP` under faultline plans.  On a card the host answers nothing
    in the device's place, so each fault must reach the caller, counted:
@@ -136,9 +160,10 @@
    the degraded-mode counters of the providers it used and fails the run
    if any is not 0.
 10. Prints one JSON line of kernels (B1-B4; B1's with its launches on
-   the validator, commit, SmallBank and bootstrapped-ledger paths, B4's
-   with its launches at the snapshot's shape), then `{"ok": true,
-   "device": {...}}` as its last line.
+   the validator, commit, sharded-commit, SmallBank and
+   bootstrapped-ledger paths, B3's with its launches on the idemix MSP's
+   batch, B4's with its launches at the snapshot's shape), then
+   `{"ok": true, "device": {...}}` as its last line.
 
     python3 chip_smoke.py --commit-ab PARENT_TREE [TURNS]
 
@@ -146,6 +171,12 @@ runs `phase_commit` (the headline: committed tx/s) of another tree of
 this repository, unpacked by `git archive`, and of this one in turns
 (parent, this, this, parent, ...), each in a process of its own, and
 prints each turn's committed tx/s.
+
+    python3 chip_smoke.py --shards-ab [TURNS]
+
+runs `phase_commit` at FABRIC_TPU_STORE_SHARDS 1 and 4 in turns (1, 4,
+4, 1, ...; 4 turns by default), one process, each into a fresh root, and
+prints each turn's committed tx/s and kv stages.
 
     python3 chip_smoke.py --multi-card
 
@@ -188,7 +219,7 @@ from fabric_tpu_torch.common import workpool
 from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
 from fabric_tpu_torch.common.crypto import CA
 from fabric_tpu_torch.common.metrics import CSPMetrics, PrometheusProvider
-from fabric_tpu_torch.csp import hostref
+from fabric_tpu_torch.csp import hostref, hostref384
 from fabric_tpu_torch.csp.api import (
     P256_B,
     P256_GX,
@@ -223,10 +254,12 @@ from fabric_tpu_torch.idemix.credential import (
     new_credential,
 )
 from fabric_tpu_torch.idemix.issuer import IssuerKey
+from fabric_tpu_torch.msp import idemixmsp
 from fabric_tpu_torch.msp.config import msp_config_from_ca
 from fabric_tpu_torch.msp.identity import SigningIdentity
 from fabric_tpu_torch.peer.txvalidator import TxValidator
 from fabric_tpu_torch.protos import common as cb
+from fabric_tpu_torch.protos import msp as mb
 from fabric_tpu_torch.protos import peer as pb
 from fabric_tpu_torch.protos import rwset as rw
 
@@ -290,7 +323,8 @@ IDEMIX_BASE_SIGS = 32  # signed in pure Python, then re-signed per lane
 IDEMIX_LANES = 1024
 B3_EDGE_LANES = 256
 FORGED_BATCH = 16
-CROSSOVER_SIZES = (1, 4, 16, 64, 256)
+CROSSOVER_SIZES = (1, 2, 3, 4, 8, 16, 64, 256)
+CROSSOVER_REPS = 5
 B3_SWEEP = (32, 256, 1024, 4096)
 # The previous design of the kernel, one thread per signature, on the same
 # card type (H100 80GB HBM3, 700 W; PERF.md, CUDA events, median of 5):
@@ -1396,26 +1430,296 @@ def mask_of(n: int, bad) -> list[bool]:
     return [j not in bad for j in range(n)]
 
 
-def phase_crossover(world: IdemixWorld, device,
-                    sizes=CROSSOVER_SIZES) -> None:
-    """verify_batch on the card and on the host at each size."""
+def phase_crossover(world: IdemixWorld, device, sizes=CROSSOVER_SIZES,
+                    reps: int = CROSSOVER_REPS) -> int | None:
+    """verify_batch on the card and on the host at each size, `reps`
+    times each in turns (the card first on even reps, the host first on
+    odd ones), through one provider per path warmed up once.  Returns the
+    measured crossover: the smallest size from which the card's median
+    beats the host's at every size swept (None if it never does).  Also
+    prints the smallest size from which the card's slowest rep beats the
+    host's fastest at every size swept (the spreads apart), and the
+    margin at each size."""
     ipk = world.ipk
+    csps = {use: new_idemix_csp(rng=random.Random(SEED), device=device,
+                                use_device=use) for use in (True, False)}
+    warm = [IdemixVerifyItem(s, m)
+            for s, m in idemix_lanes(world, 1, b"crossover-warm")]
+    for use, csp in csps.items():
+        check(all(csp.verify_batch(warm, ipk)), f"crossover warm-up "
+              f"rejected (device={use})")
+    wins, apart, margins = [], [], {}
     for size in sizes:
         items = [IdemixVerifyItem(s, m) for s, m in
                  idemix_lanes(world, size, b"crossover-%d" % size)]
-        times = {}
-        for use_device in (True, False):
-            csp = new_idemix_csp(rng=random.Random(SEED), device=device,
-                                 use_device=use_device)
-            t0 = time.perf_counter()
-            mask = csp.verify_batch(items, ipk)
-            times[use_device] = time.perf_counter() - t0
-            check(all(mask), f"crossover {size}: {mask.count(False)} "
-                  f"rejected (device={use_device})")
-        print(f"idemix crossover at {size} signatures: card "
-              f"{times[True]:.3f} s ({size / times[True]:.1f} sigs/s), "
-              f"host {times[False]:.3f} s ({size / times[False]:.1f} "
-              f"sigs/s); DEVICE_CROSSOVER = {IdemixCSP.DEVICE_CROSSOVER}")
+        times = {True: [], False: []}
+        for rep in range(reps):
+            for use in ((True, False) if rep % 2 == 0 else (False, True)):
+                t0 = time.perf_counter()
+                mask = csps[use].verify_batch(items, ipk)
+                times[use].append(time.perf_counter() - t0)
+                check(all(mask), f"crossover {size}: {mask.count(False)} "
+                      f"rejected (device={use})")
+        card = statistics.median(times[True])
+        host = statistics.median(times[False])
+        wins.append(card < host)
+        apart.append(max(times[True]) < min(times[False]))
+        margins[size] = (host - card) / host
+        print(f"idemix crossover at {size} signatures, median of {reps} in "
+              f"turns: card {card * 1e3:.2f} ms (range "
+              f"{min(times[True]) * 1e3:.2f}-{max(times[True]) * 1e3:.2f}; "
+              f"{size / card:.1f} sigs/s), host {host * 1e3:.2f} ms (range "
+              f"{min(times[False]) * 1e3:.2f}-{max(times[False]) * 1e3:.2f}; "
+              f"{size / host:.1f} sigs/s); the card {margins[size]:+.1%} "
+              "faster")
+
+    def from_on(flags) -> int | None:
+        out = None
+        for size, ok in zip(reversed(sizes), reversed(flags)):
+            if not ok:
+                break
+            out = size
+        return out
+
+    crossover, clear = from_on(wins), from_on(apart)
+    chosen = IdemixCSP.DEVICE_CROSSOVER
+    print(f"idemix crossover: the card's median wins from {crossover} "
+          f"signatures on, its slowest rep beats the host's fastest from "
+          f"{clear} on (sizes {list(sizes)}); DEVICE_CROSSOVER = {chosen}"
+          + (f", the card {margins[chosen]:+.1%} faster there"
+             if chosen in margins else ""))
+    return crossover
+
+
+# ---------------------------------------------------------------------------
+# The idemix MSP: identities, their proofs on B3, nym signatures, the CRI.
+# ---------------------------------------------------------------------------
+
+MSP_ID = "IdemixOrg"
+MSP_IDENTITIES = 256
+# the signers the identities take turns over: (OU, role, enrollment id)
+MSP_SIGNERS = (("ou1", idemixmsp.ROLE_MEMBER, "alice"),
+               ("ou2", idemixmsp.ROLE_ADMIN, "bob"),
+               ("ou1", idemixmsp.ROLE_ADMIN, "carol"),
+               ("ou3", idemixmsp.ROLE_MEMBER, "dave"))
+# a planted wire fault, and the start of the error it must raise
+MSP_LIES = {
+    "ou": "idemix identity: OU mismatch",
+    "role": "idemix identity: role mismatch",
+    "disclosure": "idemix identity: wrong disclosure",
+    "unbound": "idemix identity: proof not bound to nym",
+    "off_curve": "idemix identity: nym not on curve",
+    "malformed": "malformed idemix identity: ",
+    "challenge": "idemix identity: credential proof invalid",
+    "mspid": f"expected MSP ID {MSP_ID}, got OtherOrg",
+}
+# the proofs tampered in the B3 batch (chip_smoke.tamper's kinds)
+MSP_TAMPERED = ("challenge", "off_curve", "missing_response", "challenge",
+                "off_curve", "missing_response", "challenge", "off_curve")
+CRI_EPOCH = 7
+
+
+def msp_world(seed: int, n: int = MSP_IDENTITIES):
+    """An issuer with the MSP's 4 attributes, a signer config per
+    MSP_SIGNERS, an IdemixMSP built from its own config bytes (the first
+    signer its default), and n signing identities, each a fresh nym of
+    the next signer's credential."""
+    rng = random.Random(seed)
+    issuer = idemixmsp.generate_issuer(rng)
+    signers = [idemixmsp.issue_signer_config(issuer, MSP_ID, ou, role, eid,
+                                             rng=rng)
+               for ou, role, eid in MSP_SIGNERS]
+    conf = idemixmsp.idemix_msp_config(issuer, MSP_ID, signers[0],
+                                       epoch=CRI_EPOCH)
+    msp = idemixmsp.IdemixMSP.from_config(mb.MSPConfig.decode(conf.encode()),
+                                          rng=rng)
+    creds = [(int.from_bytes(sc.sk, "big"), Credential.from_bytes(sc.cred),
+              sc.organizational_unit_identifier, sc.role) for sc in signers]
+    ids = []
+    for j in range(n):
+        sk, cred, ou, role = creds[j % len(creds)]
+        ids.append(idemixmsp.IdemixSigningIdentity(
+            MSP_ID, sk, cred, issuer.ipk, ou, role, rng=rng))
+    return msp, issuer, ids
+
+
+def identity_with(raw: bytes, how: str, other: bytes = b"") -> bytes:
+    """A serialized idemix identity with one planted fault: a key of
+    MSP_LIES, or "proof:<kind>" for its proof through tamper(); `other`
+    lends its nym to "unbound"."""
+    sid = mb.SerializedIdentity.decode(raw)
+    sii = mb.SerializedIdemixIdentity.decode(sid.id_bytes)
+    if how.startswith("proof:"):
+        sii.proof = tamper(isig.Signature.from_bytes(sii.proof),
+                           how[len("proof:"):]).to_bytes()
+    elif how == "ou":
+        sii.ou = b"ou-forged"
+    elif how == "role":
+        role = int.from_bytes(sii.role, "big")
+        lie = (idemixmsp.ROLE_ADMIN if role == idemixmsp.ROLE_MEMBER
+               else idemixmsp.ROLE_MEMBER)
+        sii.role = lie.to_bytes(4, "big")
+    elif how == "disclosure":
+        proof = isig.Signature.from_bytes(sii.proof)
+        sii.proof = dataclasses.replace(
+            proof, disclosure=[True, False, False, False]).to_bytes()
+    elif how == "unbound":
+        donor = mb.SerializedIdemixIdentity.decode(
+            mb.SerializedIdentity.decode(other).id_bytes)
+        sii.nym_x, sii.nym_y = donor.nym_x, donor.nym_y
+    elif how == "off_curve":
+        y = (int.from_bytes(sii.nym_y, "big") + 1) % bn.P
+        sii.nym_y = y.to_bytes(32, "big")
+    elif how == "malformed":
+        sii.proof = sii.proof[:40]
+    elif how == "challenge":
+        sii.proof = tamper(isig.Signature.from_bytes(sii.proof),
+                           "challenge").to_bytes()
+    elif how == "mspid":
+        sid.mspid = "OtherOrg"
+    else:
+        raise ValueError(how)
+    sid.id_bytes = sii.encode()
+    return sid.encode()
+
+
+def msp_verdicts(msp, wire: list) -> tuple[list, list]:
+    """deserialize_identity over every identity: (identity or None,
+    error text or None) per identity."""
+    got, errors = [], []
+    for raw in wire:
+        try:
+            got.append(msp.deserialize_identity(raw))
+            errors.append(None)
+        except idemixmsp.IdemixMSPError as e:
+            got.append(None)
+            errors.append(str(e))
+    return got, errors
+
+
+def p384_ms(reps: int = TIMING_REPS) -> tuple[float, float]:
+    """hostref384's sign and verify of a CRI-sized message, ms (median)."""
+    key = hostref384.key_gen(random.Random(SEED))
+    data = b"idemix-cri" + bytes(137)
+    sig = key.sign(data)
+    return (host_ms(lambda: key.sign(data), reps),
+            host_ms(lambda: hostref384.verify(key.public_key(), sig, data),
+                    reps))
+
+
+def phase_idemix_msp(device, n: int = MSP_IDENTITIES,
+                     n_nym: int = MSP_IDENTITIES) -> dict:
+    """The idemix MSP on the card.  n identities deserialized, one of each
+    MSP_LIES planted, each verdict checked; the same n identity proofs
+    (msg b"", MSP_TAMPERED's 8 tampered) through one
+    `IdemixCSP.verify_batch` on the card, counted, its mask the MSP's
+    verdicts on those identities; n_nym nym signatures signed and
+    verified, one flipped and refused; a CRI created and verified with
+    the port's P-384, a flipped signature byte and a flipped epoch_pk byte
+    refused."""
+    t0 = time.perf_counter()
+    msp, issuer, ids = msp_world(SEED, n)
+    setup_s = time.perf_counter() - t0
+    raws = [ident.serialize() for ident in ids]
+    step = n // len(MSP_LIES)
+    lies = {j * step: how for j, how in enumerate(MSP_LIES)}
+    wire = [identity_with(raws[j], lies[j], raws[(j + 1) % n])
+            if j in lies else raws[j] for j in range(n)]
+    t0 = time.perf_counter()
+    got, errors = msp_verdicts(msp, wire)
+    deser_s = time.perf_counter() - t0
+    for j, ident in enumerate(ids):
+        if j in lies:
+            check(errors[j] is not None
+                  and errors[j].startswith(MSP_LIES[lies[j]]),
+                  f"identity {j} ({lies[j]}): {errors[j]!r}")
+        else:
+            check(got[j] is not None and got[j].nym == ident.nym
+                  and (got[j].ou, got[j].role) == (ident.ou, ident.role),
+                  f"identity {j} did not deserialize: {errors[j]!r}")
+    print(f"idemix MSP setup: issuer, {len(MSP_SIGNERS)} signer configs, "
+          f"the MSP from its config bytes and {n} signing identities in "
+          f"{setup_s:.2f} s")
+    print(f"idemix MSP: {n} identities deserialized in {deser_s:.3f} s = "
+          f"{n / deser_s:.1f} identities/s; the {len(lies)} planted "
+          f"({', '.join(MSP_LIES)}) refused, each with its own error")
+
+    # B3: the identities' proofs, 8 tampered, in one batch on the card
+    bad = {j * step + step // 2: how for j, how in enumerate(MSP_TAMPERED)}
+    wire = [identity_with(raws[j], "proof:" + bad[j]) if j in bad
+            else raws[j] for j in range(n)]
+    got, errors = msp_verdicts(msp, wire)
+    verdicts = [g is not None for g in got]
+    check([j for j, v in enumerate(verdicts) if not v] == sorted(bad),
+          f"MSP verdicts on the tampered proofs: {errors}")
+    # the proofs as the identities carry them (an off-curve a' does not
+    # parse from the wire: the MSP refuses it as malformed)
+    items = [IdemixVerifyItem(tamper(ident.proof, bad[j]) if j in bad
+                              else ident.proof, b"")
+             for j, ident in enumerate(ids)]
+    csp = new_idemix_csp(rng=random.Random(SEED), device=device)
+    bk.launches_bn254 = 0
+    bk.kernel_launches_bn254 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask = csp.verify_batch(items, msp.ipk)
+    batch_s = time.perf_counter() - t0
+    launches = bk.launches_bn254
+    check(mask == verdicts, "B3's mask differs from the MSP's verdicts at "
+          f"{[j for j in range(n) if mask[j] != verdicts[j]]}")
+    check(launches > 0, f"{B3_NAME} did not launch on the idemix MSP batch")
+    print(f"idemix MSP batch: {n} identity proofs ({len(bad)} tampered) "
+          f"through IdemixCSP.verify_batch in {batch_s:.3f} s = "
+          f"{n / batch_s:.1f} proofs/s; mask = the MSP's verdicts; "
+          f"{launches} launches of {B3_NAME} "
+          f"({bk.kernel_launches_bn254} CUDA kernel launches)")
+
+    # nym signatures
+    msgs = [b"tx-payload-%d" % j for j in range(n_nym)]
+    signers = [ids[j % n] for j in range(n_nym)]
+    t0 = time.perf_counter()
+    sigs = [ident.sign(m) for ident, m in zip(signers, msgs)]
+    sign_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = [msp.verify(ident, m, sig)
+          for ident, m, sig in zip(signers, msgs, sigs)]
+    verify_s = time.perf_counter() - t0
+    check(all(ok), f"nym signatures refused: {ok.count(False)}")
+    flipped = json.loads(sigs[0])
+    flipped["z_sk"] = (flipped["z_sk"] + 1) % bn.R
+    check(not msp.verify(signers[0], msgs[0], json.dumps(flipped).encode())
+          and not msp.verify(signers[0], msgs[1], sigs[0]),
+          "a flipped nym signature (or another message) was accepted")
+    print(f"idemix MSP nym signatures: {n_nym} signed in {sign_s:.3f} s "
+          f"({n_nym / sign_s:.1f}/s), verified in {verify_s:.3f} s "
+          f"({n_nym / verify_s:.1f} verifies/s); a flipped one refused")
+
+    # the revocation authority's CRI on the port's P-384
+    ra = csp.revocation_key_gen()
+    t0 = time.perf_counter()
+    cri = csp.create_cri(ra, CRI_EPOCH)
+    create_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    check(csp.verify_cri(ra.public_key(), cri), "the CRI does not verify")
+    verify_cri_ms = (time.perf_counter() - t0) * 1e3
+    back = type(cri).from_bytes(cri.to_bytes())
+    check(back == cri, "the CRI's JSON does not round-trip")
+    sig = bytearray(cri.epoch_pk_sig)
+    sig[len(sig) // 2] ^= 1
+    pk = bytearray(cri.epoch_pk)
+    pk[5] ^= 1
+    check(not csp.verify_cri(ra.public_key(), dataclasses.replace(
+        cri, epoch_pk_sig=bytes(sig))), "a flipped signature byte passed")
+    check(not csp.verify_cri(ra.public_key(), dataclasses.replace(
+        cri, epoch_pk=bytes(pk))), "a flipped epoch_pk byte passed")
+    sign_ms, verify_ms = p384_ms()
+    print(f"idemix MSP CRI (epoch {CRI_EPOCH}): created in {create_ms:.2f} "
+          f"ms, verified in {verify_cri_ms:.2f} ms; a flipped signature "
+          f"byte and a flipped epoch_pk byte refused; hostref384 (P-384, "
+          f"pure Python) sign {sign_ms:.2f} ms, verify {verify_ms:.2f} ms")
+    return {"launches": launches, "identities_per_s": n / deser_s,
+            "nym_verifies_per_s": n_nym / verify_s,
+            "p384_sign_ms": sign_ms, "p384_verify_ms": verify_ms}
 
 
 def b3_bound(packed: dict, n_shared: int) -> tuple[float, str]:
@@ -2551,10 +2855,13 @@ def phase_smallbank(device, world: ValidatorWorld, tmp: str,
     """The SmallBank stream through `Committer.store_stream(depth)` into an
     on-disk KVLedger with CUDACSP (B1), twice, counted from the first
     pass, each followed by a streamed pass at FABRIC_TPU_MVCC_POOL=0 (the
-    width's A/B); then once serially (width 0, store_block a block).
-    Holds the flags of the five passes and the build ledger's equal, the
-    first pass's verify mask against hostref, and every account's
-    balances against the replay of the committed payments."""
+    width's A/B); then once serially (width 0, store_block a block), and
+    once streamed at FABRIC_TPU_STORE_SHARDS = STORE_SHARDS.  Holds the
+    flags of the six passes and the build ledger's equal, the sharded
+    pass's KV pairs equal to the first pass's, its seed block's flush
+    spread over two shards or more, the first pass's verify mask against hostref, and
+    every account's balances against the replay of the committed
+    payments."""
     from fabric_tpu_torch.ledger.kvledger import LedgerProvider
     from fabric_tpu_torch.peer.committer import Committer
 
@@ -2587,6 +2894,7 @@ def phase_smallbank(device, world: ValidatorWorld, tmp: str,
                                           csp), ledger)
         check(committer.store_block(seed_blk) == [pb.VALID],
               "the seed block is not VALID")
+        seed_stages = dict(ledger.commit_stage_seconds)
         groups.clear()
         ledger.commit_stage_seconds.clear()
         csp.reset()
@@ -2607,6 +2915,7 @@ def phase_smallbank(device, world: ValidatorWorld, tmp: str,
             "launches": {"p256_verify_keytab": pk.launches_keytab,
                          "p256_verify_lanekeys": pk.launches_lanekeys},
             "stages": dict(ledger.commit_stage_seconds),
+            "seed_stages": seed_stages,
             "pool": workpool.stats(),
             "fanout": groups[0].mvcc.fanout,
             "parallel": sum(g.mvcc.parallel_prepare_blocks for g in groups),
@@ -2646,6 +2955,30 @@ def phase_smallbank(device, world: ValidatorWorld, tmp: str,
           "passes")
     check(first["flags"] == serial["flags"] == build_flags, "smallbank "
           "flags differ from the serial pass or the build ledger's")
+    # once more at STORE_SHARDS, held against the single-file first pass:
+    # the seed block writes both namespaces, which route to different
+    # shards, so its flush fans out over FABRIC_TPU_STORE_POOL; the
+    # payments write `checking` alone, one shard
+    os.environ["FABRIC_TPU_STORE_SHARDS"] = str(STORE_SHARDS)
+    try:
+        sharded = run("sharded", serial=False)
+    finally:
+        del os.environ["FABRIC_TPU_STORE_SHARDS"]
+    pairs = store_pairs(os.path.join(tmp, "sharded"))
+    check(sharded["flags"] == first["flags"], "smallbank flags differ "
+          f"between {STORE_SHARDS} shards and the single file")
+    check(pairs == store_pairs(os.path.join(tmp, "pass1")), f"smallbank: "
+          f"the sharded store's {len(pairs)} KV pairs differ from the single "
+          "file's")
+    touched = sorted(k for k in sharded["seed_stages"]
+                     if k.startswith("kv_shard"))
+    pool_width = min(workpool.stage_width("FABRIC_TPU_STORE_POOL"),
+                     len(touched))
+    check(len(touched) >= 2 and pool_width >= 2, f"smallbank: the sharded "
+          f"seed block's flush touched {touched} at pool width {pool_width}")
+    check(sharded["launches"]["p256_verify_keytab"] > 0,
+          f"B1 did not launch on the sharded smallbank path: "
+          f"{sharded['launches']}")
     check(first["launches"]["p256_verify_keytab"] > 0,
           f"B1 did not launch on the smallbank path: {first['launches']}")
     check(first["parallel"] > 0 and second["parallel"] > 0
@@ -2660,7 +2993,7 @@ def phase_smallbank(device, world: ValidatorWorld, tmp: str,
     n_blocks = len(blocks)
     for label, r in (("pass 1", first), ("width 0, 1", zero1),
                      ("pass 2", second), ("width 0, 2", zero2),
-                     ("serial", serial)):
+                     ("serial", serial), (f"{STORE_SHARDS} shards", sharded)):
         st = r["stages"]
         print(f"smallbank {label}: {len(flat)} payments in "
               f"{r['wall_s'] * 1e3:.1f} ms = "
@@ -2678,6 +3011,12 @@ def phase_smallbank(device, world: ValidatorWorld, tmp: str,
           f"against {zero1['wall_s'] * 1e3:.1f}, {zero2['wall_s'] * 1e3:.1f} "
           f"ms; mvcc a block {mvcc_ms[0]:.2f}, {mvcc_ms[1]:.2f} against "
           f"{mvcc_ms[2]:.2f}, {mvcc_ms[3]:.2f} ms")
+    print(f"smallbank {STORE_SHARDS} shards: flags and {len(pairs)} KV "
+          f"pairs equal to the single-file pass 1; the seed block's flush "
+          f"touched {', '.join(touched)} at store pool width {pool_width} "
+          f"(kv ms: {kv_line(sharded['seed_stages'], 1)}); the stream's kv "
+          f"stages per block, ms: {kv_line(sharded['stages'], n_blocks)} "
+          f"(pass 1: {kv_line(first['stages'], n_blocks)})")
     print(f"smallbank: {committed} committed, {len(flat) - committed} "
           f"conflicted of {len(flat)} (invalid_by_code {by_code}); flags "
           f"equal in the streamed passes (widths {first['fanout']} and 0), "
@@ -2686,6 +3025,7 @@ def phase_smallbank(device, world: ValidatorWorld, tmp: str,
           f"balances equal the replay of the committed payments; best "
           f"{committed / best['wall_s']:.0f} committed tx/s")
     return {"launches": first["launches"], "wall_s": first["wall_s"],
+            "launches_sharded": sharded["launches"],
             "best_s": best["wall_s"], "committed": committed,
             "conflicted": len(flat) - committed, "by_code": by_code}
 
@@ -2840,6 +3180,135 @@ def phase_snapshot(device, world: ValidatorWorld, blocks: list, com: dict,
 # the card; the idemix path's), driven by faultline plans, and the host
 # verifier.
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# The commit path on the namespace-sharded store.
+# ---------------------------------------------------------------------------
+
+STORE_SHARDS = 4
+KV_STAGES = ("kv_txn", "kv_prepare", "kv_commit", "kv_apply")
+
+
+def store_pairs(root: str) -> list:
+    """Every KV pair of a ledger root, less the sharded store's own
+    records (its width and flush epoch)."""
+    from fabric_tpu_torch.ledger import kvstore
+
+    kv = kvstore.open_store_root(root)
+    try:
+        return [(k, v) for k, v in kv.iterate()
+                if not k.startswith(b"\x00storev2\x00")]
+    finally:
+        kv.close()
+
+
+def dir_files(path: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def kv_line(stages: dict, n_blocks: int) -> str:
+    shards = sorted(k for k in stages if k.startswith("kv_shard"))
+    return ", ".join(f"{k} {stages.get(k, 0.0) / n_blocks * 1e3:.2f}"
+                     for k in KV_STAGES + tuple(shards))
+
+
+def phase_commit_sharded(device, world: ValidatorWorld, blocks: list,
+                         expect: dict, conflicts: dict, com: dict, tmp: str,
+                         depth: int = DEPTH,
+                         shards: int = STORE_SHARDS) -> dict:
+    """phase_commit again, into a fresh root at FABRIC_TPU_STORE_SHARDS =
+    `shards` (B1 on the card, counted), held against `com`, the
+    single-file run of the same blocks: the flags, every KV pair, the
+    snapshot of block SNAP_BLOCK file for file, and B1's launches; the
+    root must reopen sharded, at its width and height, with the knob
+    unset."""
+    from fabric_tpu_torch.ledger import kvstore
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+
+    root_dir = os.path.join(tmp, "sharded")
+    os.environ["FABRIC_TPU_STORE_SHARDS"] = str(shards)
+    try:
+        shc = phase_commit(device, world, blocks, expect, conflicts,
+                           depth=depth, root_dir=root_dir)
+    finally:
+        del os.environ["FABRIC_TPU_STORE_SHARDS"]
+    n_blocks = len(blocks)
+    check(shc["flags"] == com["flags"], "the sharded run's flags differ "
+          "from the single-file run's")
+    pairs = store_pairs(shc["root"])
+    check(pairs == store_pairs(com["root"]), f"the sharded store's "
+          f"{len(pairs)} KV pairs differ from the single-file store's")
+    if com["snapshot_dir"] is not None:
+        check(dir_files(shc["snapshot_dir"])
+              == dir_files(com["snapshot_dir"]), f"the snapshot of block "
+              f"{SNAP_BLOCK} differs from the single-file run's")
+    provider = LedgerProvider(shc["root"])
+    height = provider.open(VALIDATOR_CHANNEL).height
+    kv = provider.kv
+    check(isinstance(kv, kvstore.ShardedKVStore) and kv.shards == shards
+          and height == n_blocks + 1, f"the sharded root reopened as "
+          f"{type(kv).__name__} at height {height}")
+    files = sorted(f for f in os.listdir(shc["root"]) if f.endswith(".sqlite"))
+    provider.close()
+    b1 = shc["launches"][B1_NAME]
+    check(b1 == com["launches"][B1_NAME], f"B1 launched {b1} times on the "
+          f"sharded run, {com['launches'][B1_NAME]} on the single file")
+    n_tx = sum(len(f) for f in shc["flags"])
+    print(f"commit sharded: {shards} shards ({', '.join(files)}): "
+          f"{n_tx / shc['wall_s']:.0f} committed tx/s, "
+          f"{shc['wall_s'] / n_blocks * 1e3:.1f} ms a block; the single file "
+          f"in this run {n_tx / com['wall_s']:.0f} tx/s, "
+          f"{com['wall_s'] / n_blocks * 1e3:.1f} ms a block; "
+          f"{shc['flushes']} group flushes; {b1} launches of {B1_NAME}")
+    print("commit sharded: kv stages per block, ms: "
+          f"{kv_line(shc['stages'], n_blocks)} (single file: "
+          f"{kv_line(com['stages'], n_blocks)})")
+    print(f"commit sharded: flags, {len(pairs)} KV pairs and the snapshot of "
+          f"block {SNAP_BLOCK} equal to the single file's; reopened at "
+          f"height {height} with the knob unset")
+    return shc
+
+
+def shards_ab(turns: int = 4) -> int:
+    """phase_commit at widths 1 and STORE_SHARDS in turns (1, 4, 4, 1,
+    ...), one process, each into a fresh root; prints each turn's
+    committed tx/s and kv stages."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    print_device()
+    phase_build()
+    world = validator_world(SEED)
+    blocks, expect, conflicts = validator_blocks(
+        world, N_BLOCKS, N_TXS, world.genesis_hash, mvcc=True)
+    widths = [(1, STORE_SHARDS), (STORE_SHARDS, 1)]
+    order = [w for t in range(turns) for w in widths[t % 2]][:turns]
+    rates = collections.defaultdict(list)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ab_") as tmp:
+        for turn, width in enumerate(order):
+            os.environ["FABRIC_TPU_STORE_SHARDS"] = str(width)
+            try:
+                run = phase_commit(device, world, blocks, expect, conflicts,
+                                   root_dir=os.path.join(tmp, f"t{turn}"))
+            finally:
+                del os.environ["FABRIC_TPU_STORE_SHARDS"]
+            rate = N_BLOCKS * N_TXS / run["wall_s"]
+            rates[width].append(rate)
+            print(f"shards A/B turn {turn}: width {width}, {rate:.0f} "
+                  f"committed tx/s; kv stages per block, ms: "
+                  f"{kv_line(run['stages'], N_BLOCKS)}")
+            host_check(f"shards A/B turn {turn}")
+    workpool.shutdown()
+    print("shards A/B: " + "; ".join(
+        f"width {w}: " + ", ".join(f"{r:.0f}" for r in rs)
+        for w, rs in sorted(rates.items())) + " committed tx/s")
+    return 0
+
 
 DEGRADED_THRESHOLD = 3
 DEGRADED_PROBE_EVERY = 2
@@ -3225,20 +3694,9 @@ def multi_card(turns: int = 3, n_flushes: int = MULTI_FLUSHES,
     return 0
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["--commit-ab"] and len(argv) in (2, 3):
-        return commit_ab(argv[1], *(int(a) for a in argv[2:]))
-    if argv == ["--multi-card"]:
-        return multi_card()
-    if argv:
-        print("usage: chip_smoke.py [--commit-ab PARENT_TREE [TURNS] | "
-              "--multi-card]", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    device = torch.device("cuda", 0)
+def print_device() -> str:
+    """Prints the card's name, and its name and power limit as nvidia-smi
+    gives them; returns the name."""
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3248,6 +3706,26 @@ def main(argv=None) -> int:
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     print(f"nvidia-smi: {smi}")
+    return kind
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--commit-ab"] and len(argv) in (2, 3):
+        return commit_ab(argv[1], *(int(a) for a in argv[2:]))
+    if argv == ["--multi-card"]:
+        return multi_card()
+    if argv[:1] == ["--shards-ab"] and len(argv) in (1, 2):
+        return shards_ab(*(int(a) for a in argv[1:]))
+    if argv:
+        print("usage: chip_smoke.py [--commit-ab PARENT_TREE [TURNS] | "
+              "--multi-card | --shards-ab [TURNS]]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    kind = print_device()
     phase_build()
     phase_native()
     phase_sass()
@@ -3281,17 +3759,22 @@ def main(argv=None) -> int:
         host_check("commit")
         snp = phase_snapshot(device, world, blocks, com, tmp)
         host_check("snapshot")
+        shc = phase_commit_sharded(device, world, blocks, expect, conflicts,
+                                   com, tmp)
+        host_check("commit sharded")
         sb = phase_smallbank(device, world, os.path.join(tmp, "smallbank"))
         host_check("smallbank")
     b1 = next(row for row in rows if row["name"] == B1_NAME)
     for label, run in (("validator", val), ("commit", com),
-                       ("smallbank", sb), ("bootstrap", snp)):
+                       ("commit_sharded", shc), ("smallbank", sb),
+                       ("bootstrap", snp)):
         b1[f"launches_{label}"] = run["launches"][B1_NAME]
         busy = b1[f"launches_{label}"] * b1["ms"]
         wall = run["wall_s"] * 1e3
         print(f"{label}: device busy (B1) ~{busy:.1f} ms of the {wall:.1f} "
               f"ms wall ({busy / wall:.1%}; launches x B1's ms at 8000 "
               "lanes)")
+    b1["launches_smallbank_sharded"] = sb["launches_sharded"][B1_NAME]
     phase_churn(rng, device)
     host_check("churn")
     rows.append(phase_sha256(rng, device, errs))
@@ -3311,7 +3794,10 @@ def main(argv=None) -> int:
     host_check("idemix")
     phase_crossover(world, device)
     host_check("crossover")
+    msp = phase_idemix_msp(device)
+    host_check("idemix msp")
     rows.append(phase_b3_kernel(main_b3, errs))
+    rows[-1]["launches_idemix_msp"] = msp["launches"]
     phase_b3_sweep(main_b3["tensors"])
     phase_degraded(rng, device, world)
     workpool.shutdown()

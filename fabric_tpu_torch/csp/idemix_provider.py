@@ -3,9 +3,10 @@ batched verify's Schnorr recomputation on the CUDA card.
 
 Counterpart of `fabric_tpu/csp/idemix_provider.py` (reference
 bccsp/idemix/bccsp.go and its handlers): issuer and user key generation,
-credential request/issue/verify and presentation sign/verify, single and
-batched, as explicit methods over `fabric_tpu_torch.idemix`.  Nym
-signatures and revocation come with a later slice.
+credential request/issue/verify, presentation sign/verify (single and
+batched), nym sign/verify and the revocation authority's CRI, as
+explicit methods over `fabric_tpu_torch.idemix`.  The revocation
+authority signs with the port's P-384 (`csp/hostref384.py`).
 
 `verify_batch` picks the device path by batch size, as the reference
 provider does, but the device is fixed at construction: `device="cuda"`
@@ -24,7 +25,7 @@ from typing import Sequence
 import torch
 
 from fabric_tpu_torch.idemix import bn254 as bn
-from fabric_tpu_torch.idemix import signature
+from fabric_tpu_torch.idemix import nymsignature, revocation, signature
 from fabric_tpu_torch.idemix.credential import (
     CredRequest,
     Credential,
@@ -45,10 +46,17 @@ class IdemixVerifyItem:
 class IdemixCSP:
     """Stateless provider; keys are passed explicitly."""
 
-    # Batches at or above this size take the device path.  The value is
-    # the JAX package's, measured on a TPU; chip_smoke.py times both paths
-    # on the card at 1 to 256 signatures to re-measure it.
-    DEVICE_CROSSOVER = 100
+    # Batches at or above this size take the device path: the smallest
+    # size at which the card's time beat the host's by more than 10% in
+    # every sweep of `chip_smoke.phase_crossover` (1-256 signatures, both
+    # paths on the C++ library) on an NVIDIA H100 80GB HBM3 at a 700.00 W
+    # power limit (PERF.md).  One rep a size, card first: 1 signature took
+    # 23 ms on the card and 18 ms on the host, 2 took 19 ms each way, 3
+    # took 25 and 31 ms.  The median of 5 reps in turns through warmed
+    # providers, two runs: 2 took 27.2 against 30.1 ms and 24.0 against
+    # 25.9 ms (the card 7.5-9.7% faster, the reps overlapping); 3 took
+    # 27.7 against 36.1 ms and 28.7 against 35.1 ms (18.2-23.2% faster).
+    DEVICE_CROSSOVER = 3
 
     def __init__(self, rng=None, device="cuda", use_device: bool | None = None,
                  device_crossover: int | None = None):
@@ -167,6 +175,32 @@ class IdemixCSP:
                 on_device_fault=self._note_device_fault,
             )
         return signature.verify_batch(sigs, ipk, msgs, rng=self._rng)
+
+    # -- nym signatures -------------------------------------------------------
+
+    def nym_sign(
+        self, sk: int, nym, r_nym: int, ipk: IssuerPublicKey, msg: bytes
+    ) -> nymsignature.NymSignature:
+        return nymsignature.new_nym_signature(
+            sk, nym, r_nym, ipk, msg, rng=self._rng
+        )
+
+    def nym_verify(
+        self, sig: nymsignature.NymSignature, nym, ipk: IssuerPublicKey,
+        msg: bytes,
+    ) -> bool:
+        return nymsignature.verify_nym(sig, nym, ipk, msg)
+
+    # -- revocation -----------------------------------------------------------
+
+    def revocation_key_gen(self):
+        return revocation.generate_long_term_revocation_key(self._rng)
+
+    def create_cri(self, ra_key, epoch: int):
+        return revocation.create_cri(ra_key, epoch, rng=self._rng)
+
+    def verify_cri(self, ra_pub, cri) -> bool:
+        return revocation.verify_epoch_pk(ra_pub, cri)
 
 
 __all__ = ["IdemixCSP", "IdemixVerifyItem"]

@@ -1,14 +1,15 @@
 """faultline: deterministic fault injection at named points.
 
 The port's copy of the JAX package's `fabric_tpu/devtools/faultline.py`,
-cut to the points the CSP provider visits.  Plans are data that
-operators and tests write, so the plan format, its actions and triggers,
-and the point names (``tpu.dispatch``, ``tpu.collect``, ``tpu.hash``)
-are the JAX package's: one plan, armed in both packages, drives both
-alike.  The points are no-ops unless a plan is armed: `point()` is a
-module-global load and an ``is None`` test.  The reference's file,
-socket and guard seams (`write`, `io`, `guard`) wait for the port's
-network and storage slices.
+cut to the points the CSP provider and the sharded store visit.  Plans
+are data that operators and tests write, so the plan format, its actions
+and triggers, and the point names (``tpu.dispatch``, ``tpu.collect``,
+``tpu.hash``, ``store.shard_flush``) are the JAX package's: one plan,
+armed in both packages, drives both alike.  The points are no-ops
+unless a plan is armed: `point()` is a module-global load and an ``is
+None`` test.  The reference's file, socket and guard seams (`write`,
+`io`, `guard`, among them the sharded store's ``store.shard_recover``
+guard) wait for the port's network and storage slices.
 
 A PLAN is a JSON document (inline in ``FABRIC_TPU_FAULTLINE``, or
 ``@/path/to/plan.json``, or passed to :func:`activate` /

@@ -1,0 +1,70 @@
+"""Pseudonym signatures (reference idemix/nymsignature.go; the port's copy
+of `fabric_tpu/idemix/nymsignature.py`).
+
+A nym signature proves knowledge of (sk, r_nym) with
+Nym = HSk^sk * HRand^r_nym over a message: no credential, no pairing
+(the reference's NymSignature.Ver is three scalar multiplications, here
+through the C++ library's `g1_mul`).  The idemix MSP signs each
+transaction with one once the session pseudonym is established.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from fabric_tpu_torch.idemix import bn254 as bn
+from fabric_tpu_torch.idemix.issuer import IssuerPublicKey
+
+
+@dataclasses.dataclass
+class NymSignature:
+    challenge: int
+    z_sk: int
+    z_rnym: int
+
+
+def _challenge(t, nym, ipk: IssuerPublicKey, msg: bytes) -> int:
+    return bn.hash_to_zr(
+        b"idemix-nym-signature",
+        bn.g1_to_bytes(t),
+        bn.g1_to_bytes(nym),
+        ipk.hash(),
+        msg,
+    )
+
+
+def new_nym_signature(
+    sk: int,
+    nym: tuple,
+    r_nym: int,
+    ipk: IssuerPublicKey,
+    msg: bytes,
+    rng=None,
+) -> NymSignature:
+    rho_sk = bn.rand_zr(rng)
+    rho_r = bn.rand_zr(rng)
+    t = bn.g1_add(bn.g1_mul(ipk.h_sk, rho_sk), bn.g1_mul(ipk.h_rand, rho_r))
+    c = _challenge(t, nym, ipk, msg)
+    return NymSignature(
+        challenge=c,
+        z_sk=(rho_sk + c * sk) % bn.R,
+        z_rnym=(rho_r + c * r_nym) % bn.R,
+    )
+
+
+def verify_nym(
+    sig: NymSignature, nym: tuple, ipk: IssuerPublicKey, msg: bytes
+) -> bool:
+    if nym is None or not bn.g1_is_on_curve(nym):
+        return False
+    t = bn.g1_add(
+        bn.g1_add(
+            bn.g1_mul(ipk.h_sk, sig.z_sk),
+            bn.g1_mul(ipk.h_rand, sig.z_rnym),
+        ),
+        bn.g1_mul(nym, (-sig.challenge) % bn.R),
+    )
+    return _challenge(t, nym, ipk, msg) == sig.challenge
+
+
+__all__ = ["NymSignature", "new_nym_signature", "verify_nym"]

@@ -1,19 +1,22 @@
 """The port's ledger (a copy of `fabric_tpu/ledger/`): the KV store SPI on
-sqlite, the versioned state DB with rich-query indexes (`richquery`), the
+sqlite (one file, or the namespace-sharded store with its two-phase
+flush), the versioned state DB with rich-query indexes (`richquery`), the
 transaction simulator and MVCC validation (its prepare and preload fanned
 out per namespace on `common/workpool`), the history DB, the private-data
 and config-history stores, the block store, snapshots (export, verify,
 import, the request manager) with their bookkeeping, and `KVLedger` with
-its query executor and `LedgerProvider`.  The namespace-sharded store,
-the transient store, chaincode event management, the admin tools and the
-remote snapshot fetch are not ported."""
+its query executor and `LedgerProvider`, the transient store, chaincode
+event management and the offline admin tools (`admin`).  The remote
+snapshot fetch is not ported."""
 
 from fabric_tpu_torch.ledger.kvstore import (
     KVStore,
     MemKVStore,
     NamedDB,
+    ShardedKVStore,
     SqliteKVStore,
     WriteBatchCollector,
+    open_kvstore,
 )
 from fabric_tpu_torch.ledger.statedb import Height, VersionedDB, VersionedValue
 from fabric_tpu_torch.ledger.blkstorage import BlockStore, BlockStoreError
@@ -27,11 +30,19 @@ from fabric_tpu_torch.ledger.kvledger import (
     QueryExecutor,
     extract_rwsets,
 )
+from fabric_tpu_torch.ledger.transientstore import TransientStore
+from fabric_tpu_torch.ledger.cceventmgmt import (
+    ChaincodeDefinitionEvent,
+    ChaincodeEventMgr,
+)
+from fabric_tpu_torch.ledger import admin
 
 __all__ = [
     "KVStore",
     "MemKVStore",
     "SqliteKVStore",
+    "ShardedKVStore",
+    "open_kvstore",
     "NamedDB",
     "WriteBatchCollector",
     "CommitGroup",
@@ -49,4 +60,8 @@ __all__ = [
     "LedgerProvider",
     "QueryExecutor",
     "extract_rwsets",
+    "TransientStore",
+    "ChaincodeDefinitionEvent",
+    "ChaincodeEventMgr",
+    "admin",
 ]

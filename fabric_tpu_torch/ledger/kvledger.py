@@ -24,6 +24,7 @@ import threading
 import time
 
 from fabric_tpu_torch import protoutil
+from fabric_tpu_torch.devtools import faultline
 from fabric_tpu_torch.ledger import snapshot as snap
 from fabric_tpu_torch.ledger.blkstorage import BlockStore, BlockStoreError
 from fabric_tpu_torch.ledger.confighistory import ConfigHistoryMgr
@@ -345,13 +346,21 @@ class KVLedger:
                 self._blocks.sync_files(group.dirty_files)
                 t1 = time.perf_counter()
                 group.collector.flush()
-            except BaseException:
+            except BaseException as exc:
                 # the buffered index is gone, so the unindexed appends go
-                # too; height and hash return to the durable ones
-                self._rollback_group(group)
+                # too; height and hash return to the durable ones.  A
+                # simulated process death (faultline's FaultCrash) skips
+                # the unwind: reopen must run the real recovery
+                if not faultline.is_crash(exc):
+                    self._rollback_group(group)
                 raise
             t2 = time.perf_counter()
             self._observe_stages(fsync=t1 - t0, kv_txn=t2 - t1)
+            # the sharded store's two-phase flush: its per-phase and
+            # per-shard splits say where inside kv_txn the time went
+            sub = getattr(self._kv, "last_stage_seconds", None)
+            if sub:
+                self._observe_stages(**{f"kv_{k}": v for k, v in sub.items()})
             self._state.invalidate_caches()
             self._durable_height = self._blocks.height
             self._durable_hash = self._blocks.last_block_hash
@@ -539,9 +548,11 @@ class QueryExecutor:
 class LedgerProvider:
     """Creates and opens the channels' ledgers under one root (reference
     kv_ledger_provider.go and ledgermgmt): one sqlite file
-    `<root>/index.sqlite` for every channel's KV data, block files under
-    `<root>/<channel>/chains`, snapshots under `snapshots_dir` (default
-    `<root>/snapshots`); `root_dir=None` keeps everything in memory.
+    `<root>/index.sqlite` for every channel's KV data (with
+    `state_NN.sqlite` shard files under FABRIC_TPU_STORE_SHARDS > 1),
+    block files under `<root>/<channel>/chains`, snapshots under
+    `snapshots_dir` (default `<root>/snapshots`); `root_dir=None` keeps
+    everything in memory.
     `csp` hashes the snapshots' files (`CUDACSP.hash_batch` on the card;
     the host's hashlib when None)."""
 
@@ -554,6 +565,9 @@ class LedgerProvider:
         self._snapshots_dir = snapshots_dir
         if root_dir is not None:
             os.makedirs(root_dir, exist_ok=True)
+        # one sqlite file by default; FABRIC_TPU_STORE_SHARDS > 1 (or a
+        # sharded layout on disk) mounts the namespace-sharded store with
+        # its two-phase flush behind the same KVStore SPI
         self._kv = open_store_root(root_dir)
         self._ledgers: dict[str, KVLedger] = {}
 

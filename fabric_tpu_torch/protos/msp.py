@@ -7,6 +7,7 @@ from fabric_tpu_torch.protos.wire import (
     INT32,
     MESSAGE,
     STRING,
+    UINT64,
     Field,
     Message,
 )
@@ -14,6 +15,16 @@ from fabric_tpu_torch.protos.wire import (
 
 class SerializedIdentity(Message):
     FIELDS = (Field(1, "mspid", STRING), Field(2, "id_bytes", BYTES))
+
+
+class SerializedIdemixIdentity(Message):
+    FIELDS = (
+        Field(1, "nym_x", BYTES),
+        Field(2, "nym_y", BYTES),
+        Field(3, "ou", BYTES),
+        Field(4, "role", BYTES),
+        Field(5, "proof", BYTES),
+    )
 
 
 class MSPConfig(Message):
@@ -70,4 +81,25 @@ class FabricMSPConfig(Message):
         Field(9, "tls_root_certs", BYTES, repeated=True),
         Field(10, "tls_intermediate_certs", BYTES, repeated=True),
         Field(11, "fabric_node_ous", MESSAGE, "FabricNodeOUs"),
+    )
+
+
+class IdemixMSPConfig(Message):
+    FIELDS = (
+        Field(1, "name", STRING),
+        Field(2, "ipk", BYTES),
+        Field(3, "signer", BYTES),
+        Field(4, "revocation_pk", BYTES),
+        Field(5, "epoch", UINT64),
+    )
+
+
+class IdemixMSPSignerConfig(Message):
+    FIELDS = (
+        Field(1, "cred", BYTES),
+        Field(2, "sk", BYTES),
+        Field(3, "organizational_unit_identifier", STRING),
+        Field(4, "role", INT32),
+        Field(5, "enrollment_id", BYTES),
+        Field(6, "credential_revocation_information", BYTES),
     )

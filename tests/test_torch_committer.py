@@ -225,14 +225,22 @@ def test_a_failed_group_rolls_back_to_the_durable_height(world, tmp_path):
 
 
 def test_the_sharded_store_and_a_missing_sqlite3_raise(tmp_path, monkeypatch):
+    """The sharded store opens (a shard file on disk, or the knob above
+    1); a knob that is not an integer and a missing sqlite3 raise."""
     root = tmp_path / "sharded"
     root.mkdir()
     (root / "state_00.sqlite").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        LedgerProvider(str(root))
+    provider = LedgerProvider(str(root))
+    assert isinstance(provider.kv, kvstore.ShardedKVStore)
+    assert provider.kv.shards == 2  # the knob's 1, raised to the minimum
+    provider.close()
     monkeypatch.setenv("FABRIC_TPU_STORE_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="STORE_SHARDS=2"):
-        LedgerProvider(str(tmp_path / "fresh"))
+    provider = LedgerProvider(str(tmp_path / "fresh"))
+    assert isinstance(provider.kv, kvstore.ShardedKVStore)
+    assert provider.kv.shards == 2
+    provider.close()
+    assert sorted(p.name for p in (tmp_path / "fresh").glob("*.sqlite")) == \
+        ["index.sqlite", "state_00.sqlite", "state_01.sqlite"]
     monkeypatch.setenv("FABRIC_TPU_STORE_SHARDS", "two")
     with pytest.raises(ValueError, match="not an integer shard count"):
         LedgerProvider(str(tmp_path / "fresh"))
