@@ -97,6 +97,33 @@
    with the knob unset.  Prints committed tx/s and ms a block beside the
    single file's, and the flush's kv stages (kv_txn, prepare, commit,
    apply, a shard's) beside the single file's kv_txn.
+   The joining peer (`phase_fetch`): the snapshot of block 6 served by a
+   port `RPCServer` (``admin.SnapshotFetch``) under mutual TLS with
+   certificates of the port's CA, fetched over loopback by a port
+   `RPCClient` (bytes, ms and MB/s printed) byte for byte; a new ledger
+   joins from it and streams blocks 7-8 through `store_stream` with
+   `CUDACSP`, B1 counted, its flags the original's and its KV pairs the
+   bootstrapped ledger's; a netsplit plan severing the joiner from the
+   donor makes the fetch raise NetsplitDenied, and after the heal it
+   fetches again; a `raise` at ``snapshot.fetch.chunk`` (the third
+   chunk) surfaces as RPCError and the partial directory is refused at
+   import.
+   The seams armed (`phase_traced_commit`): the commit cell twice more,
+   into fresh roots, under `tracing.scope()` and then also under
+   `profile.scope()`; flags, KV pairs, block files and the snapshot must
+   equal the untraced pass's.  Prints both passes' committed tx/s
+   beside the untraced one's, `critical_path_ms` per stage a block, the
+   spans recorded and dropped, the top `self_cpu_ms` spans, the collect
+   stage's top collapsed stacks and the lock roles' waits.  Every other
+   phase must leave the tracing, profiling and netsplit seams' lookup
+   counts where they were (`host_check`).
+   Key custody (`phase_custody`): a `KeyCustodyServer` thread generates
+   and holds 4 keys; a `CustodyCSP` whose local provider is `CUDACSP`
+   signs 4000 digests through it (signs/s printed), then verifies them
+   as one block-shaped `verify_batch` with 16 digests flipped (B1,
+   counted) and 1200 lanes over 300 custody keys with 4 signatures
+   flipped (B2, counted); each mask must be the planted one, the
+   kernel's plain version's on the same packed lanes, and hostref's.
 7. SHA-256 (B4): drives `CUDACSP.hash_batch` at its callers' shapes (a
    block's 1000 per-transaction calls of three endorsement messages, a
    snapshot export's call over its five files), where hashlib answers and
@@ -160,8 +187,8 @@
    the degraded-mode counters of the providers it used and fails the run
    if any is not 0.
 10. Prints one JSON line of kernels (B1-B4; B1's with its launches on
-   the validator, commit, sharded-commit, SmallBank and
-   bootstrapped-ledger paths, B3's with its launches on the idemix MSP's
+   the validator, commit, sharded-commit, SmallBank, bootstrapped-ledger,
+   joining-peer and custody paths, B2's on the last two, B3's with its launches on the idemix MSP's
    batch, B4's with its launches at the snapshot's shape), then
    `{"ok": true, "device": {...}}` as its last line.
 
@@ -170,7 +197,8 @@
 runs `phase_commit` (the headline: committed tx/s) of another tree of
 this repository, unpacked by `git archive`, and of this one in turns
 (parent, this, this, parent, ...), each in a process of its own, and
-prints each turn's committed tx/s.
+prints each turn's committed tx/s, each tree's median and quartiles, the
+pairs this tree won, and the unarmed seams' calls and ns a block.
 
     python3 chip_smoke.py --shards-ab [TURNS]
 
@@ -195,6 +223,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -215,7 +244,7 @@ import torch
 from fabric_tpu_torch import native
 from fabric_tpu_torch import protoutil as pu
 from fabric_tpu_torch.common import configtx_builder as ctx
-from fabric_tpu_torch.common import workpool
+from fabric_tpu_torch.common import profile, tracing, workpool
 from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
 from fabric_tpu_torch.common.crypto import CA
 from fabric_tpu_torch.common.metrics import CSPMetrics, PrometheusProvider
@@ -243,7 +272,7 @@ from fabric_tpu_torch.csp.cuda import sha256 as sha
 from fabric_tpu_torch.csp.cuda.limbs import int_to_words, words_to_int
 from fabric_tpu_torch.csp.cuda.provider import CUDACSP, hash_on_card
 from fabric_tpu_torch.csp.idemix_provider import IdemixCSP, IdemixVerifyItem
-from fabric_tpu_torch.devtools import faultline
+from fabric_tpu_torch.devtools import faultline, netsplit
 from fabric_tpu_torch.idemix import bn254 as bn
 from fabric_tpu_torch.idemix import schnorr
 from fabric_tpu_torch.idemix import signature as isig
@@ -403,11 +432,40 @@ def new_idemix_csp(**kw) -> IdemixCSP:
     return csp
 
 
-def host_check(label: str, degraded: bool = False) -> dict:
+# The armed-path counts of the tracing, profiling and netsplit seams as
+# the last check left them: an unarmed phase must not move them.
+SEAM_COUNTS: list = []
+
+
+def seam_counts() -> tuple:
+    return (tracing.lookup_count(), profile.lookup_count(),
+            netsplit.lookup_count())
+
+
+def seams_check(label: str) -> None:
+    """Fails the run if the seams were consulted since the last check
+    (an unarmed phase must find each one a global load and a None
+    test)."""
+    now = seam_counts()
+    if SEAM_COUNTS:
+        moved = [b - a for a, b in zip(SEAM_COUNTS[0], now)]
+        check(moved == [0, 0, 0], f"{label}: the unarmed seams were "
+              f"consulted: tracing, profile, netsplit {moved}")
+    SEAM_COUNTS[:] = [now]
+
+
+def host_check(label: str, degraded: bool = False,
+               armed: bool = False) -> dict:
     """Sums the degraded-mode counters of every provider made since the
     last check and prints them.  Outside phase_degraded (`degraded`), a
     lane or digest the host answered in the device's place, a race, a
-    device failure or a breaker trip fails the run."""
+    device failure or a breaker trip fails the run.  Unless the phase
+    armed a seam (`armed`), the seams' lookup counts must not have moved
+    since the last check."""
+    if armed:
+        SEAM_COUNTS[:] = [seam_counts()]
+    else:
+        seams_check(label)
     total = dict.fromkeys(DEGRADED_KEYS, 0)
     for csp in PROVIDERS:
         for k, v in csp.degraded_stats().items():
@@ -2425,6 +2483,9 @@ class RecordingCSP:
 
         return collector
 
+    def verify_batch(self, items):
+        return self.verify_batch_async(items)()
+
     def reset(self) -> None:
         self.batches.clear()
         self.dispatch_s = 0.0
@@ -2535,7 +2596,8 @@ def fs_type(path: str) -> str:
 
 def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
                  conflicts: dict, depth: int = DEPTH,
-                 root_dir: str | None = None) -> dict:
+                 root_dir: str | None = None, mask_check: bool = True,
+                 on_start=None) -> dict:
     """Validate and commit the blocks through the port's
     `Committer.store_stream` into an on-disk KVLedger (B1 on the card
     through CUDACSP; MVCC at the default width), counted; then hold the
@@ -2543,8 +2605,9 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
     at least SNAP_BLOCK blocks, a snapshot requested before the run is
     generated as block SNAP_BLOCK commits.  The ledger lives under
     `root_dir`, kept for phase_snapshot, else under a temporary directory
-    removed at the end."""
-    import contextlib
+    removed at the end.  `mask_check` False skips the hostref mask check
+    (a pass whose flags are held against a checked one); `on_start` runs
+    just before the timed run (a traced pass clears its recorder)."""
     import sqlite3
 
     from fabric_tpu_torch.ledger import snapshot as snap
@@ -2625,6 +2688,8 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
             lambda block, flags: durable.append(time.perf_counter()))
         csp.reset()
         csp.inner.drain()
+        if on_start is not None:
+            on_start()
         pk.launches_keytab = 0
         pk.launches_lanekeys = 0
         torch.cuda.synchronize()
@@ -2694,7 +2759,8 @@ def phase_commit(device, world: ValidatorWorld, blocks: list, expect: dict,
         want_hist = [(MVCC_BLOCK, 1), (DUP_BLOCK, 2)]
         check(hist == want_hist, f"history of {HIST_KEY}: {hist}, expected "
               f"{want_hist}")
-        lanes = check_mask(csp, "commit")
+        lanes = (check_mask(csp, "commit") if mask_check
+                 else sum(len(b) for b, _ in csp.batches))
 
         # reopen: a fresh provider on the same directory
         before = (ledger.height, ledger.durable_block_hash,
@@ -3176,6 +3242,368 @@ def phase_snapshot(device, world: ValidatorWorld, blocks: list, com: dict,
 
 
 # ---------------------------------------------------------------------------
+# The runtime seams armed: the commit cell traced and profiled.
+# ---------------------------------------------------------------------------
+
+TRACE_STAGES = ("collect", "verify_wait", "policy", "mvcc", "block_append",
+                "pvt", "state", "history", "fsync", "kv_txn")
+
+
+def ledger_view(root: str) -> tuple:
+    """A closed ledger root's KV pairs and block files' bytes."""
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+
+    provider = LedgerProvider(root)
+    pairs = list(provider.kv.iterate())
+    provider.close()
+    return pairs, dir_files(os.path.join(root, VALIDATOR_CHANNEL, "chains"))
+
+
+def phase_traced_commit(device, world: ValidatorWorld, blocks: list,
+                        expect: dict, conflicts: dict, com: dict, tmp: str,
+                        depth: int = DEPTH) -> dict:
+    """phase_commit's cell twice more, each into a fresh root: under
+    `tracing.scope()`, then under `tracing.scope()` and `profile.scope()`.
+    Each pass's flags, KV pairs, block files and snapshot must equal the
+    untraced pass's (`com`).  Prints the traced pass's committed tx/s
+    beside the untraced one's, `critical_path_ms` per stage over the
+    blocks, the spans recorded and dropped; then the profiled pass's top
+    `self_cpu_ms` stages and the collect stage's top collapsed stacks."""
+    want = ledger_view(com["root"])
+    want_snap = dir_files(com["snapshot_dir"])
+    runs = {}
+    for label in ("traced", "profiled"):
+        prof_scope = (profile.scope() if label == "profiled"
+                      else contextlib.nullcontext())
+
+        def fresh():
+            tracing.reset()
+            profile.reset()
+
+        with tracing.scope(capacity=1 << 16) as rec, prof_scope as prof:
+            run = phase_commit(device, world, blocks, expect, conflicts,
+                               depth=depth, mask_check=False,
+                               root_dir=os.path.join(tmp, label),
+                               on_start=fresh)
+            doc = tracing.export(rec)
+            pdoc = prof.export() if prof is not None else None
+        check(run["flags"] == com["flags"], f"the {label} pass's flags "
+              "differ from the untraced pass's")
+        check(ledger_view(run["root"]) == want, f"the {label} pass's KV "
+              "pairs or block files differ from the untraced pass's")
+        check(dir_files(run["snapshot_dir"]) == want_snap, f"the {label} "
+              "pass's snapshot differs from the untraced pass's")
+        check(run["launches"][B1_NAME] > 0, f"B1 did not launch in the "
+              f"{label} pass")
+        runs[label] = (run, doc, pdoc)
+    run, doc, _ = runs["traced"]
+    events = doc["traceEvents"]
+    spans = [ev for ev in events if ev["ph"] == "X"]
+    recorded = doc["otherData"]["last_event_id"]
+    cp = tracing.critical_path_ms(events)
+    n_blocks = len(blocks)
+    untraced = com["wall_s"]
+    n_tx = n_blocks * len(cb.Block.decode(blocks[0]).data.data)
+    print(f"traced commit: {n_blocks} blocks in {run['wall_s'] * 1e3:.1f} "
+          f"ms = {n_tx / run['wall_s']:.0f} committed tx/s against "
+          f"{n_tx / untraced:.0f} untraced ({run['wall_s'] / untraced:.3f}x "
+          f"the wall); flags, KV pairs, block files and the snapshot equal "
+          f"the untraced pass's; launches {run['launches']}")
+    print("traced commit: critical_path_ms per block (over the "
+          f"{n_blocks} blocks): " + ", ".join(
+              f"{k} {cp.get(k, 0.0) / n_blocks:.2f}" for k in TRACE_STAGES)
+          + f"; sum {sum(cp.values()) / n_blocks:.2f} ms; other stages "
+          + (", ".join(f"{k} {v / n_blocks:.2f}" for k, v in sorted(
+              cp.items()) if k not in TRACE_STAGES) or "none"))
+    names = collections.Counter(ev["name"] for ev in spans)
+    print(f"traced commit: {recorded} events recorded ({len(spans)} spans "
+          f"kept, {recorded - len(events)} dropped by the ring); spans by "
+          "name: " + ", ".join(f"{k} {v}" for k, v in sorted(names.items())))
+    run_p, _, pdoc = runs["profiled"]
+    other = pdoc["otherData"]
+    top = sorted(other["self_cpu_ms"].items(), key=lambda kv: -kv[1])[:8]
+    print(f"profiled commit: {n_tx / run_p['wall_s']:.0f} committed tx/s "
+          f"({run_p['wall_s'] / untraced:.3f}x the untraced wall); "
+          f"{other['samples']} samples at {other['interval_s'] * 1e3:.0f} "
+          "ms; self_cpu_ms by span: "
+          + ", ".join(f"{k} {v:.0f}" for k, v in top))
+    stacks = []
+    for line in other["collapsed"]:
+        stack, _, count = line.rpartition(" ")
+        if "_collect_block" in stack:
+            stacks.append((int(count), stack.split(";")))
+    stacks.sort(key=lambda sc: -sc[0])
+    for count, frames in stacks[:5]:
+        print(f"profiled commit: collect stack x{count}: "
+              + " <- ".join(reversed(frames[-4:])))
+    locks = sorted(other["locks"].items(), key=lambda kv: -kv[1]["wait_s"])
+    print("profiled commit: lock waits " + ", ".join(
+        f"{r} {c['wait_s'] * 1e3:.1f} ms / {c['wait_count']}"
+        for r, c in locks[:5]) + f"; workpool {other['workpool']}")
+    return {"wall_s": run["wall_s"], "critical_path_ms": cp,
+            "profiled_wall_s": run_p["wall_s"], "spans": len(spans),
+            "dropped": recorded - len(events)}
+
+
+# ---------------------------------------------------------------------------
+# A joining peer: the snapshot fetched over mutual TLS, the chain after it
+# streamed through B1.
+# ---------------------------------------------------------------------------
+
+FETCH_CA_SEED = 13
+
+
+def phase_fetch(device, world: ValidatorWorld, blocks: list, com: dict,
+                tmp: str, depth: int = DEPTH) -> dict:
+    """phase_commit's snapshot of block SNAP_BLOCK served by a port
+    RPCServer (``admin.SnapshotFetch``) under mutual TLS with
+    certificates of the port's CA, fetched by a port RPCClient over
+    loopback (timed), byte for byte the served files; a new ledger joins
+    from it (verify included) and the blocks after it stream through
+    `store_stream` with CUDACSP, B1 counted: the flags must be the
+    original ledger's and the KV pairs phase_snapshot's bootstrapped
+    ledger's.  Then a netsplit plan that severs the joiner from the
+    donor makes the fetch raise NetsplitDenied, and after the heal it
+    fetches again; a `raise` at ``snapshot.fetch.chunk`` (the third
+    chunk) surfaces as RPCError, and an import of the partial directory
+    is refused."""
+    from fabric_tpu_torch.comm import RPCClient, RPCError, RPCServer
+    from fabric_tpu_torch.comm.tls import credentials_from_ca
+    from fabric_tpu_torch.ledger import snapshot as snap
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+    from fabric_tpu_torch.peer.committer import Committer
+
+    snap_dir = com["snapshot_dir"]
+    served = dir_files(snap_dir)
+    nbytes = sum(len(v) for v in served.values())
+    snapshots_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        snap_dir)))
+    ca = CA("tlsca.fetch.example.com", "fetch.example.com",
+            rng=np.random.default_rng(FETCH_CA_SEED))
+    donor = RPCServer(tls=credentials_from_ca(ca, "donor"))
+    donor.register("admin.SnapshotFetch",
+                   snap.snapshot_fetch_handler(snapshots_root))
+    donor.start()
+    joiner_tls = credentials_from_ca(ca, "joiner")
+    check(donor.tls.require_client_auth and joiner_tls.verify_server_name,
+          "the fetch is not mutual TLS")
+
+    def fetch(dest: str) -> str:
+        return snap.fetch_snapshot(RPCClient(*donor.addr, tls=joiner_tls),
+                                   VALIDATOR_CHANNEL, SNAP_BLOCK,
+                                   os.path.join(tmp, dest))
+
+    try:
+        t0 = time.perf_counter()
+        got = fetch("fetched")
+        fetch_s = time.perf_counter() - t0
+        check(dir_files(got) == served, "the fetched snapshot differs from "
+              "the served one")
+        csp = RecordingCSP(new_cuda_csp(device=device))
+        provider = LedgerProvider(os.path.join(tmp, "joiner"), csp=csp)
+        t0 = time.perf_counter()
+        ledger = provider.create_from_snapshot(got)
+        import_s = time.perf_counter() - t0
+        bundle = bundle_from_genesis(world.genesis)
+        committer = Committer(TxValidator(VALIDATOR_CHANNEL, ledger, bundle,
+                                          csp), ledger)
+        after = blocks[SNAP_BLOCK:]
+        csp.inner.drain()
+        pk.launches_keytab = 0
+        pk.launches_lanekeys = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flags = list(committer.store_stream(after, depth=depth))
+        csp.inner.drain()
+        wall = time.perf_counter() - t0
+        launches = {B1_NAME: pk.launches_keytab,
+                    B2_NAME: pk.launches_lanekeys}
+        check(launches[B1_NAME] > 0, f"B1 did not launch on the joiner: "
+              f"{launches}")
+        check(flags == com["flags"][SNAP_BLOCK:], "the joiner's flags "
+              "differ from the original ledger's")
+        pairs = list(provider.kv.iterate())
+        provider.close()
+        boot = LedgerProvider(os.path.join(tmp, "bootstrapped"))
+        check(pairs == list(boot.kv.iterate()), "the joiner's KV pairs "
+              "differ from phase_snapshot's bootstrapped ledger's")
+        boot.close()
+        seams_check("fetch (unarmed)")
+
+        host, port = donor.addr
+        plan = {"mode": "full", "groups": [["joiner"], ["donor"]],
+                "node": "joiner", "addrs": {f"{host}:{port}": "donor"}}
+        with netsplit.use_plan(plan):
+            try:
+                fetch("severed")
+                denied = None
+            except netsplit.NetsplitDenied as e:
+                denied = str(e)
+        # the receiver makes its directory first; a denied connect leaves
+        # it empty
+        check(denied is not None and not os.listdir(
+            os.path.join(tmp, "severed")), "a severed joiner fetched")
+        check(dir_files(fetch("healed")) == served, "the fetch after the "
+              "heal differs")
+        torn_plan = {"faults": [{"point": "snapshot.fetch.chunk",
+                                 "action": "raise", "nth": 3}]}
+        with faultline.use_plan(torn_plan):
+            try:
+                fetch("partial")
+                torn = None
+            except RPCError as e:
+                torn = str(e)
+        check(torn is not None and "snapshot.fetch.chunk" in torn,
+              f"the torn stream did not raise: {torn}")
+        partial = os.path.join(tmp, "partial")
+        kept = len(os.listdir(partial))
+        check(0 < kept < len(served), f"the torn fetch left {kept} files")
+        refused = LedgerProvider(os.path.join(tmp, "refused"), csp=csp)
+        try:
+            refused.create_from_snapshot(partial)
+            why = None
+        except (snap.SnapshotError, OSError) as e:
+            why = str(e)
+        refused.close()
+        check(why is not None, "the partial snapshot was imported")
+    finally:
+        donor.stop()
+    n_tx = len(after) * len(cb.Block.decode(blocks[0]).data.data)
+    print(f"fetch: snapshot of block {SNAP_BLOCK} ({len(served)} files, "
+          f"{nbytes} bytes) over mutual TLS (loopback, the port's CA) in "
+          f"{fetch_s * 1e3:.1f} ms = {nbytes / fetch_s / 1e6:.1f} MB/s; "
+          f"byte for byte the served files")
+    print(f"fetch: joined from it in {import_s * 1e3:.1f} ms (verify "
+          f"included) and streamed blocks {SNAP_BLOCK + 1}-{len(blocks)} "
+          f"({n_tx} transactions) in {wall * 1e3:.1f} ms = "
+          f"{n_tx / wall:.0f} committed tx/s; launches {launches}; flags "
+          f"the original's, KV pairs phase_snapshot's")
+    print(f"fetch: severed by netsplit: NetsplitDenied ({denied}); healed "
+          f"and fetched again; a raise at the third chunk: RPCError "
+          f"({torn}), {kept} of {len(served)} files kept, import refused "
+          f"({why[:80]})")
+    return {"launches": launches, "wall_s": wall, "fetch_s": fetch_s,
+            "bytes": nbytes}
+
+
+# ---------------------------------------------------------------------------
+# Key custody: an HSM-style daemon signs, CUDACSP verifies on the card.
+# ---------------------------------------------------------------------------
+
+CUSTODY_KEYS = 4
+CUSTODY_SIGNS = 4000
+CUSTODY_TAMPERED = 16
+CUSTODY_WIDE_LANES = 1200  # the 300-key batch: 4 lanes a key
+
+
+def phase_custody(device, errs: dict) -> dict:
+    """A `KeyCustodyServer` (a thread over comm's RPC) generates and holds
+    CUSTODY_KEYS keys; a `CustodyCSP` whose local provider is CUDACSP on
+    the card signs CUSTODY_SIGNS digests through it (timed), then
+    verifies them as one block-shaped verify_batch with CUSTODY_TAMPERED
+    digests flipped (B1, counted), and a batch over MANY_KEYS custody
+    keys (B2, counted).  Each mask must be the planted one, the kernel's
+    plain version's on the same packed lanes, and hostref's.  On the
+    card, a CustodyCSP given no `verify_csp` must verify on CUDACSP
+    there."""
+    from fabric_tpu_torch.csp.custody import (
+        CustodyCSP,
+        CustodyKeyHandle,
+        KeyCustodyServer,
+    )
+
+    token = b"chip-smoke-custody"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_custody_") as keys:
+        daemon = KeyCustodyServer(keys, token)
+        daemon.start()
+        try:
+            if device.type == "cuda":
+                default = CustodyCSP(daemon.addr, token)._local
+                check(isinstance(default, CUDACSP)
+                      and default.device.type == "cuda",
+                      f"CustodyCSP's default local provider {default!r} "
+                      f"is not CUDACSP on the card")
+            local = RecordingCSP(new_cuda_csp(device=device))
+            csp = CustodyCSP(daemon.addr, token, verify_csp=local)
+            held = [csp.key_gen() for _ in range(CUSTODY_KEYS)]
+            check(all(isinstance(k, CustodyKeyHandle) for k in held)
+                  and len(os.listdir(keys)) == CUSTODY_KEYS,
+                  "the daemon does not hold the keys")
+            digests = [hashlib.sha256(b"custody-%d" % i).digest()
+                       for i in range(CUSTODY_SIGNS)]
+            t0 = time.perf_counter()
+            sigs = [csp.sign(held[i % CUSTODY_KEYS], d)
+                    for i, d in enumerate(digests)]
+            sign_s = time.perf_counter() - t0
+            items = [VerifyBatchItem(held[i % CUSTODY_KEYS], d, s)
+                     for i, (d, s) in enumerate(zip(digests, sigs))]
+            bad = list(range(7, CUSTODY_SIGNS, CUSTODY_SIGNS
+                             // CUSTODY_TAMPERED))[:CUSTODY_TAMPERED]
+            for i in bad:
+                it = items[i]
+                items[i] = VerifyBatchItem(
+                    it.key, bytes([it.digest[0] ^ 1]) + it.digest[1:],
+                    it.signature)
+            wide_keys = held + [csp.key_gen() for _ in
+                                range(MANY_KEYS - CUSTODY_KEYS)]
+            wide = []
+            for i in range(CUSTODY_WIDE_LANES):
+                key = wide_keys[i % MANY_KEYS]
+                d = hashlib.sha256(b"custody-wide-%d" % i).digest()
+                wide.append(VerifyBatchItem(key, d, csp.sign(key, d)))
+            n = CUSTODY_WIDE_LANES
+            wide_bad = [3, n // 3 + 1, 2 * n // 3 + 2, n - 1]
+            for i in wide_bad:
+                it = wide[i]
+                wide[i] = VerifyBatchItem(
+                    it.key, it.digest, it.signature[:-1] + bytes(
+                        [it.signature[-1] ^ 1]))
+            out = {}
+            for label, batch, planted in (("block", items, bad),
+                                          ("300-key", wide, wide_bad)):
+                local.inner.drain()
+                pk.launches_keytab = 0
+                pk.launches_lanekeys = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mask = csp.verify_batch(batch)
+                wall = time.perf_counter() - t0
+                launches = {B1_NAME: pk.launches_keytab,
+                            B2_NAME: pk.launches_lanekeys}
+                check([i for i, ok in enumerate(mask) if not ok] == planted,
+                      f"custody {label}: rejected "
+                      f"{[i for i, ok in enumerate(mask) if not ok][:20]}")
+                public = [VerifyBatchItem(it.key.public_key(), it.digest,
+                                          it.signature) for it in batch]
+                packed = pk.pack_items(public)
+                name = B1_NAME if label == "block" else B2_NAME
+                check(launches[name] > 0, f"custody {label}: {name} did not "
+                      f"launch: {launches}")
+                if name == B1_NAME:
+                    packed = pk.dedup_keys(packed)
+                plain = compare(name, packed, device, errs)
+                check(plain == mask, f"custody {label}: the card's mask "
+                      "differs from the plain version's")
+                out[label] = (wall, launches, len(batch))
+            lanes = check_mask(local, "custody")
+        finally:
+            daemon.stop()
+    print(f"custody: {CUSTODY_SIGNS} digests signed through the custody "
+          f"daemon ({CUSTODY_KEYS} keys, one RPC a signature) in "
+          f"{sign_s * 1e3:.1f} ms = {CUSTODY_SIGNS / sign_s:.0f} signs/s")
+    for label, (wall, launches, n) in out.items():
+        print(f"custody: {label} batch of {n} lanes through "
+              f"CustodyCSP.verify_batch on CUDACSP in {wall * 1e3:.1f} ms "
+              f"({n / wall:.0f} lanes/s); launches {launches}; mask the "
+              "planted one, the plain version's and hostref's")
+    print(f"custody: {lanes} lanes held against hostref")
+    return {"sign_s": sign_s, "launches": {
+        B1_NAME: out["block"][1][B1_NAME],
+        B2_NAME: out["300-key"][1][B2_NAME]},
+        "block_wall_s": out["block"][0], "wide_wall_s": out["300-key"][0]}
+
+
+# ---------------------------------------------------------------------------
 # The degraded mode (CUDACSP's breaker and probe, each fault raised on
 # the card; the idemix path's), driven by faultline plans, and the host
 # verifier.
@@ -3570,13 +3998,128 @@ def phase_degraded(rng, device, world: IdemixWorld, n_txs: int = N_TXS,
     return out
 
 
+# one --commit-ab turn, run in the tree under test: the world and blocks
+# come from the tree's own pickle when an earlier turn left one (the
+# signing takes most of a turn), so every turn of a tree commits the
+# same blocks
+AB_TURN = (
+    "import json, os, pickle, sys, torch\n"
+    "import chip_smoke as c\n"
+    "c.phase_build()\n"
+    "path = sys.argv[1]\n"
+    "if os.path.exists(path):\n"
+    "    with open(path, 'rb') as f:\n"
+    "        w, b, e, m = pickle.load(f)\n"
+    "else:\n"
+    "    w = c.validator_world(c.SEED)\n"
+    "    b, e, m = c.validator_blocks(w, c.N_BLOCKS, c.N_TXS, "
+    "w.genesis_hash, mvcc=True)\n"
+    "    with open(path, 'wb') as f:\n"
+    "        pickle.dump((w, b, e, m), f)\n"
+    "r = c.phase_commit(torch.device('cuda', 0), w, b, e, m)\n"
+    "c.workpool.shutdown()\n"
+    "print('AB ' + json.dumps({'wall_s': r['wall_s'], 'n': "
+    "c.N_BLOCKS * c.N_TXS}))\n"
+)
+
+
+def seam_functions() -> dict:
+    """The runtime seams on the commit path, by name: each is a global
+    load and a None test (or an environment read, `guarded`) while
+    nothing is armed."""
+    from fabric_tpu_torch.devtools import lockwatch
+
+    return {
+        "faultline.point": faultline.point,
+        "faultline.stall": faultline.stall,
+        "faultline.guard": faultline.guard,
+        "tracing.begin": tracing.begin,
+        "tracing.noop_enter": type(tracing.begin("x")).__enter__,
+        "tracing.noop_exit": type(tracing.begin("x")).__exit__,
+        "tracing.instant": tracing.instant,
+        "tracing.annotate": tracing.annotate,
+        "tracing.current": tracing.current,
+        "tracing.attached": tracing.attached,
+        "tracing.enabled": tracing.enabled,
+        "profile.enabled": profile.enabled,
+        "profile.note_chunk": profile.note_chunk,
+        "lockwatch.guarded": lockwatch.guarded,
+    }
+
+
+def seam_ns(calls: int = 200_000) -> dict:
+    """ns a call of each unarmed seam on this host (the loop's own cost
+    included), with the arguments the commit path gives it."""
+    from fabric_tpu_torch.devtools import lockwatch
+
+    span = tracing.begin("x")
+    args = {
+        "faultline.point": (("commit.stage",), {"stage": "mvcc"}),
+        "faultline.stall": (("tpu.collect",), {"n": 4000}),
+        "faultline.guard": (("recovery_truncate",), {}),
+        "tracing.begin": (("mvcc",), {"block": 1, "txs": 1000}),
+        "tracing.noop_enter": ((span,), {}),
+        "tracing.noop_exit": ((span, None, None, None), {}),
+        "tracing.instant": (("snapshot.stage",), {"stage": "x"}),
+        "tracing.annotate": ((), {"lanes": 4000}),
+        "tracing.current": ((), {}),
+        "tracing.attached": ((None,), {}),
+        "tracing.enabled": ((), {}),
+        "profile.enabled": ((), {}),
+        "profile.note_chunk": ((0.0, 0.0), {}),
+        "lockwatch.guarded": ((span, "_active_group"),
+                              {"by": "kvledger.commit_lock"}),
+    }
+    out = {}
+    for name, fn in seam_functions().items():
+        a, kw = args[name]
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn(*a, **kw)
+        out[name] = (time.perf_counter_ns() - t0) / calls
+    check(tracing.lookup_count() == 0 and profile.lookup_count() == 0,
+          "timing the unarmed seams moved their lookup counts")
+    return out
+
+
+# the census: this tree's headline commit with a profile hook that counts
+# the calls of every seam (the hook slows the run; nothing is timed)
+AB_CENSUS = (
+    "import collections, json, pickle, sys, threading, torch\n"
+    "import chip_smoke as c\n"
+    "c.phase_build()\n"
+    "with open(sys.argv[1], 'rb') as f:\n"
+    "    w, b, e, m = pickle.load(f)\n"
+    "codes = {fn.__code__: name for name, fn in "
+    "c.seam_functions().items()}\n"
+    "count = collections.Counter()\n"
+    "def hook(frame, event, arg):\n"
+    "    if event == 'call' and frame.f_code in codes:\n"
+    "        count[codes[frame.f_code]] += 1\n"
+    "def on_start():\n"
+    "    count.clear()\n"
+    "    threading.setprofile_all_threads(hook)\n"
+    "try:\n"
+    "    c.phase_commit(torch.device('cuda', 0), w, b, e, m, "
+    "on_start=on_start)\n"
+    "finally:\n"
+    "    threading.setprofile_all_threads(None)\n"
+    "c.workpool.shutdown()\n"
+    "print('CENSUS ' + json.dumps(dict(count)))\n"
+)
+
+
 def commit_ab(parent: str, turns: int = 4) -> int:
     """`python3 chip_smoke.py --commit-ab PARENT_TREE [TURNS]`: the
     headline's committed tx/s (phase_commit at full size) of another tree
     of this repository (the parent, unpacked by `git archive`) and of
     this one, in turns (parent, this, this, parent, ...), each in a
-    process of its own on card 0.  Prints one line a turn and the
-    ranges."""
+    process of its own on card 0.  Prints one line a turn, then each
+    tree's turns, median and quartiles, the pairs (a turn of each, in
+    order) this tree won, and what the unarmed seams cost: their calls a
+    block in this tree's run (counted from the timed run's start to the
+    end of phase_commit's checks, so an upper bound), each call's ns on
+    this host, and the product in ms a block."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3584,35 +4127,55 @@ def commit_ab(parent: str, turns: int = 4) -> int:
     trees = {"parent": os.path.abspath(parent), "this": here}
     order = [("parent", "this", "this", "parent")[k % 4]
              for k in range(turns)]
-    code = (
-        "import json, sys, torch\n"
-        "import chip_smoke as c\n"
-        "c.phase_build()\n"
-        "w = c.validator_world(c.SEED)\n"
-        "b, e, m = c.validator_blocks(w, c.N_BLOCKS, c.N_TXS, "
-        "w.genesis_hash, mvcc=True)\n"
-        "r = c.phase_commit(torch.device('cuda', 0), w, b, e, m)\n"
-        "c.workpool.shutdown()\n"
-        "print('AB ' + json.dumps({'wall_s': r['wall_s'], 'n': "
-        "c.N_BLOCKS * c.N_TXS}))\n"
-    )
     got: dict = {"parent": [], "this": []}
-    for label in order:
-        proc = subprocess.run([sys.executable, "-c", code], cwd=trees[label],
-                              capture_output=True, text=True)
-        for line in proc.stdout.splitlines():
-            if line.startswith("commit: 8 blocks"):
-                print(f"{label}: {line}")
+    seq = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ab_") as tmp:
+        cache = {label: os.path.join(tmp, f"{label}.pickle")
+                 for label in trees}
+        for label in order:
+            proc = subprocess.run(
+                [sys.executable, "-c", AB_TURN, cache[label]],
+                cwd=trees[label], capture_output=True, text=True)
+            for line in proc.stdout.splitlines():
+                if line.startswith("commit:"):
+                    print(f"{label}: {line}")
+            if proc.returncode != 0:
+                print(proc.stdout[-3000:], proc.stderr[-3000:],
+                      file=sys.stderr)
+                return proc.returncode
+            res = json.loads(proc.stdout.split("AB ", 1)[1].splitlines()[0])
+            got[label].append(res["n"] / res["wall_s"])
+            seq.append((label, got[label][-1]))
+            print(f"commit A/B turn {len(seq)}: {label} "
+                  f"{got[label][-1]:.0f} committed tx/s", flush=True)
+        proc = subprocess.run(
+            [sys.executable, "-c", AB_CENSUS, cache["this"]], cwd=here,
+            capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
             return proc.returncode
-        res = json.loads(proc.stdout.split("AB ", 1)[1].splitlines()[0])
-        got[label].append(res["n"] / res["wall_s"])
-        print(f"commit A/B turn {len(got['parent']) + len(got['this'])}: "
-              f"{label} {got[label][-1]:.0f} committed tx/s")
+        census = json.loads(
+            proc.stdout.split("CENSUS ", 1)[1].splitlines()[0])
     for label, vals in got.items():
+        q1, q2, q3 = (statistics.quantiles(vals, n=4) if len(vals) > 1
+                      else vals * 3)
         print(f"commit A/B {label}: {', '.join(f'{v:.0f}' for v in vals)} "
-              f"committed tx/s")
+              f"committed tx/s; median {statistics.median(vals):.1f}, "
+              f"quartiles {q1:.1f}-{q3:.1f}, range {min(vals):.0f}-"
+              f"{max(vals):.0f}")
+    pairs = [dict(seq[k:k + 2]) for k in range(0, len(seq) - 1, 2)]
+    wins = sum(p["this"] > p["parent"] for p in pairs)
+    print(f"commit A/B pairs: this tree won {wins} of {len(pairs)}")
+    ns = seam_ns()
+    cost = {name: census.get(name, 0) * ns[name] / N_BLOCKS / 1e6
+            for name in ns}
+    print("commit A/B unarmed seams a block: " + ", ".join(
+        f"{name} {census.get(name, 0) / N_BLOCKS:.1f} calls x "
+        f"{ns[name]:.0f} ns" for name in ns))
+    block_ms = N_TXS / statistics.median(got["this"]) * 1e3
+    print(f"commit A/B unarmed seams: {sum(cost.values()):.4f} ms a block "
+          f"(upper bound), against {block_ms:.1f} ms a block at this "
+          f"tree's median")
     return 0
 
 
@@ -3726,6 +4289,7 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda", 0)
     kind = print_device()
+    seams_check("start")
     phase_build()
     phase_native()
     phase_sass()
@@ -3759,11 +4323,16 @@ def main(argv=None) -> int:
         host_check("commit")
         snp = phase_snapshot(device, world, blocks, com, tmp)
         host_check("snapshot")
+        fet = phase_fetch(device, world, blocks, com, tmp)
+        host_check("fetch", armed=True)
         shc = phase_commit_sharded(device, world, blocks, expect, conflicts,
                                    com, tmp)
         host_check("commit sharded")
         sb = phase_smallbank(device, world, os.path.join(tmp, "smallbank"))
         host_check("smallbank")
+        phase_traced_commit(device, world, blocks, expect, conflicts, com,
+                            tmp)
+        host_check("traced commit", armed=True)
     b1 = next(row for row in rows if row["name"] == B1_NAME)
     for label, run in (("validator", val), ("commit", com),
                        ("commit_sharded", shc), ("smallbank", sb),
@@ -3775,6 +4344,14 @@ def main(argv=None) -> int:
               f"ms wall ({busy / wall:.1%}; launches x B1's ms at 8000 "
               "lanes)")
     b1["launches_smallbank_sharded"] = sb["launches_sharded"][B1_NAME]
+    cus = phase_custody(device, errs)
+    host_check("custody")
+    b2 = next(row for row in rows if row["name"] == B2_NAME)
+    for row in (b1, b2):
+        row["launches_fetch"] = fet["launches"][row["name"]]
+        row["launches_custody"] = cus["launches"][row["name"]]
+        # custody's comparisons with the plain version count too
+        row["max_abs_err"] = errs[row["name"]]["max_abs_err"]
     phase_churn(rng, device)
     host_check("churn")
     rows.append(phase_sha256(rng, device, errs))

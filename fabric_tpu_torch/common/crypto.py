@@ -7,7 +7,8 @@ order: a v3 certificate with a 159-bit serial, ECDSA-SHA256, UTF8String
 names (CN and O for a CA; CN and one OU per role for a leaf), validity
 from five minutes back, and the extensions basic constraints (critical),
 key usage (critical) and a SHA-256 subject key identifier, then for a
-leaf an authority key identifier and extended key usage.  CRLs are v2
+leaf an authority key identifier, subject alternative names (DNS and IP,
+when asked for) and extended key usage.  CRLs are v2
 over the serials revoked so far.  Keys and serials come from a
 `numpy.random.Generator` when one is given (a seeded world), else from
 `secrets`.
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import datetime
 import hashlib
+import ipaddress
 import secrets
 
 from fabric_tpu_torch.csp import hostref
@@ -86,6 +88,14 @@ _VALIDITY = datetime.timedelta(days=3650)
 _SPKI_ALG = seq(der_oid(x509.OID_EC_PUBLIC_KEY), der_oid(x509.OID_P256))
 
 
+def _general_name(name: str) -> bytes:
+    """An iPAddress [7] for an address literal, else a dNSName [2]."""
+    try:
+        return tlv(0x87, ipaddress.ip_address(name).packed)
+    except ValueError:
+        return tlv(0x82, name.encode("ascii"))
+
+
 def _ski(pub) -> bytes:
     return hashlib.sha256(pub.raw()).digest()
 
@@ -107,6 +117,12 @@ def key_pem(key) -> bytes:
                  tlv(0xA1, tlv(0x03, b"\x00" + pub.raw())))
     return x509.pem_encode(seq(der_int(0), _SPKI_ALG, tlv(0x04, ec_key)),
                            "PRIVATE KEY")
+
+
+def public_key_pem(pub) -> bytes:
+    """SubjectPublicKeyInfo PEM of a P-256 public key."""
+    return x509.pem_encode(seq(_SPKI_ALG, tlv(0x03, b"\x00" + pub.raw())),
+                           "PUBLIC KEY")
 
 
 class CertKeyPair:
@@ -174,26 +190,44 @@ class CA:
     def new_intermediate(self, common_name: str = "ica.example.com") -> "CA":
         return CA(common_name, self.org, parent=self)
 
-    def issue(self, common_name: str,
-              ous: list[str] | None = None) -> CertKeyPair:
-        """A leaf certificate (client-auth EKU) and its new key."""
+    def issue(self, common_name: str, ous: list[str] | None = None,
+              sans: list[str] | None = None, client: bool = True,
+              server: bool = False) -> CertKeyPair:
+        """A leaf certificate and its new key: client-auth EKU by
+        default, server-auth with ``server``, DNS/IP names in a subject
+        alternative name extension with ``sans``."""
         key = hostref.key_gen(self._rng)
+        cert = self.issue_for_public_key(common_name, key.public_key(),
+                                         ous=ous, sans=sans, client=client,
+                                         server=server)
+        return CertKeyPair(cert, key)
+
+    def issue_for_public_key(self, common_name: str, pub,
+                             ous: list[str] | None = None,
+                             sans: list[str] | None = None,
+                             client: bool = True,
+                             server: bool = False) -> x509.Certificate:
+        """Certify a key held elsewhere (a custody daemon's): only its
+        public half reaches the CA."""
         now = _now()
         subject = der_name([(x509.OID_CN, common_name)]
                            + [(x509.OID_OU, ou) for ou in ous or []])
-        pub = key.public_key()
         exts = [
             _ext(x509.OID_BASIC_CONSTRAINTS, seq(), True),
             _ext(x509.OID_KEY_USAGE, _bits(0), True),
             _ext(x509.OID_SKI, tlv(0x04, _ski(pub))),
             _ext(x509.OID_AKI, seq(tlv(
                 0x80, self.cert.subject_key_identifier))),
-            _ext(x509.OID_EKU, seq(der_oid(x509.OID_CLIENT_AUTH))),
         ]
-        cert = self._sign_cert(self.cert.subject, subject, pub,
+        if sans:
+            exts.append(_ext(x509.OID_SAN, seq(*map(_general_name, sans))))
+        eku = ([x509.OID_CLIENT_AUTH] if client else []) + (
+            [x509.OID_SERVER_AUTH] if server else [])
+        if eku:
+            exts.append(_ext(x509.OID_EKU, seq(*map(der_oid, eku))))
+        return self._sign_cert(self.cert.subject, subject, pub,
                                now - datetime.timedelta(minutes=5),
                                now + _VALIDITY, exts)
-        return CertKeyPair(cert, key)
 
     def revoke(self, cert: x509.Certificate) -> None:
         self._revoked.append(cert.serial_number)
@@ -212,4 +246,4 @@ class CA:
                                "X509 CRL")
 
 
-__all__ = ["CA", "CertKeyPair", "key_pem"]
+__all__ = ["CA", "CertKeyPair", "key_pem", "public_key_pem"]

@@ -6,8 +6,8 @@ parsed from strings like "gossip=debug:warning", a metrics observer
 counting emitted entries), built on the stdlib logging module: one shared
 handler, a level registry that applies spec rules by longest-prefix
 logger-name match, and an optional metrics hook.  Loggers live under
-``fabric_tpu_torch``.  Span tracing is not ported yet, so log lines
-carry no trace ids.
+``fabric_tpu_torch``.  While tracing is armed, a line emitted inside a
+span carries ``trace=<id> span=<id>``.
 """
 
 from __future__ import annotations
@@ -114,6 +114,25 @@ class _LevelFilter(logging.Filter):
         return ok
 
 
+class _TraceFormatter(logging.Formatter):
+    """The standard line format, plus ``trace=<id> span=<id>`` when
+    tracing is armed and the emitting thread has an active span, so
+    debug logs join against trace dumps by id.  Disarmed, the emitted
+    bytes are identical."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        line = super().format(record)
+        from fabric_tpu_torch.common import tracing
+
+        ctx = tracing.current()
+        if ctx is not None:
+            # ids go on the header line, not after an exc_info traceback
+            suffix = f" trace={ctx.trace_id:x} span={ctx.span_id:x}"
+            head, nl, rest = line.partition("\n")
+            line = head + suffix + nl + rest
+        return line
+
+
 class Registry:
     """Global logging state (reference global.go / logging.go Logging)."""
 
@@ -125,7 +144,7 @@ class Registry:
         self._root.propagate = False
         self._handler = logging.StreamHandler(sys.stderr)
         self._handler.setFormatter(
-            logging.Formatter(
+            _TraceFormatter(
                 "%(asctime)s %(levelname).4s [%(name)s] %(message)s",
                 "%Y-%m-%d %H:%M:%S",
             )

@@ -14,16 +14,24 @@ stage splits its items into `width` contiguous chunks and submits each,
 so the results merge back in chunk order whatever the width, and the
 executor's worker cap bounds the real concurrency.
 
-The pool is a plain `concurrent.futures.ThreadPoolExecutor` made at first
-use; whoever may have started it calls `shutdown` on the way out.
+The pool is made at first use through ``lockwatch.tracked_executor``, so
+under ``FABRIC_TPU_THREADWATCH`` its workers register with the drain
+gate; whoever may have started it calls `shutdown` on the way out.  While
+tracing is armed each chunk runs under a ``workpool.chunk`` span in the
+caller's trace; while profiling is armed each chunk's queue wait and run
+time go to `profile.note_chunk`; `set_metrics` attaches a
+`common.metrics.WorkpoolMetrics` bundle.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as _wait
+
+from fabric_tpu_torch.common import profile, tracing
+from fabric_tpu_torch.devtools import clockskew
+from fabric_tpu_torch.devtools.lockwatch import tracked_executor
 
 _FALSY = ("0", "false", "off", "no")
 
@@ -31,9 +39,19 @@ _FALSY = ("0", "false", "off", "no")
 _pool = None
 _pool_lock = threading.Lock()
 
-# fan-out counters (chunks submitted, peak chunks in flight)
+# an optional WorkpoolMetrics bundle and the fan-out counters (chunks
+# submitted, peak chunks in flight), all under one lock
+_metrics = None
 _stats_lock = threading.Lock()
 _stats = {"chunks": 0, "in_flight": 0, "max_in_flight": 0}
+
+
+def set_metrics(metrics) -> None:
+    """Attach a common.metrics.WorkpoolMetrics bundle: run_chunked then
+    keeps its queue-depth, in-flight and saturation gauges current."""
+    global _metrics
+    with _stats_lock:
+        _metrics = metrics
 
 
 def stats() -> dict:
@@ -49,17 +67,30 @@ def reset_stats() -> None:
         _stats["max_in_flight"] = 0
 
 
-def _note_submit(n_chunks: int) -> None:
+def _note_submit(pool, n_chunks: int) -> None:
     with _stats_lock:
         _stats["chunks"] += n_chunks
         _stats["in_flight"] += n_chunks
         _stats["max_in_flight"] = max(_stats["max_in_flight"],
                                       _stats["in_flight"])
+        m = _metrics
+        inflight = _stats["in_flight"]
+    if m is not None:
+        m.in_flight.set(inflight)
+        q = getattr(pool, "_work_queue", None)
+        if q is not None:
+            m.queue_depth.set(q.qsize())
+        workers = getattr(pool, "_max_workers", 0) or 1
+        m.saturation.set(min(1.0, inflight / workers))
 
 
 def _note_done(n_chunks: int) -> None:
     with _stats_lock:
         _stats["in_flight"] = max(0, _stats["in_flight"] - n_chunks)
+        m = _metrics
+        inflight = _stats["in_flight"]
+    if m is not None:
+        m.in_flight.set(inflight)
 
 
 def _auto_width() -> int:
@@ -89,15 +120,16 @@ def stage_width(env: str) -> int:
     return max(0, n)
 
 
-def default_pool() -> ThreadPoolExecutor:
+def default_pool():
     """The shared executor, made at first use with the widest auto width's
     workers (at least 4) and never resized: a wider stage queues, which
-    keeps its results the same."""
+    keeps its results the same.  A "service" to threadwatch: its stop
+    path is `shutdown`."""
     global _pool
     with _pool_lock:
         if _pool is None:
-            _pool = ThreadPoolExecutor(max_workers=max(_auto_width(), 4),
-                                       thread_name_prefix="fabric-workpool")
+            _pool = tracked_executor(max_workers=max(_auto_width(), 4),
+                                     name="fabric-workpool", kind="service")
         return _pool
 
 
@@ -120,10 +152,10 @@ class scoped_pool:
     """
 
     def __init__(self, max_workers: int, name: str = "scoped-pool"):
-        self._pool = ThreadPoolExecutor(max_workers=max_workers,
-                                        thread_name_prefix=name)
+        self._pool = tracked_executor(max_workers=max_workers, name=name,
+                                      kind="worker")
 
-    def __enter__(self) -> ThreadPoolExecutor:
+    def __enter__(self):
         return self._pool
 
     def __exit__(self, *exc) -> bool:
@@ -146,10 +178,37 @@ def run_chunked(pool, fn, items, width: int) -> list:
     width = min(width, n)
     if width <= 1:
         return fn(0, items)
+    ctx = tracing.current() if tracing.enabled() else None
+    if ctx is not None:
+        # the caller's span flows into the pooled work: every chunk runs
+        # under a child span, so spans opened inside parent across the
+        # thread hop
+        caller_fn = fn
+
+        def fn(off, chunk, _fn=caller_fn, _ctx=ctx):
+            with tracing.attached(_ctx):
+                with tracing.span("workpool.chunk", offset=off,
+                                  items=len(chunk)):
+                    return _fn(off, chunk)
+
+    if profile.enabled():
+        # queue wait against run time: every chunk is submitted in the
+        # loop below, so one submit timestamp serves them all
+        submitted_fn = fn
+        t_submit = clockskew.monotonic()
+
+        def fn(off, chunk, _fn=submitted_fn, _ts=t_submit):
+            t_start = clockskew.monotonic()
+            try:
+                return _fn(off, chunk)
+            finally:
+                profile.note_chunk(t_start - _ts,
+                                   clockskew.monotonic() - t_start)
+
     per = (n + width - 1) // width
     futures = [pool.submit(fn, off, items[off:off + per])
                for off in range(0, n, per)]
-    _note_submit(len(futures))
+    _note_submit(pool, len(futures))
     out: list = []
     try:
         for f in futures:
@@ -166,4 +225,4 @@ def run_chunked(pool, fn, items, width: int) -> list:
 
 
 __all__ = ["default_pool", "scoped_pool", "shutdown", "stage_width",
-           "run_chunked", "stats", "reset_stats"]
+           "run_chunked", "set_metrics", "stats", "reset_stats"]

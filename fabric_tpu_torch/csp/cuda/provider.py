@@ -31,7 +31,10 @@ the circuit breaker; `threshold` consecutive failures open it.  While it
 is open nothing is queued for the device, and every `probe_every`-th
 call first sends a two-lane probe through the kernel, which closes the
 breaker once the device answers it.  The breaker's state goes to
-`metrics` (`common.metrics.CSPMetrics`) and `degraded_stats`.
+`metrics` (`common.metrics.CSPMetrics`) and `degraded_stats`.  While
+tracing is armed a flush's dispatch and each collector run under the JAX
+package's ``tpu.dispatch`` and ``tpu.collect`` spans (the latter with
+``lane_wall_ewma_us``), so a trace reads the same from either package.
 
 On a card the fault raises out of every collector of the flush (or out
 of `hash_batch`), and an open breaker refuses the call
@@ -63,17 +66,18 @@ import numpy as np
 import torch
 
 from fabric_tpu_torch import native
+from fabric_tpu_torch.common import tracing
 from fabric_tpu_torch.common.flogging import must_get_logger
 from fabric_tpu_torch.csp import api, hostref
 from fabric_tpu_torch.csp.api import (
     CSP,
     Key,
     P256PrivateKey,
-    P256PublicKey,
     VerifyBatchItem,
 )
 from fabric_tpu_torch.csp.cuda import build, p256_kernel, sha256
 from fabric_tpu_torch.devtools import faultline, knob_registry
+from fabric_tpu_torch.devtools.lockwatch import guarded, named_rlock
 
 _logger = must_get_logger("csp.cuda")
 
@@ -733,8 +737,11 @@ class CUDACSP(CSP):
         self._stats = _Stats()
         self._probe_cache: list | None = None
         self._key_table = _KeyTable()
-        self._keys: dict[bytes, Key] = {}
-        self._pend_lock = threading.RLock()
+        # keys live in hostref's provider over an in-memory keystore
+        self._host = hostref.HostCSP()
+        # the coalescing state behind this lock is asserted with
+        # lockwatch.guarded under FABRIC_TPU_LOCKWATCH
+        self._pend_lock = named_rlock("csp.tpu.pend")
         self._pend_batches: list = []
         self._pend_lanes = 0
         self._flushed: dict[int, _FlushResult] = {}
@@ -823,29 +830,18 @@ class CUDACSP(CSP):
     # -- key management / signing: host side ------------------------------
 
     def key_gen(self) -> P256PrivateKey:
-        key = hostref.key_gen()
-        self._keys[key.ski()] = key
-        return key
+        return self._host.key_gen()
 
     def key_import(self, raw: bytes, private: bool = False) -> Key:
         """Public keys as the 65-byte uncompressed point; private keys as
         the 32-byte big-endian scalar."""
-        if private:
-            if len(raw) != 32:
-                raise ValueError("expected a 32-byte private scalar")
-            d = int.from_bytes(raw, "big")
-            x, y = hostref.mul_g(d)
-            key: Key = P256PrivateKey(d, P256PublicKey(x, y))
-        else:
-            key = P256PublicKey.from_raw(raw)
-        self._keys[key.ski()] = key
-        return key
+        return self._host.key_import(raw, private=private)
 
     def get_key(self, ski: bytes) -> Key:
-        return self._keys[ski]
+        return self._host.get_key(ski)
 
     def sign(self, key: Key, digest: bytes) -> bytes:
-        return hostref.sign(key, digest)
+        return self._host.sign(key, digest)
 
     # -- hashing -----------------------------------------------------------
 
@@ -938,8 +934,15 @@ class CUDACSP(CSP):
             if sole and res.deadline is not None:
                 deadline = self._sole_deadline_for(res._n_device_lanes)
             # outside the lock: a race's host verify must not serialize
-            # pipelined callers
-            mask = res.collect(deadline)
+            # pipelined callers.  The span names are the JAX package's
+            with tracing.span("tpu.collect", batch=gen, lanes=n,
+                              device_lanes=res._n_device_lanes):
+                mask = res.collect(deadline)
+                if tracing.enabled():
+                    with self._ewma_lock:
+                        wall = self._lane_wall_ewma
+                    if wall is not None:
+                        tracing.annotate(lane_wall_ewma_us=wall * 1e6)
             out = mask[seg_start:seg_start + n]
             with self._pend_lock:
                 if memo:
@@ -954,6 +957,7 @@ class CUDACSP(CSP):
     def _flush_locked(self) -> None:
         """Dispatch every pending batch as one flush and advance the
         generation.  Caller holds _pend_lock."""
+        guarded(self, "_pend_batches", by="csp.tpu.pend")
         items: list = []
         for b in self._pend_batches:
             items.extend(b)
@@ -963,7 +967,8 @@ class CUDACSP(CSP):
         self._gen += 1
         t0 = time.perf_counter()
         try:
-            res = self._dispatch(items)
+            with tracing.span("tpu.dispatch", batch=gen, lanes=len(items)):
+                res = self._dispatch(items)
         except BUILD_ERRORS as e:
             # every collector of this flush raises it
             res = _FlushResult([], len(items), error=e)

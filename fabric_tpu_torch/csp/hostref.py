@@ -5,6 +5,9 @@ so this module signs the inputs of `chip_smoke.py`, verifies batches
 below `CUDACSP`'s `min_device_batch`, and is the oracle every kernel
 result is held against.  Verdicts follow the `sw` provider of the JAX
 package: strict DER, 0 < r, s < n, low-S, and a 32-byte digest.
+`HostCSP` wraps it as a provider over a keystore: the key custody
+daemon's, and the key half (generate, import, look up, sign) that
+`CUDACSP` hands to it.
 
 Keys and nonces come from an explicit `numpy.random.Generator` when one
 is given (reproducible test inputs), else from `secrets`.
@@ -13,17 +16,20 @@ is given (reproducible test inputs), else from `secrets`.
 from __future__ import annotations
 
 import functools
+import hashlib
 import secrets
 
 import numpy as np
 
 from fabric_tpu_torch.csp.api import (
+    CSP,
     P256_GX,
     P256_GY,
     P256_N,
     P256_P,
     P256PrivateKey,
     P256PublicKey,
+    Key,
     is_low_s,
     marshal_ecdsa_signature,
     on_curve,
@@ -252,7 +258,58 @@ def verify_batch(items) -> list[bool]:
     return [verify(it.key, it.signature, it.digest) for it in items]
 
 
+class HostCSP(CSP):
+    """The pure-Python provider over a pluggable keystore: what the JAX
+    package's host provider (`SWCSP`) is to it.  Keys are generated and
+    signed here and kept in the keystore (`csp.keystore`, in memory by
+    default); public keys import as the 65-byte uncompressed point,
+    private keys as the 32-byte scalar."""
+
+    def __init__(self, keystore=None) -> None:
+        if keystore is None:
+            from fabric_tpu_torch.csp.keystore import InMemoryKeyStore
+
+            keystore = InMemoryKeyStore()
+        self.keystore = keystore
+
+    def key_gen(self) -> P256PrivateKey:
+        key = key_gen()
+        self.keystore.store_key(key)
+        return key
+
+    def key_import(self, raw: bytes, private: bool = False) -> Key:
+        if private:
+            if len(raw) != 32:
+                raise ValueError("expected a 32-byte private scalar")
+            d = int.from_bytes(raw, "big")
+            x, y = mul_g(d)
+            key: Key = P256PrivateKey(d, P256PublicKey(x, y))
+        else:
+            key = P256PublicKey.from_raw(raw)
+        self.keystore.store_key(key)
+        return key
+
+    def get_key(self, ski: bytes) -> Key:
+        return self.keystore.get_key(ski)
+
+    def hash(self, msg: bytes) -> bytes:
+        return hashlib.sha256(msg).digest()
+
+    def sign(self, key: Key, digest: bytes) -> bytes:
+        return sign(key, digest)
+
+    def verify(self, key: Key, signature: bytes, digest: bytes) -> bool:
+        return verify(key, signature, digest)
+
+    def hash_batch(self, msgs) -> list[bytes]:
+        return [hashlib.sha256(m).digest() for m in msgs]
+
+    def verify_batch(self, items) -> list[bool]:
+        return verify_batch(items)
+
+
 __all__ = [
+    "HostCSP",
     "affine_add",
     "affine_mul",
     "mul_g",

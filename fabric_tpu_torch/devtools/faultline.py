@@ -1,15 +1,15 @@
 """faultline: deterministic fault injection at named points.
 
 The port's copy of the JAX package's `fabric_tpu/devtools/faultline.py`,
-cut to the points the CSP provider and the sharded store visit.  Plans
-are data that operators and tests write, so the plan format, its actions
-and triggers, and the point names (``tpu.dispatch``, ``tpu.collect``,
-``tpu.hash``, ``store.shard_flush``) are the JAX package's: one plan,
+with the points the port visits: the CSP provider's, the ledger's
+(``commit.stage``, ``blkstorage.*``, ``snapshot.*``, ``store.*``), the
+validator's ``collect.tx`` and the RPC layer's (``rpc.*``).  Plans are
+data that operators and tests write, so the plan format, its actions
+and triggers, and the point names are the JAX package's: one plan,
 armed in both packages, drives both alike.  The points are no-ops
-unless a plan is armed: `point()` is a module-global load and an ``is
-None`` test.  The reference's file, socket and guard seams (`write`,
-`io`, `guard`, among them the sharded store's ``store.shard_recover``
-guard) wait for the port's network and storage slices.
+unless a plan is armed: `point()` / `guard()` / `write()` are a
+module-global load and an ``is None`` test, and `io()` hands back the
+very socket it was given.
 
 A PLAN is a JSON document (inline in ``FABRIC_TPU_FAULTLINE``, or
 ``@/path/to/plan.json``, or passed to :func:`activate` /
@@ -29,9 +29,11 @@ Actions: ``raise`` (named error class, default :class:`FaultInjected`),
 ``crash`` (:class:`FaultCrash`, simulated process death, a
 BaseException so no recovery handler may swallow it), ``delay``
 (``delay_s`` seconds; :func:`stall` hands it back to the caller instead
-of sleeping) and ``skew`` (jumps the :mod:`clockskew` clock by
-``skew_s``).  ``torn``, ``partial`` and ``skip`` parse, as in the
-reference, but a point raises for them.  Triggers: ``nth`` (fire on the
+of sleeping), ``skew`` (jumps the :mod:`clockskew` clock by
+``skew_s``), ``torn`` (at :func:`write` points: a prefix lands, then
+FaultCrash), ``partial`` (at :func:`io` points: a truncated read or
+write, then a reset) and ``skip`` (at :func:`guard` points: the guarded
+operation is skipped); a plain point raises for the last three.  Triggers: ``nth`` (fire on the
 Nth matching hit), ``every`` (every Kth), ``prob`` (seeded probability),
 default every hit; ``count`` caps total trips (default 1 for ``nth``,
 unlimited otherwise); ``ctx`` restricts to call sites whose keyword
@@ -239,6 +241,12 @@ class _Rule:
             return self._rng.random() < self.prob
         return True
 
+    def cut_len(self, n: int) -> int:
+        """Strict-prefix length for torn/partial payloads of n bytes."""
+        if n <= 0:
+            return 0
+        return max(0, min(n - 1, int(n * self.cut)))
+
     def execute(self):
         """Perform the point-level action: raise, crash, delay, or skew.
         torn/partial/skip reached through a point that cannot honor
@@ -366,6 +374,18 @@ class Plan:
                 with _trips_lock:
                     _trips.append(rec)
                     _trip_owners.append(id(self))
+                # a tripped fault annotates the active span and drops an
+                # instant mark, so a trace shows which stage it landed
+                # in (lazy import: faultline stays importable first)
+                from fabric_tpu_torch.common import tracing
+
+                if tracing.enabled():
+                    tracing.annotate(fault=name, fault_action=winner.action)
+                    tracing.instant(
+                        "fault", point=name, action=winner.action,
+                        plan=self.label, rule=winner.index,
+                        trip=winner.trips,
+                    )
         return winner
 
 
@@ -400,6 +420,117 @@ def stall(name: str, **ctx) -> float:
         return max(0.0, r.delay_s)
     r.execute()
     return 0.0
+
+
+def guard(name: str, **ctx) -> bool:
+    """A guarded-operation fault point: the caller performs a SAFETY
+    operation (recovery truncation, verify-on-import, an fsync) only
+    when this returns True.  No plan armed: always True, same fast path
+    as :func:`point`.  A tripped ``skip`` rule returns False; any other
+    tripped action executes as usual."""
+    p = _plan
+    if p is None:
+        return True
+    r = p.visit(name, ctx, kind="guard")
+    if r is None:
+        return True
+    if r.action == "skip":
+        return False
+    r.execute()
+    return True
+
+
+def write(name: str, fh, *chunks: bytes, **ctx) -> None:
+    """File-write fault point that honours torn-write-then-crash.  No
+    plan: writes the chunks straight through.  A tripped ``torn`` rule
+    writes a strict prefix of the joined payload, flushes it so the tear
+    is really on disk, and raises :class:`FaultCrash`; other actions
+    execute BEFORE anything is written."""
+    p = _plan
+    if p is None:
+        for c in chunks:
+            fh.write(c)
+        return
+    r = p.visit(name, ctx, kind="write")
+    if r is not None:
+        if r.action == "torn":
+            data = b"".join(chunks)
+            cut = r.cut_len(len(data))
+            fh.write(data[:cut])
+            fh.flush()
+            raise FaultCrash(
+                f"faultline: torn write at {name} "
+                f"({cut}/{len(data)} bytes), then crash"
+            )
+        r.execute()
+    for c in chunks:
+        fh.write(c)
+
+
+class _FaultSocket:
+    """Socket proxy visiting ``<name>.read`` / ``<name>.write`` fault
+    points around recv/send.  A ``partial`` read returns a truncated
+    chunk and marks the connection dead (the next read resets); a
+    ``partial``/``torn`` write sends a prefix then resets.  Everything
+    else passes through untouched."""
+
+    def __init__(self, inner, name: str):
+        self._fl_inner = inner
+        self._fl_name = name
+        self._fl_dead = False
+
+    def __getattr__(self, attr):
+        return getattr(self._fl_inner, attr)
+
+    def _fl_visit(self, kind: str):
+        if self._fl_dead:
+            raise ConnectionResetError(
+                f"faultline: {self._fl_name} connection reset (injected)"
+            )
+        p = _plan
+        if p is None:
+            return None
+        return p.visit(f"{self._fl_name}.{kind}", {}, kind="io")
+
+    def recv(self, bufsize: int, *args):
+        r = self._fl_visit("read")
+        if r is not None:
+            if r.action == "partial":
+                data = self._fl_inner.recv(bufsize, *args)
+                self._fl_dead = True
+                return data[: r.cut_len(len(data))]
+            r.execute()
+        return self._fl_inner.recv(bufsize, *args)
+
+    def _fl_send(self, data, send_fn):
+        r = self._fl_visit("write")
+        if r is not None:
+            if r.action in ("partial", "torn"):
+                cut = r.cut_len(len(data))
+                if cut:
+                    self._fl_inner.sendall(data[:cut])
+                self._fl_dead = True
+                raise ConnectionResetError(
+                    f"faultline: {self._fl_name} write torn at "
+                    f"{cut}/{len(data)} bytes (injected)"
+                )
+            r.execute()
+        return send_fn(data)
+
+    def sendall(self, data):
+        return self._fl_send(data, self._fl_inner.sendall)
+
+    def send(self, data):
+        return self._fl_send(data, self._fl_inner.send)
+
+
+def io(sock, name: str):
+    """Wrap a socket in read/write fault points ``<name>.read`` /
+    ``<name>.write``.  Returns the socket UNCHANGED when no plan is
+    armed: the wrapper only exists while a plan is."""
+    if _plan is None:
+        return sock
+    return _FaultSocket(sock, name)
 
 
 def is_crash(exc: BaseException) -> bool:
@@ -571,6 +702,9 @@ __all__ = [
     "Plan",
     "point",
     "stall",
+    "guard",
+    "write",
+    "io",
     "is_crash",
     "active",
     "current_plan",

@@ -3,7 +3,8 @@ through the devtools seam.
 
 The port's copy of the JAX package's `fabric_tpu/devtools/knob_registry.py`,
 holding only the knobs the port reads through it: the CSP's circuit
-breaker and faultline's plan variables.  One entry per knob (name, type,
+breaker, faultline's and netsplit's plan variables, and the lockwatch,
+threadwatch, tracing and profiling switches.  One entry per knob (name, type,
 default, subsystem, one-line doc) plus the one sanctioned ``os.environ``
 read (:func:`raw`): a read of an unregistered name raises, so a typo'd
 knob fails at its first read instead of silently reading the default.
@@ -47,9 +48,24 @@ KNOBS: dict[str, Knob] = {
              "consecutive device failures that trip the TPU breaker"),
         Knob("FABRIC_TPU_FAULTLINE", "plan", "", "devtools.faultline",
              "arm a fault plan: inline JSON or `@/path/plan.json`"),
+        Knob("FABRIC_TPU_LOCKWATCH", "flag", "", "devtools.lockwatch",
+             "arm the lock-order watchdog (`record` logs instead of "
+             "raising)"),
+        Knob("FABRIC_TPU_NETSPLIT", "plan", "", "devtools.netsplit",
+             "arm a network-partition plan: inline JSON or "
+             "`@/path/plan.json`"),
+        Knob("FABRIC_TPU_PROFILE", "flag", "", "common.profile",
+             "arm profscope: `1` = 100 Hz sampler, a number > 1 = "
+             "sampling rate in Hz"),
         Knob("FABRIC_TPU_SOAK", "int", "", "devtools.faultline",
              "arm `faultline.soak_plan(seed)` (ignored when "
              "FABRIC_TPU_FAULTLINE is set; falsy disables)"),
+        Knob("FABRIC_TPU_THREADWATCH", "flag", "", "devtools.lockwatch",
+             "register spawned workers in the threadwatch live "
+             "registry and violation ledger"),
+        Knob("FABRIC_TPU_TRACE", "flag", "", "common.tracing",
+             "arm tracelens: `1` = default 8192-event ring, an integer "
+             "= ring capacity"),
     )
 }
 

@@ -11,7 +11,10 @@ Records land inside the allocated space at the checkpoint's offset, so
 the group's durability barrier is one fdatasync.  A zero length marks the
 clean preallocated tail; recovery re-indexes the complete records past
 the checkpoint and erases from the first damaged one.  `dir=None` keeps
-blocks in memory.
+blocks in memory.  The faultline points are the JAX package's:
+``blkstorage.file_append`` (a write point), ``blkstorage.fsync``,
+``blkstorage.segment_prealloc``, ``blkstorage.segment_roll`` and the
+``blkstorage.recovery_truncate`` guard.
 
 The index, under `blkindex/<name>`:
 
@@ -36,6 +39,7 @@ import struct
 import threading
 
 from fabric_tpu_torch import protoutil
+from fabric_tpu_torch.devtools import faultline
 from fabric_tpu_torch.ledger.kvstore import KVStore, MemKVStore, NamedDB, knob
 from fabric_tpu_torch.protos import common as cb
 from fabric_tpu_torch.protos.wire import DecodeError
@@ -171,7 +175,11 @@ class BlockStore:
                     self._height = blk.header.number + 1
                     scanned.add(file_idx)
             if torn:
-                self._erase_tail(path, offset, size)
+                # a guard point: a "skip" rule leaves the torn bytes
+                # (the next write overwrites from the checkpoint offset)
+                if faultline.guard("blkstorage.recovery_truncate",
+                                   file=file_idx):
+                    self._erase_tail(path, offset, size)
                 scanned.add(file_idx)
             if os.path.exists(self._file_path(file_idx + 1)):
                 file_idx += 1
@@ -229,6 +237,7 @@ class BlockStore:
             os.fsync(fd)
         finally:
             os.close(fd)
+        faultline.point("blkstorage.segment_prealloc", file=idx, size=size)
         os.rename(tmp, path)
         self._sync_dir()
 
@@ -249,6 +258,7 @@ class BlockStore:
     def _seal_segment(self, idx: int, data_size: int) -> None:
         """Roll to the next segment: trim this one to its records and make
         the new size durable."""
+        faultline.point("blkstorage.segment_roll", file=idx, size=data_size)
         f = self._segment_fh(idx)
         f.truncate(data_size)
         f.flush()
@@ -414,8 +424,11 @@ class BlockStore:
                     offset = 0
                 f = self._segment_fh(file_idx)
                 f.seek(offset)
-                f.write(_LEN.pack(len(raw)))
-                f.write(raw)
+                # a "torn" rule writes a prefix of the record and
+                # crashes: the tear the recovery scan erases
+                faultline.write("blkstorage.file_append", f,
+                                _LEN.pack(len(raw)), raw,
+                                block=blk.header.number)
                 f.flush()
                 if sync:
                     os.fdatasync(f.fileno())
@@ -455,6 +468,7 @@ class BlockStore:
         if self._mem_blocks is not None:
             return
         for idx in sorted(file_idxs):
+            faultline.point("blkstorage.fsync", file=idx)
             fd = os.open(self._file_path(idx), os.O_RDONLY)
             try:
                 os.fdatasync(fd)

@@ -11,8 +11,16 @@ WriteBatchCollector and lands them as one block-file fdatasync, then one
 sqlite transaction; a failure rolls the group back to the durable height.
 The ledger hands out transaction simulators and query executors, defines
 rich-query indexes, and exports, verifies and imports snapshots
-(`ledger/snapshot.py`).  Tracing, metrics and fault injection are not
-ported.
+(`ledger/snapshot.py`).
+
+The seams are the JAX package's: each commit stage (``mvcc``,
+``block_append``, ``pvt``, ``state``, ``history``) runs under a stage span
+with a ``block`` attribute and ends at a ``commit.stage`` fault point; a
+group flush runs ``fsync`` and ``kv_txn`` spans charged to the group's
+last block; `metrics` (a `common.metrics.CommitMetrics`) and
+`ledger_metrics` (a `common.metrics.LedgerMetrics`) get the stage
+durations, the blocks per sync and the height gauges; the commit lock is
+the ``kvledger.commit_lock`` role of `lockwatch.named_rlock`.
 """
 
 from __future__ import annotations
@@ -20,11 +28,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import shutil
-import threading
 import time
 
 from fabric_tpu_torch import protoutil
+from fabric_tpu_torch.common import tracing
 from fabric_tpu_torch.devtools import faultline
+from fabric_tpu_torch.devtools.lockwatch import guarded, named_rlock
 from fabric_tpu_torch.ledger import snapshot as snap
 from fabric_tpu_torch.ledger.blkstorage import BlockStore, BlockStoreError
 from fabric_tpu_torch.ledger.confighistory import ConfigHistoryMgr
@@ -59,13 +68,14 @@ class CommitAssist:
     """What the validator already learned of a block, so that the commit
     does not derive it again: each transaction's marshaled rwset, its
     decoded RwsetFootprint (MVCC and history read it), its txid (the block
-    index), and the envelopes' bytes (the block store splices them)."""
+    index), the envelopes' bytes (the block store splices them), and the
+    block's trace root, so that the commit stages join its trace."""
 
     rwsets: list  # marshaled TxReadWriteSet | None, per transaction
     footprints: list  # RwsetFootprint | None, per transaction
     txids: list  # str | None, per transaction
     env_bytes: list | None = None
-    trace_ctx: object | None = None  # the port has no tracing: None
+    trace_ctx: tracing.SpanContext | None = None
 
 
 @dataclasses.dataclass
@@ -144,7 +154,8 @@ class KVLedger:
     store, state DB, history DB and private-data store, committed
     together."""
 
-    def __init__(self, ledger_id: str, block_store: BlockStore, kv: KVStore):
+    def __init__(self, ledger_id: str, block_store: BlockStore, kv: KVStore,
+                 metrics=None, ledger_metrics=None):
         self.ledger_id = ledger_id
         self._kv = kv
         self._blocks = block_store
@@ -157,9 +168,15 @@ class KVLedger:
         self.snapshots: snap.SnapshotManager | None = None
         # cumulative seconds per commit stage: mvcc (and its mvcc_preload,
         # mvcc_check, mvcc_prepare), block_append, pvt, state, history,
-        # fsync, kv_txn
+        # fsync, kv_txn; `metrics` (CommitMetrics) also gets each one
         self.commit_stage_seconds: dict[str, float] = {}
-        self.commit_lock = threading.RLock()
+        self._metrics = metrics
+        # LedgerMetrics: height and durable height gauges, block and
+        # transaction counters
+        self._lmetrics = ledger_metrics
+        # serializes commits against a snapshot export (an RLock: the
+        # commit-time trigger exports while the committer holds it)
+        self.commit_lock = named_rlock("kvledger.commit_lock")
         # the group holding unflushed blocks, if any: a commit through
         # another group is refused while it is open
         self._active_group: CommitGroup | None = None
@@ -168,6 +185,14 @@ class KVLedger:
         # the KV transaction committed up to here
         self._durable_height = self._blocks.height
         self._durable_hash = self._blocks.last_block_hash
+        self._publish_heights()
+
+    def _publish_heights(self) -> None:
+        lm = self._lmetrics
+        if lm is not None:
+            lm.height.With("channel", self.ledger_id).set(self._blocks.height)
+            lm.durable_height.With("channel", self.ledger_id).set(
+                self._durable_height)
 
     # -- recovery (reference recoverDBs) --------------------------------------
 
@@ -275,10 +300,13 @@ class KVLedger:
             try:
                 self._commit_into(block, pvt_data, missing_pvt, rwsets,
                                   assist, g)
-            except BaseException:
+            except BaseException as exc:
                 # the block store advanced and its index is stranded in the
-                # collector: unwind the whole group (never acknowledged)
-                self._rollback_group(g)
+                # collector: unwind the whole group (never acknowledged).
+                # A simulated process death (faultline's FaultCrash) skips
+                # the unwind: reopen must run the real recovery
+                if not faultline.is_crash(exc):
+                    self._rollback_group(g)
                 raise
             if group is None:
                 self._flush_group(g)
@@ -306,29 +334,49 @@ class KVLedger:
             rwsets = extract_rwsets(block)
         num = block.header.number
         t0 = t()
-        batch = group.mvcc.validate_and_prepare(num, rwsets, flags, pvt_data,
-                                                footprints=footprints)
-        protoutil.set_tx_filter(block, flags)
+        # each stage's fault point is inside its span, so an injected
+        # trip annotates the stage it landed in
+        with tracing.span("mvcc", cat="stage", block=num):
+            batch = group.mvcc.validate_and_prepare(
+                num, rwsets, flags, pvt_data, footprints=footprints)
+            protoutil.set_tx_filter(block, flags)
+            faultline.point("commit.stage", stage="mvcc", block=num)
         t1 = t()
-        file_idx = self._blocks.add_block(block, txids=txids,
-                                          env_bytes=env_bytes,
-                                          into=group.collector, sync=False)
-        if file_idx is not None:
-            group.dirty_files.add(file_idx)
+        with tracing.span("block_append", cat="stage", block=num):
+            file_idx = self._blocks.add_block(block, txids=txids,
+                                              env_bytes=env_bytes,
+                                              into=group.collector,
+                                              sync=False)
+            if file_idx is not None:
+                group.dirty_files.add(file_idx)
+            faultline.point("commit.stage", stage="block_append", block=num)
         t2 = t()
         # private data and state share the transaction (with the
         # savepoint): recovery never sees one ahead of the other
-        self.pvt_store.commit(num, pvt_data or {}, missing_pvt,
-                              into=group.collector)
+        with tracing.span("pvt", cat="stage", block=num):
+            self.pvt_store.commit(num, pvt_data or {}, missing_pvt,
+                                  into=group.collector)
+            faultline.point("commit.stage", stage="pvt", block=num)
         t3 = t()
-        group.state.apply_updates(batch, Height(num, len(flags)))
+        with tracing.span("state", cat="stage", block=num):
+            group.state.apply_updates(batch, Height(num, len(flags)))
+            faultline.point("commit.stage", stage="state", block=num)
         t4 = t()
-        self._history.commit(num, _history_writes(rwsets, flags, footprints),
-                             into=group.collector)
+        with tracing.span("history", cat="stage", block=num):
+            self._history.commit(
+                num, _history_writes(rwsets, flags, footprints),
+                into=group.collector)
+            faultline.point("commit.stage", stage="history", block=num)
         t5 = t()
         group.blocks += 1
         group.snap_notify.append(num)
         self._active_group = group
+        lm = self._lmetrics
+        if lm is not None:
+            lm.height.With("channel", self.ledger_id).set(self._blocks.height)
+            lm.blocks_committed.With("channel", self.ledger_id).add()
+            lm.transactions.With("channel", self.ledger_id).add(
+                sum(1 for f in flags if f == 0))  # VALID
         if self.snapshots is not None and \
                 self.snapshots.has_pending_request(num):
             group.boundary_hint = True
@@ -340,12 +388,22 @@ class KVLedger:
             mvcc_prepare=sub.get("prepare", 0.0))
 
     def _flush_group(self, group: CommitGroup) -> None:
+        # the open group and the durable height move only under the lock
+        guarded(self, "_active_group", by="kvledger.commit_lock")
         if group.blocks:
+            # the flush's spans are charged to the group's last block
+            boundary = group.snap_notify[-1] if group.snap_notify else None
             t0 = time.perf_counter()
             try:
-                self._blocks.sync_files(group.dirty_files)
+                with tracing.span("fsync", cat="stage", block=boundary,
+                                  blocks=group.blocks):
+                    self._blocks.sync_files(group.dirty_files)
+                    faultline.point("commit.stage", stage="fsync")
                 t1 = time.perf_counter()
-                group.collector.flush()
+                with tracing.span("kv_txn", cat="stage", block=boundary,
+                                  blocks=group.blocks):
+                    group.collector.flush()
+                    faultline.point("commit.stage", stage="kv_txn")
             except BaseException as exc:
                 # the buffered index is gone, so the unindexed appends go
                 # too; height and hash return to the durable ones.  A
@@ -361,9 +419,13 @@ class KVLedger:
             sub = getattr(self._kv, "last_stage_seconds", None)
             if sub:
                 self._observe_stages(**{f"kv_{k}": v for k, v in sub.items()})
+            if self._metrics is not None:
+                self._metrics.blocks_per_sync.With(
+                    "channel", self.ledger_id).observe(group.blocks)
             self._state.invalidate_caches()
             self._durable_height = self._blocks.height
             self._durable_hash = self._blocks.last_block_hash
+            self._publish_heights()
         notify, group.snap_notify = group.snap_notify, []
         group.blocks = 0
         group.dirty_files.clear()
@@ -385,11 +447,15 @@ class KVLedger:
         group.state.invalidate_caches()
         if self._active_group is group:
             self._active_group = None
+        self._publish_heights()
 
     def _observe_stages(self, **stages: float) -> None:
         acc = self.commit_stage_seconds
         for name, dt in stages.items():
             acc[name] = acc.get(name, 0.0) + dt
+            if self._metrics is not None:
+                self._metrics.stage_duration.With(
+                    "channel", self.ledger_id, "stage", name).observe(dt)
 
     @property
     def durable_height(self) -> int:
@@ -557,9 +623,13 @@ class LedgerProvider:
     the host's hashlib when None)."""
 
     def __init__(self, root_dir: str | None = None, csp=None,
-                 snapshots_dir: str | None = None):
+                 snapshots_dir: str | None = None, commit_metrics=None,
+                 ledger_metrics=None):
         self._root = root_dir
         self._csp = csp
+        # each ledger's CommitMetrics and LedgerMetrics
+        self._commit_metrics = commit_metrics
+        self._ledger_metrics = ledger_metrics
         if snapshots_dir is None and root_dir is not None:
             snapshots_dir = os.path.join(root_dir, "snapshots")
         self._snapshots_dir = snapshots_dir
@@ -593,7 +663,9 @@ class LedgerProvider:
                 == snap.IMPORT_IN_PROGRESS)
 
     def _add(self, ledger_id: str, store: BlockStore) -> KVLedger:
-        ledger = KVLedger(ledger_id, store, self._kv)
+        ledger = KVLedger(ledger_id, store, self._kv,
+                          metrics=self._commit_metrics,
+                          ledger_metrics=self._ledger_metrics)
         ledger.snapshots = snap.SnapshotManager(
             ledger, self._snapshots_dir, self._kv, csp=self._csp)
         self._ledgers[ledger_id] = ledger

@@ -23,6 +23,7 @@ import zlib
 from typing import Iterator
 
 from fabric_tpu_torch.devtools import faultline
+from fabric_tpu_torch.devtools.lockwatch import guarded, named_lock, named_rlock
 
 # the environment variables the port's ledger and commit path read (as the
 # JAX package does, with the same defaults and errors)
@@ -185,6 +186,9 @@ class SqliteKVStore(KVStore):
         return out
 
     def write_batch(self, puts, deletes=()) -> None:
+        # before the transaction: a crash here falls between the
+        # block-file fsync and the KV transaction
+        faultline.point("kvstore.txn", puts=len(puts))
         with self._lock, self._conn:
             self._conn.executemany(
                 "INSERT INTO kv(k, v) VALUES(?, ?) "
@@ -452,6 +456,9 @@ class _ShardStore(SqliteKVStore):
             "CREATE TABLE IF NOT EXISTS shardmeta "
             "(mk TEXT PRIMARY KEY, mv INTEGER NOT NULL)")
         self._conn.commit()
+        # one lockwatch role for every shard's connection lock (no two
+        # nest on a thread), ordered under the flush lock
+        self._lock = named_rlock("kvstore.shard")
 
     def stage_pending(self, puts, deletes, epoch: int) -> None:
         """Phase 1, prepare: replace the pending table with this flush's
@@ -541,10 +548,8 @@ class ShardedKVStore(KVStore):
         ]
         self.sync_level = self._coord.sync_level
         self.wal_autocheckpoint = self._coord.wal_autocheckpoint
-        # serializes the two-phase flushes and guards the epoch (the JAX
-        # package takes lockwatch's named_lock("kvstore.shard_flush"); the
-        # port has no lockwatch yet, so a plain lock)
-        self._lock = threading.Lock()
+        # serializes the two-phase flushes and guards the epoch
+        self._lock = named_lock("kvstore.shard_flush")
         # the per-phase wall splits of the LAST two-phase flush; kvledger
         # folds them into commit_stage_seconds after each group flush
         self.last_stage_seconds: dict[str, float] = {}
@@ -561,12 +566,15 @@ class ShardedKVStore(KVStore):
         rolls forward (the coordinator acknowledged the flush); any other
         pending epoch was never committed and rolls back.  Both are
         idempotent, so a crash during recovery re-runs it."""
-        for s in self._stores:
+        for i, s in enumerate(self._stores):
             pe = s.pending_epoch()
             if pe is None:
                 continue
             if pe == self._epoch:
-                s.apply_pending()
+                # a guard point: a "skip" rule leaves out the roll-forward
+                if faultline.guard("store.shard_recover", shard=i,
+                                   epoch=pe):
+                    s.apply_pending()
             else:
                 s.drop_pending()
 
@@ -632,6 +640,7 @@ class ShardedKVStore(KVStore):
 
         t = time.perf_counter
         with self._lock:
+            guarded(self, "_epoch", by="kvstore.shard_flush")
             epoch = self._epoch + 1
             touched = sorted(set(shard_puts) | set(shard_dels))
             wall: dict[str, float] = {}

@@ -1,5 +1,5 @@
-"""Channel snapshots and joining a channel from one (the port's copy of
-`fabric_tpu/ledger/snapshot.py`, without the remote fetch client).
+"""Channel snapshots, joining a channel from one, and fetching one from
+another peer over RPC (the port's copy of `fabric_tpu/ledger/snapshot.py`).
 
 Reference: core/ledger/kvledger/snapshot.go and snapshot_mgmt.go
 (generation at commit, request bookkeeping) and kv_ledger_provider.go
@@ -33,7 +33,14 @@ A snapshot lands in
     <snapshots_root>/completed/<ledger_id>/<last_block_number>/
 
 through an in_progress directory and one rename, so a crash never leaves
-a partial "completed" snapshot.
+a partial "completed" snapshot.  An export runs under one ``snapshot.export``
+trace span with a ``snapshot.stage`` instant and a ``snapshot.export.stage``
+fault point after each stage, the JAX package's names.
+
+A completed snapshot also streams to a peer that joins from it:
+`snapshot_fetch_handler` serves ``admin.SnapshotFetch`` on a
+`comm.RPCServer` and `fetch_snapshot` receives it (``snapshot.fetch.chunk``
+is the fault point of a torn stream).
 """
 
 from __future__ import annotations
@@ -44,9 +51,16 @@ import logging
 import os
 import shutil
 import struct
-import threading
 import time
 
+from fabric_tpu_torch.common import tracing
+from fabric_tpu_torch.devtools import faultline
+from fabric_tpu_torch.devtools.lockwatch import (
+    guarded,
+    named_condition,
+    named_lock,
+    spawn_thread,
+)
 from fabric_tpu_torch.ledger.bookkeeping import (
     SNAPSHOT_REQUEST,
     BookkeepingProvider,
@@ -207,7 +221,22 @@ def generate_snapshot(ledger, snapshots_root: str, csp=None) -> str:
     """Export the ledger at its durable height into
     <snapshots_root>/completed/<id>/<height - 1>; returns the directory.
     The same ledger state gives the same bytes in every file and the same
-    metadata."""
+    metadata.  The export runs under one trace span, so a trace shows
+    whether it overlapped or serialized behind the next commit."""
+    with tracing.span("snapshot.export", cat="stage",
+                      channel=ledger.ledger_id,
+                      block=max(0, ledger.durable_height - 1)):
+        return _generate_snapshot(ledger, snapshots_root, csp)
+
+
+def _stage(stage: str, lid: str) -> None:
+    """An export stage's fault point and trace mark: a crash here leaves
+    only the in_progress directory."""
+    faultline.point("snapshot.export.stage", stage=stage, channel=lid)
+    tracing.instant("snapshot.stage", stage=stage, channel=lid)
+
+
+def _generate_snapshot(ledger, snapshots_root: str, csp) -> str:
     if not snapshots_root:
         raise SnapshotError("ledger provider has no snapshots directory")
     # the durable height: an open commit group's blocks are neither
@@ -248,10 +277,13 @@ def generate_snapshot(ledger, snapshots_root: str, csp=None) -> str:
                     continue  # cleartext private data: never exported
             out = hash_f if len(parts) == 3 and parts[1] == "hash" else pub_f
             _write_record(out, raw_key, raw_val)
+    _stage("state", lid)
     write_records(os.path.join(work, TXIDS_FILE),
                   ((t.encode(), b"") for t in store.export_txids()))
+    _stage("txids", lid)
     write_records(os.path.join(work, CONFIG_HISTORY_FILE),
                   ledger.config_history.export_entries())
+    _stage("confighistory", lid)
     cfg_raw = store.config_block_bytes()
     if cfg_raw is None:
         blk0 = store.get_block_by_number(0)
@@ -261,8 +293,10 @@ def generate_snapshot(ledger, snapshots_root: str, csp=None) -> str:
         cfg_raw = blk0.encode()
     with open(os.path.join(work, CONFIG_BLOCK_FILE), "wb") as f:
         f.write(cfg_raw)
+    _stage("config_block", lid)
 
     files = _hash_files(work, DATA_FILES, csp)
+    _stage("hash", lid)
     last_blk = store.get_block_by_number(last_num)
     sp = state.savepoint()
     meta = {
@@ -280,7 +314,12 @@ def generate_snapshot(ledger, snapshots_root: str, csp=None) -> str:
         "files": files,
     }
     with open(_metadata_path(work), "wb") as f:
-        f.write(json.dumps(meta, sort_keys=True, indent=2).encode())
+        # a "torn" rule writes a prefix of the metadata and crashes:
+        # verify_snapshot refuses the directory
+        faultline.write("snapshot.manifest", f,
+                        json.dumps(meta, sort_keys=True, indent=2).encode(),
+                        channel=lid)
+    _stage("rename", lid)
     os.makedirs(os.path.dirname(final_dir), exist_ok=True)
     os.replace(work, final_dir)
     return final_dir
@@ -343,9 +382,13 @@ def import_snapshot(meta: dict, snapshot_dir: str, store, kv: KVStore,
         cfg_raw = f.read()
     store.bootstrap(last_num, bytes.fromhex(meta["last_block_hash"]),
                     config_block=cfg_raw)
+    faultline.point("snapshot.import.stage", stage="bootstrap",
+                    channel=ledger_id)
     store.import_snapshot_txids(
         k.decode() for k, _ in read_records(
             os.path.join(snapshot_dir, TXIDS_FILE)))
+    faultline.point("snapshot.import.stage", stage="txids",
+                    channel=ledger_id)
 
     def state_records():
         yield from read_records(os.path.join(snapshot_dir, PUBLIC_STATE_FILE))
@@ -355,11 +398,15 @@ def import_snapshot(meta: dict, snapshot_dir: str, store, kv: KVStore,
     savepoint = Height(sp[0], sp[1]) if sp else Height(last_num, 0)
     state = VersionedDB(kv, f"statedb/{ledger_id}")
     state.import_records(state_records(), savepoint)
+    faultline.point("snapshot.import.stage", stage="state",
+                    channel=ledger_id)
     for ns, specs in (meta.get("index_defs") or {}).items():
         for spec in specs:
             state.define_index(ns, spec)
     ConfigHistoryMgr(kv, ledger_id).import_entries(
         read_records(os.path.join(snapshot_dir, CONFIG_HISTORY_FILE)))
+    faultline.point("snapshot.import.stage", stage="confighistory",
+                    channel=ledger_id)
     PvtDataStore(kv, ledger_id).init_bootstrap_height(last_num + 1)
     marker.put(b"state", IMPORT_DONE)
 
@@ -383,16 +430,16 @@ class SnapshotManager:
         self._requests = SnapshotRequestBookkeeper(
             BookkeepingProvider(kv).get_kv(ledger.ledger_id,
                                            SNAPSHOT_REQUEST))
-        self._lock = threading.Lock()
+        self._lock = named_lock("snapshot.manager")
         # background generations: how many run (wait_idle), and a spawn /
         # acknowledge handshake: commits wait until every spawned
         # generation holds the commit lock (wait_generation_turn), so that
         # an export runs before state moves past its height
-        self._idle = threading.Condition()
+        self._idle = named_condition("snapshot.idle")
         self._inflight = 0
         self._spawn_seq = 0
         self._ack_seq = 0
-        self._threads: list[threading.Thread] = []
+        self._threads: list = []
         # the pending requests in memory: the commit path asks per block
         self._pending = set(self._requests.list_pending())
 
@@ -454,16 +501,18 @@ class SnapshotManager:
         until the export holds the commit lock.  A failed export is logged
         and its request dropped: a commit never fails for a snapshot."""
         with self._lock:
+            guarded(self, "_pending", by="snapshot.manager")
             if not self._requests.has(block_number):
                 return
             self._requests.cancel(block_number)
             self._pending.discard(block_number)
         with self._idle:
+            guarded(self, "_spawn_seq", by="snapshot.idle")
             self._inflight += 1
             self._spawn_seq += 1
-            th = threading.Thread(
+            th = spawn_thread(
                 target=self._bg_generate, args=(block_number,),
-                name=f"snapshot-gen-{self._ledger.ledger_id}", daemon=True)
+                name=f"snapshot-gen-{self._ledger.ledger_id}", kind="worker")
             self._threads = [t for t in self._threads if t.is_alive()]
             self._threads.append(th)
         th.start()
@@ -568,12 +617,18 @@ def stream_snapshot_dir(snapshot_dir: str):
         sort_keys=True).encode() + b"\n"
     for name in names:
         with open(os.path.join(snapshot_dir, name), "rb") as f:
+            index = 0
             while True:
                 chunk = f.read(FETCH_CHUNK)
                 eof = len(chunk) < FETCH_CHUNK
+                # a plan raising here cuts the transfer mid-file: the
+                # receiver's partial directory fails verify-on-import
+                faultline.point("snapshot.fetch.chunk", file=name,
+                                index=index)
                 header = json.dumps({"name": name, "eof": eof},
                                     sort_keys=True).encode() + b"\n"
                 yield header + chunk
+                index += 1
                 if eof:
                     break
 
@@ -609,6 +664,35 @@ def receive_snapshot_stream(frames, dest_dir: str) -> str:
     return dest_dir
 
 
+def snapshot_fetch_handler(snapshots_root: str):
+    """The server half of ``admin.SnapshotFetch``, for
+    `comm.RPCServer.register`: the request body is JSON ``{"channel",
+    "block_number"}`` and the reply streams that completed snapshot.
+    Integrity rides on verify-on-import at the receiver, not on the
+    transport."""
+
+    def handle(body: bytes, stream):
+        req = json.loads(body.decode("utf-8"))
+        return stream_snapshot_dir(completed_snapshot_dir(
+            snapshots_root, req["channel"], int(req["block_number"])))
+
+    return handle
+
+
+def fetch_snapshot(client, channel_id: str, block_number: int,
+                   dest_dir: str) -> str:
+    """Client half of ``admin.SnapshotFetch``: stream a remote peer's
+    completed snapshot into `dest_dir` (`client` is a `comm.RPCClient`,
+    or anything with ``.stream(method, body)``) and return it.  A torn
+    stream raises `comm.RPCError` and leaves a partial directory that
+    import refuses."""
+    body = json.dumps({"channel": channel_id,
+                       "block_number": int(block_number)},
+                      sort_keys=True).encode()
+    return receive_snapshot_stream(
+        client.stream("admin.SnapshotFetch", body), dest_dir)
+
+
 __all__ = [
     "SnapshotError", "SnapshotExistsError", "SnapshotManager",
     "SnapshotRequestBookkeeper", "generate_snapshot", "verify_snapshot",
@@ -618,4 +702,5 @@ __all__ = [
     "CONFIG_HISTORY_FILE", "CONFIG_BLOCK_FILE", "DATA_FILES",
     "SNAPSHOT_FORMAT_VERSION", "completed_snapshot_dir", "list_completed",
     "stream_snapshot_dir", "receive_snapshot_stream", "FETCH_CHUNK",
+    "fetch_snapshot", "snapshot_fetch_handler",
 ]

@@ -17,7 +17,9 @@ import time
 
 from fabric_tpu_torch.common import workpool
 from fabric_tpu_torch.common.hashing import sha256 as _sha256
+from fabric_tpu_torch.devtools import faultline
 from fabric_tpu_torch.ledger import richquery
+from fabric_tpu_torch.ledger.kvstore import shard_of_namespace, store_shards
 from fabric_tpu_torch.ledger.statedb import Height, VersionedDB, VersionedValue
 from fabric_tpu_torch.protos import peer as pb
 from fabric_tpu_torch.protos import rwset as rw
@@ -428,10 +430,16 @@ class MVCCValidator:
             if len(by_ns) >= 2:
                 # the namespace is part of every key: the groups are
                 # disjoint, and their maps merge to the one round trip's
+                def _load(off, chunk):
+                    out = []
+                    for pairs in chunk:
+                        faultline.point("mvcc.ns_prepare", stage="preload",
+                                        ns=pairs[0][0])
+                        out.append(self._db.get_state_many(pairs))
+                    return out
+
                 maps = workpool.run_chunked(
-                    self._pool or workpool.default_pool(),
-                    lambda off, chunk: [self._db.get_state_many(pairs)
-                                        for pairs in chunk],
+                    self._pool or workpool.default_pool(), _load,
                     list(by_ns.values()), min(width, len(by_ns)))
                 merged: dict = {}
                 for m in maps:
@@ -571,7 +579,12 @@ class MVCCValidator:
         """Pass 2 for a chunk of namespace groups: each group's items in
         commit order into a batch dict of its own."""
         out = []
-        for _ns, items in groups:
+        for ns_top, items in groups:
+            # the shard the group's writes route to, so that a plan or a
+            # profile lines the MVCC partition up with the storage one
+            faultline.point("mvcc.ns_prepare", stage="prepare", ns=ns_top,
+                            txs=len(items),
+                            shard=shard_of_namespace(ns_top, store_shards()))
             m: dict[str, dict] = {}
             for h, ns, kvrw, colls, pvt_ok in items:
                 self._build_ns_writes(ns, kvrw, colls, h, pvt_ok, m, cache)

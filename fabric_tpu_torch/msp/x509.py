@@ -47,6 +47,8 @@ OID_BASIC_CONSTRAINTS = "2.5.29.19"
 OID_AKI = "2.5.29.35"
 OID_EKU = "2.5.29.37"
 OID_CLIENT_AUTH = "1.3.6.1.5.5.7.3.2"
+OID_SERVER_AUTH = "1.3.6.1.5.5.7.3.1"
+OID_SAN = "2.5.29.17"
 
 
 class X509Error(ValueError):
@@ -491,6 +493,16 @@ def load_pem_crl(pem: bytes) -> CertificateRevocationList:
 # ---------------------------------------------------------------------------
 
 
+def load_pem_public_key(pem: bytes) -> P256PublicKey:
+    """A P-256 key from SubjectPublicKeyInfo ("PUBLIC KEY") PEM."""
+    with _malformed("public key"):
+        for label, der in pem_blocks(bytes(pem)):
+            if label == "PUBLIC KEY":
+                tag, s, e = read_tlv(der, 0, len(der))
+                return _spki_point(der, (tag, 0, s, e))
+        raise X509Error("no public key in PEM")
+
+
 def load_pem_private_key(pem: bytes) -> P256PrivateKey:
     """A P-256 key from unencrypted PKCS #8 ("PRIVATE KEY") PEM."""
     with _malformed("private key"):
@@ -519,6 +531,7 @@ def _private_key(pem: bytes) -> P256PrivateKey:
 __all__ = [
     "X509Error", "Certificate", "CertificateRevocationList",
     "load_pem_certificates", "load_pem_crl", "load_pem_private_key",
+    "load_pem_public_key",
     "pem_blocks", "pem_encode", "verify_signed", "read_tlv", "children",
     "decode_oid", "name_attributes",
 ]

@@ -1,5 +1,5 @@
 """Commit orchestration: validate, commit, announce (the port's copy of
-`fabric_tpu/peer/committer.py`, without metrics or tracing).
+`fabric_tpu/peer/committer.py`).
 
 Reference: gossip/privdata/coordinator.go:149 StoreBlock (the validator,
 then CommitLegacy) and core/committer/committer_impl.go.
@@ -8,7 +8,13 @@ then CommitLegacy) and core/committer/committer_impl.go.
 collect, the device verify (the CSP's asynchronous batch), and MVCC with
 persistence on a committer thread that commits up to `depth` blocks as one
 group (one block-file fdatasync and one KV transaction), flushing early at
-a block with a pending snapshot request.
+a block with a pending snapshot request.  The committer thread is a
+``committer-stream`` worker of `lockwatch.spawn_thread`, and it commits
+each block attached to the block's trace root (`CommitAssist.trace_ctx`),
+so the ledger's stage spans join the validator's per-block trace.
+`metrics`, when given, observes ``validate_duration`` and
+``commit_duration`` of `store_block` (its ``observe(name, seconds,
+channel=...)``).
 """
 
 from __future__ import annotations
@@ -16,17 +22,21 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import time
 
 from fabric_tpu_torch import protoutil
+from fabric_tpu_torch.common import tracing
+from fabric_tpu_torch.devtools.lockwatch import spawn_thread
 from fabric_tpu_torch.protos import common as cb
 
 
 class Committer:
-    def __init__(self, validator, ledger):
+    def __init__(self, validator, ledger, metrics=None):
         self._validator = validator
         self._ledger = ledger
         self._listeners: list = []
         self._lock = threading.Lock()
+        self.metrics = metrics
 
     def add_commit_listener(self, fn) -> None:
         """`fn(block, flags)` after each block is durable."""
@@ -37,9 +47,17 @@ class Committer:
         its final flags."""
         if not isinstance(block, cb.Block):
             block = cb.Block.decode(block)
+        t0 = time.perf_counter()
         self._validator.validate(block)  # signature and policy flags
+        t_validate = time.perf_counter() - t0
         with self._lock:
             self._ledger.commit(block)  # MVCC and persistence
+        if self.metrics is not None:
+            channel = self._validator.channel_id
+            self.metrics.observe("validate_duration", t_validate,
+                                 channel=channel)
+            self.metrics.observe("commit_duration",
+                                 time.perf_counter() - t0, channel=channel)
         flags = list(protoutil.tx_filter(block))
         for fn in self._listeners:
             fn(block, flags)
@@ -104,7 +122,7 @@ class Committer:
                 blk, release, assist = item
                 try:
                     flushed = False
-                    with self._lock:
+                    with self._lock, tracing.attached(assist.trace_ctx):
                         self._ledger.commit(blk, assist=assist, group=group)
                         grouped.append((blk, release))
                         # a buffered block with a pending snapshot request
@@ -119,8 +137,8 @@ class Committer:
                     failed = True
                     done_q.put(e)
 
-        th = threading.Thread(target=commit_loop, name="committer-stream",
-                              daemon=True)
+        th = spawn_thread(target=commit_loop, name="committer-stream",
+                          kind="worker")
         th.start()
         n_in = n_out = 0
         try:

@@ -19,10 +19,15 @@ Three phases, as in the reference:
 With a collect width chosen (`collect_width`, or FABRIC_TPU_COLLECT_POOL),
 the rwset decode of the walk's well-formed lanes fans out over the
 process workpool in deterministic chunks before the per-transaction loop;
-the flags are the same at every width.  Tracing spans, metrics and
-fault-injection seams are not part of this copy.  There is no Python
-fallback for the C++ walk: where the port's library cannot build,
-`validate` raises.
+the flags are the same at every width.  There is no Python fallback for
+the C++ walk: where the port's library cannot build, `validate` raises.
+
+The seams are the JAX package's: while tracing is armed each block opens
+a detached root span ``block`` (cat ``pipeline``) whose ``collect``,
+``verify_wait`` and ``policy`` stage spans carry a ``block`` attribute,
+and whose context rides `CommitAssist.trace_ctx` to the committer's
+thread; ``collect.tx`` is the collect's fault point; `metrics` (a
+`common.metrics.ValidateMetrics`) gets the stage durations.
 
 The ledger is duck-typed: `tx_id_exists(txid)`, optionally
 `tx_ids_exist(txids) -> set`, `get_state_metadata(ns, key) -> dict` and
@@ -38,8 +43,9 @@ import time
 import numpy as np
 
 from fabric_tpu_torch import native, protoutil
-from fabric_tpu_torch.common import workpool
+from fabric_tpu_torch.common import tracing, workpool
 from fabric_tpu_torch.csp.api import VerifyBatchItem
+from fabric_tpu_torch.devtools import faultline
 from fabric_tpu_torch.ledger.kvledger import CommitAssist
 from fabric_tpu_torch.ledger.kvstore import knob
 from fabric_tpu_torch.peer.validation_plugins import (
@@ -131,7 +137,7 @@ class TxValidator:
                  definition_provider=None,
                  plugin_registry: PluginRegistry | None = None,
                  faithful: bool = False, collect_pool=None,
-                 collect_width: int | None = None):
+                 collect_width: int | None = None, metrics=None):
         """`faithful=True` keeps the reference's cost model: no item
         dedup, no endorsement plans, no per-block creator memo, and a
         serial collect.  The flags are the same.
@@ -141,7 +147,11 @@ class TxValidator:
         chunks; None reads FABRIC_TPU_COLLECT_POOL, 0 keeps it serial.
         Unlike MVCC's, the collect's width has no auto default: what is
         left per transaction after the C++ walk holds the GIL, and the
-        JAX package measured its default fan-out a loss there."""
+        JAX package measured its default fan-out a loss there.
+
+        `metrics` (a common.metrics.ValidateMetrics) adds per-stage
+        collect/verify_wait/policy histograms; the cumulative splits are
+        always kept in `validate_stage_seconds`."""
         self.channel_id = channel_id
         self._ledger = ledger
         self._bundle = bundle
@@ -169,6 +179,7 @@ class TxValidator:
         # cumulative seconds per stage: host collect, waiting for the
         # device verify, host policy finish
         self.validate_stage_seconds: dict[str, float] = {}
+        self._metrics = metrics
 
     def _committed_metadata(self, ns: str, key: str) -> dict[str, bytes]:
         return self._ledger.get_state_metadata(ns, key)
@@ -206,6 +217,7 @@ class TxValidator:
 
     def _parse_tx(self, env_bytes: bytes, memo: dict, dup_check) -> _ParsedTx:
         p = _ParsedTx()
+        faultline.point("collect.tx")
         try:
             env = cb.Envelope.decode(env_bytes)
             if not env.payload:
@@ -327,7 +339,8 @@ class TxValidator:
     def validate(self, block) -> list[int]:
         """Flags of every transaction of `block` (a `Block` or its bytes);
         a `Block` gets them in its TRANSACTIONS_FILTER."""
-        return self._finish_block(*self._start_block(block, set()))
+        block, flags, works, collect, bspan = self._start_block(block, set())
+        return self._finish_block(block, flags, works, collect, bspan)
 
     def validate_pipeline(self, blocks, depth: int = 2, release=None,
                           rwsets_out=None):
@@ -351,14 +364,17 @@ class TxValidator:
         released: collections.deque = collections.deque()
 
         def finish(started):
-            block, flags, works, collect, txids = started
-            flags = self._finish_block(block, flags, works, collect)
+            block, flags, works, collect, bspan, txids = started
+            flags = self._finish_block(block, flags, works, collect, bspan)
             if rwsets_out is not None:
+                # trace_ctx carries the block's trace root onto the
+                # committer's thread
                 rwsets_out(CommitAssist(
                     rwsets=[w.rwset for w in works],
                     footprints=[w.footprint for w in works],
                     txids=[w.txid for w in works],
-                    env_bytes=block.data.data))
+                    env_bytes=block.data.data,
+                    trace_ctx=bspan.ctx))
             if release is None:
                 seen_txids.difference_update(txids)
             else:
@@ -390,6 +406,27 @@ class TxValidator:
         t0 = time.perf_counter()
         if not isinstance(block, cb.Block):
             block = cb.Block.decode(block)
+        num = block.header.number
+        # a detached per-block root: blocks overlap in the pipeline, so
+        # its children (collect here, verify_wait and policy in
+        # _finish_block, the commit stages on the committer's thread)
+        # attach to it explicitly
+        bspan = tracing.begin("block", detach=True, cat="pipeline",
+                              block=num)
+        try:
+            with tracing.attached(bspan.ctx), tracing.span(
+                    "collect", cat="stage", block=num):
+                flags, works, collect = self._collect_block(block,
+                                                            seen_txids)
+        except BaseException:
+            # a detached root is off the stack repair: end it here
+            bspan.annotate(aborted=True)
+            bspan.end()
+            raise
+        self._observe_stage("collect", time.perf_counter() - t0)
+        return block, flags, works, collect, bspan
+
+    def _collect_block(self, block, seen_txids: set):
         envs = list(block.data.data)
         n = len(envs)
         flags = [V.NOT_VALIDATED] * n
@@ -413,8 +450,7 @@ class TxValidator:
         self._collect_native(envs, seen_txids, sink, works, flags, memo)
         collect = (self._csp.verify_batch_async(sink.items) if sink.items
                    else (lambda: []))
-        self._observe_stage("collect", time.perf_counter() - t0)
-        return block, flags, works, collect
+        return flags, works, collect
 
     def _collect_native(self, data, seen_txids, sink: _ItemSink, works, flags,
                         memo: dict) -> None:
@@ -465,6 +501,7 @@ class TxValidator:
             def _prefetch(off, lanes):
                 out = []
                 for i in lanes:
+                    faultline.point("collect.tx")
                     try:
                         fp = parse_footprint(
                             buf[rwset_off_l[i]:rwset_off_l[i]
@@ -584,33 +621,54 @@ class TxValidator:
     def _observe_stage(self, stage: str, dt: float) -> None:
         acc = self.validate_stage_seconds
         acc[stage] = acc.get(stage, 0.0) + dt
+        if self._metrics is not None:
+            self._metrics.stage_duration.With(
+                "channel", self.channel_id, "stage", stage).observe(dt)
 
-    def _finish_block(self, block, flags, works, collect) -> list[int]:
+    def _finish_block(self, block, flags, works, collect,
+                      bspan) -> list[int]:
         """Phase 3, in transaction order.  Policies read the committed
         (pre-block) metadata; a transaction touching a key whose
-        VALIDATION_PARAMETER an earlier VALID one rewrote fails."""
+        VALIDATION_PARAMETER an earlier VALID one rewrote fails.  The
+        block's root span ends here, also when verify or policy raise."""
+        try:
+            return self._finish_block_traced(block, flags, works, collect,
+                                             bspan.ctx)
+        except BaseException:
+            bspan.annotate(aborted=True)
+            raise
+        finally:
+            bspan.end()
+
+    def _finish_block_traced(self, block, flags, works, collect,
+                             ctx) -> list[int]:
         n = len(flags)
+        num = block.header.number
         t0 = time.perf_counter()
-        mask = collect()
+        with tracing.attached(ctx), tracing.span(
+                "verify_wait", cat="stage", block=num):
+            mask = collect()
         t1 = time.perf_counter()
         self._observe_stage("verify_wait", t1 - t0)
         updated: set[tuple[str, str]] = set()
-        for i in range(n):
-            if flags[i] != V.VALID:
-                continue
-            w = works[i]
-            if w.creator_item is not None and not mask[w.creator_item]:
-                flags[i] = V.BAD_CREATOR_SIGNATURE
-                continue
-            if w.touched_keys & updated:
-                flags[i] = V.ENDORSEMENT_POLICY_FAILURE
-                continue
-            if not all(p.finish([mask[j] for j in idxs])
-                       for p, idxs in w.pendings):
-                flags[i] = V.ENDORSEMENT_POLICY_FAILURE
-                continue
-            updated.update(w.meta_keys)
-        protoutil.set_tx_filter(block, bytes(flags))
+        with tracing.attached(ctx), tracing.span(
+                "policy", cat="stage", block=num):
+            for i in range(n):
+                if flags[i] != V.VALID:
+                    continue
+                w = works[i]
+                if w.creator_item is not None and not mask[w.creator_item]:
+                    flags[i] = V.BAD_CREATOR_SIGNATURE
+                    continue
+                if w.touched_keys & updated:
+                    flags[i] = V.ENDORSEMENT_POLICY_FAILURE
+                    continue
+                if not all(p.finish([mask[j] for j in idxs])
+                           for p, idxs in w.pendings):
+                    flags[i] = V.ENDORSEMENT_POLICY_FAILURE
+                    continue
+                updated.update(w.meta_keys)
+            protoutil.set_tx_filter(block, bytes(flags))
         self._observe_stage("policy", time.perf_counter() - t1)
         return flags
 

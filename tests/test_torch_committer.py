@@ -358,3 +358,17 @@ def test_txid_window_release_racing_the_probe_diverges_from_the_reference(
     first = [[0] * 3] * depth
     assert jax_flags == first + [[0] * 4] * (n_blocks - depth)
     assert port_flags == first + [[0] * 3 + [9]] * (n_blocks - depth)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_watch_gate():
+    """The port's lockwatch ledgers are empty and its workers drained at
+    the end of this file (the session's own gate watches the JAX
+    package's module only)."""
+    yield
+    from fabric_tpu_torch.common import workpool as _pool
+    from fabric_tpu_torch.devtools import lockwatch as _watch
+
+    _pool.shutdown()
+    assert not _watch.drain_threads(timeout=15.0)
+    assert not _watch.violations and not _watch.thread_violations

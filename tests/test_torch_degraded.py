@@ -788,3 +788,17 @@ def test_card_refuses_host_fraction(monkeypatch):
     with pytest.raises(ValueError, match="host_fraction"):
         CUDACSP(host_fraction=0.25)
     assert CUDACSP()._host_answers is False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_watch_gate():
+    """The port's lockwatch ledgers are empty and its workers drained at
+    the end of this file (the session's own gate watches the JAX
+    package's module only)."""
+    yield
+    from fabric_tpu_torch.common import workpool as _pool
+    from fabric_tpu_torch.devtools import lockwatch as _watch
+
+    _pool.shutdown()
+    assert not _watch.drain_threads(timeout=15.0)
+    assert not _watch.violations and not _watch.thread_violations

@@ -199,6 +199,54 @@ print("modules", len(mods))
 """
 
 
+_BLOCKED_COMM = """
+import sys
+for name in ("jax", "jaxlib", "fabric_tpu", "cryptography", "google.protobuf",
+             "yaml"):
+    sys.modules[name] = None
+import hashlib, tempfile
+from fabric_tpu_torch.comm import RPCClient, RPCServer
+from fabric_tpu_torch.comm.tls import credentials_from_ca
+from fabric_tpu_torch.common import tracing
+from fabric_tpu_torch.common.crypto import CA
+from fabric_tpu_torch.csp import custody
+from fabric_tpu_torch.csp.hostref import HostCSP
+ca = CA("tlsca.example.com", "example.com")
+server = RPCServer(tls=credentials_from_ca(ca, "server"))
+server.register("echo", lambda body, stream: stream.peer_cert[:1] + body)
+server.start()
+client_tls = credentials_from_ca(ca, "client")
+with tracing.scope() as rec:
+    got = RPCClient(*server.addr, tls=client_tls).call("echo", b"x")
+assert got == b"0x", got
+assert {ev["name"] for ev in rec.snapshot()} == {"rpc.call", "rpc.serve"}
+server.stop()
+with tempfile.TemporaryDirectory() as keys:
+    daemon = custody.KeyCustodyServer(keys, b"pin", tls=credentials_from_ca(
+        ca, "custody"))
+    daemon.start()
+    csp = custody.CustodyCSP(daemon.addr, b"pin", verify_csp=HostCSP(),
+                             tls=client_tls)
+    key = csp.key_gen()
+    digest = hashlib.sha256(b"m").digest()
+    assert csp.verify(key, csp.sign(key, digest), digest)
+    daemon.stop()
+assert not any(k in ("jax", "yaml", "cryptography")
+               or k.startswith(("jax.", "fabric_tpu.", "google.protobuf"))
+               for k, v in sys.modules.items() if v is not None)
+print("comm ok")
+"""
+
+
+def test_tls_rpc_and_custody_run_without_jax_or_cryptography():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_COMM], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("comm ok")
+
+
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [SMOKE]
 
@@ -236,7 +284,11 @@ def test_no_file_of_the_port_imports_forbidden_modules():
         "ledger/transientstore.py", "ledger/cceventmgmt.py",
         "ledger/admin.py", "idemix/nymsignature.py", "idemix/weakbb.py",
         "idemix/revocation.py", "csp/hostref384.py",
-        "msp/idemixmsp.py"} <= scanned
+        "msp/idemixmsp.py", "common/tracing.py", "common/profile.py",
+        "devtools/lockwatch.py", "devtools/netsplit.py",
+        "comm/__init__.py", "comm/rpc.py", "comm/tls.py",
+        "comm/backoff.py", "comm/instrument.py", "csp/keystore.py",
+        "csp/custody.py"} <= scanned
     bad = []
     for path in _port_files():
         for name in _imported(path):
@@ -923,3 +975,17 @@ def test_p256_device_field_chains_match_python_ints(op):
         want = {"add": x + y, "sub": x - y, "mul": x * y, "sqr": x * x,
                 "reduce": x}[op] % P256
         assert _p256_device_field(op, x, y) == want, (x, y)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_watch_gate():
+    """The port's lockwatch ledgers are empty and its workers drained at
+    the end of this file (the session's own gate watches the JAX
+    package's module only)."""
+    yield
+    from fabric_tpu_torch.common import workpool as _pool
+    from fabric_tpu_torch.devtools import lockwatch as _watch
+
+    _pool.shutdown()
+    assert not _watch.drain_threads(timeout=15.0)
+    assert not _watch.violations and not _watch.thread_violations

@@ -648,3 +648,17 @@ def test_block_header_hash_and_splice_equal_the_reference():
     short = cb.Block(data=cb.BlockData(data=[b"a", b"b"]))
     port_pu.set_tx_filter(short, b"\x01")
     assert port_pu.tx_filter(short) == bytearray(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_watch_gate():
+    """The port's lockwatch ledgers are empty and its workers drained at
+    the end of this file (the session's own gate watches the JAX
+    package's module only)."""
+    yield
+    from fabric_tpu_torch.common import workpool as _pool
+    from fabric_tpu_torch.devtools import lockwatch as _watch
+
+    _pool.shutdown()
+    assert not _watch.drain_threads(timeout=15.0)
+    assert not _watch.violations and not _watch.thread_violations

@@ -276,3 +276,17 @@ def test_no_python_fallback_when_the_library_cannot_build(
             call()
     assert native._lib is None
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_watch_gate():
+    """The port's lockwatch ledgers are empty and its workers drained at
+    the end of this file (the session's own gate watches the JAX
+    package's module only)."""
+    yield
+    from fabric_tpu_torch.common import workpool as _pool
+    from fabric_tpu_torch.devtools import lockwatch as _watch
+
+    _pool.shutdown()
+    assert not _watch.drain_threads(timeout=15.0)
+    assert not _watch.violations and not _watch.thread_violations

@@ -370,3 +370,17 @@ def test_key_import_sign_verify_roundtrip(sw):
     assert csp.hash_batch([b"a", b"b"]) == [sw.hash(b"a"), sw.hash(b"b")]
     with pytest.raises(ValueError):
         csp.key_import(b"\x04" + bytes(64))  # (0, 0) is not on the curve
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_watch_gate():
+    """The port's lockwatch ledgers are empty and its workers drained at
+    the end of this file (the session's own gate watches the JAX
+    package's module only)."""
+    yield
+    from fabric_tpu_torch.common import workpool as _pool
+    from fabric_tpu_torch.devtools import lockwatch as _watch
+
+    _pool.shutdown()
+    assert not _watch.drain_threads(timeout=15.0)
+    assert not _watch.violations and not _watch.thread_violations

@@ -275,3 +275,17 @@ def test_hash_batch_has_no_hashlib_fallback(monkeypatch):
     with pytest.raises(build.KernelBuildError, match="nvcc failed"):
         csp.hash_batch(msgs)
     assert csp.breaker._consecutive == 1  # the build error is not counted
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_watch_gate():
+    """The port's lockwatch ledgers are empty and its workers drained at
+    the end of this file (the session's own gate watches the JAX
+    package's module only)."""
+    yield
+    from fabric_tpu_torch.common import workpool as _pool
+    from fabric_tpu_torch.devtools import lockwatch as _watch
+
+    _pool.shutdown()
+    assert not _watch.drain_threads(timeout=15.0)
+    assert not _watch.violations and not _watch.thread_violations
