@@ -117,6 +117,28 @@
    stage's top collapsed stacks and the lock roles' waits.  Every other
    phase must leave the tracing, profiling and netsplit seams' lookup
    counts where they were (`host_check`).
+   The ordered commit (`phase_order`): the same 8000 envelopes broadcast
+   by one thread through the port's `BroadcastHandler` into a solo
+   `Registrar` (the channel minted again with BatchSize 1000 messages,
+   PreferredMaxBytes 8 MiB, AbsoluteMaxBytes 10 MiB, BatchTimeout 2s;
+   the orderer's identity from the world's orderer CA), while a
+   `DeliverClient` over an in-process `DeliverService` (two endpoints,
+   each of whose first stream carries block 1 with its signature
+   flipped) streams the signed blocks into `Committer.store_stream(
+   depth=6)` on an on-disk `KVLedger` with `CUDACSP`, B1 counted.  The
+   refused envelopes must be the predicted ones (the bad creator
+   signature FORBIDDEN, the truncated payload BAD_REQUEST), the blocks
+   1000 envelopes each and the last partial, both tampered blocks
+   refused with a rotation, every committed block's signature valid
+   under /Channel/Orderer/BlockValidation, each admitted transaction's
+   flag and the state's keys and values phase_commit's, and the mask
+   the host route's (libcrypto).  Then 2 blocks again to a second peer over a port
+   `RPCServer` under mutual TLS (`deliver_response_frames`), and the
+   first peer's FilteredBlocks (`deliver_filtered_frames`): flags and
+   FilteredBlocks equal the in-process pass's.  Prints envelopes
+   broadcast a second with the signature filter's share, blocks cut and
+   ms a block to cut, sign and write, the deliver latency a block,
+   committed tx/s and ms a block at the peer, and B1's launches.
    Key custody (`phase_custody`): a `KeyCustodyServer` thread generates
    and holds 4 keys; a `CustodyCSP` whose local provider is `CUDACSP`
    signs 4000 digests through it (signs/s printed), then verifies them
@@ -188,7 +210,7 @@
    if any is not 0.
 10. Prints one JSON line of kernels (B1-B4; B1's with its launches on
    the validator, commit, sharded-commit, SmallBank, bootstrapped-ledger,
-   joining-peer and custody paths, B2's on the last two, B3's with its launches on the idemix MSP's
+   ordered-commit, joining-peer and custody paths, B2's on the last two, B3's with its launches on the idemix MSP's
    batch, B4's with its launches at the snapshot's shape), then
    `{"ok": true, "device": {...}}` as its last line.
 
@@ -225,6 +247,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import multiprocessing
@@ -2255,6 +2278,7 @@ class ValidatorWorld:
     client: SigningIdentity  # Org1's client
     peers: list  # one peer of each org, Org1 first
     rng: np.random.Generator
+    orderer_ca: CA | None = None  # the orderer org's CA (OrdererMSP)
 
     @property
     def genesis_hash(self) -> bytes:
@@ -2284,7 +2308,36 @@ def validator_world(seed: int, n_orgs: int = N_ORGS) -> ValidatorWorld:
     client = signer(cas[0], "Org1MSP", "client", "client")
     peers = [signer(ca, f"Org{i + 1}MSP", "peer0", "peer")
              for i, ca in enumerate(cas)]
-    return ValidatorWorld(genesis.encode(), client, peers, rng)
+    return ValidatorWorld(genesis.encode(), client, peers, rng, oca)
+
+
+def orderer_identity(world: ValidatorWorld, name: str = "orderer0",
+                     ou: str = "orderer") -> SigningIdentity:
+    """A new OrdererMSP identity from the world's orderer CA (its key and
+    serial drawn from the world's generator)."""
+    pair = world.orderer_ca.issue(name, ous=[ou])
+    return SigningIdentity("OrdererMSP", pair.cert, pair.key, world.rng)
+
+
+def order_genesis(world: ValidatorWorld, max_message_count: int,
+                  preferred_max_bytes: int, absolute_max_bytes: int,
+                  batch_timeout: str, consensus_type: str = "solo") -> bytes:
+    """The world's genesis block minted again with the orderer's
+    ConsensusType, BatchSize and BatchTimeout set (same channel, orgs and
+    policies)."""
+    config = bundle_from_genesis(world.genesis).config
+    group = config.channel_group
+    ordg = ctx.orderer_group(
+        group.groups["Orderer"].groups, consensus_type=consensus_type,
+        max_message_count=max_message_count,
+        absolute_max_bytes=absolute_max_bytes,
+        preferred_max_bytes=preferred_max_bytes, batch_timeout=batch_timeout)
+    genesis = ctx.genesis_block(
+        VALIDATOR_CHANNEL,
+        ctx.channel_group(group.groups["Application"], ordg),
+        nonce=hashlib.sha256(world.genesis).digest()[:24],
+        timestamp=VALIDATOR_TS)
+    return genesis.encode()
 
 
 def tx_rwset(b: int, i: int, reads=(), ranges=(), writes=()) -> rw.KVRWSet:
@@ -2510,6 +2563,22 @@ def check_mask(csp: RecordingCSP, label: str) -> int:
     print(f"{label}: verify mask of {len(items)} lanes equal to hostref's "
           f"({time.perf_counter() - t1:.1f} s on the host, {workers} "
           f"processes)")
+    return len(items)
+
+
+def check_mask_host(csp: RecordingCSP, label: str) -> int:
+    """Holds every recorded verify mask against the provider's host route
+    (`native.ecdsa_verify_host`, libcrypto, whose verdicts are hostref's;
+    hostref where it does not load); returns the lane count."""
+    t1 = time.perf_counter()
+    items = [it for b, _ in csp.batches for it in b]
+    mask = [ok for _, m in csp.batches for ok in m]
+    want = cuda_provider._host_verify_batch(hostref, items)
+    check(mask == want, f"the {label}'s verify mask differs from the host "
+          f"route's on {sum(a != b for a, b in zip(mask, want))} lanes")
+    print(f"{label}: verify mask of {len(items)} lanes equal to the host "
+          f"route's ({native.ecdsa_impl()}, {time.perf_counter() - t1:.1f} "
+          "s)")
     return len(items)
 
 
@@ -3487,6 +3556,420 @@ def phase_fetch(device, world: ValidatorWorld, blocks: list, com: dict,
 
 
 # ---------------------------------------------------------------------------
+# The ordered commit cell: the port's orderer cuts and signs the blocks,
+# the deliver client streams them into the committer.
+# ---------------------------------------------------------------------------
+
+ORDER_MAX_COUNT = 1000  # BatchSize.MaxMessageCount: the count cuts
+ORDER_PREFERRED = 8 << 20  # above 1000 envelopes of ~4.3 KB
+ORDER_ABSOLUTE = 10 << 20
+ORDER_TIMEOUT = "2s"  # cuts the last, partial batch; never a full one
+ORDER_COMM_BLOCKS = 2  # blocks of the pass over comm's RPC
+ORDER_CA_SEED = 17
+ORDER_STATUS = {pb.BAD_CREATOR_SIGNATURE: cb.FORBIDDEN,
+                pb.BAD_PAYLOAD: cb.BAD_REQUEST}
+
+
+def order_refusals(expect: dict) -> dict:
+    """The broadcast status of each envelope the orderer refuses, by
+    (block index, tx): the creator's bad signature fails the signature
+    filter (FORBIDDEN), the truncated payload does not decode
+    (BAD_REQUEST); the other planted faults are the peer's to find."""
+    return {k: ORDER_STATUS[f] for k, f in expect.items()
+            if f in ORDER_STATUS}
+
+
+class FullCollections:
+    """Records the wall of each full (generation 2) garbage collection
+    while it is entered: a pause every thread of the process waits out."""
+
+    def __init__(self):
+        self.pauses: list = []
+        self._t = 0.0
+
+    def _callback(self, phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                self._t = time.perf_counter()
+            else:
+                self.pauses.append(time.perf_counter() - self._t)
+
+    def __enter__(self):
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+        return False
+
+
+class Timed:
+    """Wraps a callable and sums the seconds spent in it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.s = 0.0
+        self.n = 0
+
+    def __call__(self, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.s += time.perf_counter() - t
+            self.n += 1
+
+
+def state_pairs(ledger) -> list:
+    """The (key, value) pairs of VALIDATOR_CC's state, versions aside."""
+    return list(ledger.get_state_range(VALIDATOR_CC, "", ""))
+
+
+@dataclasses.dataclass
+class ChainView:
+    """What a DeliverService reads of a channel."""
+
+    store: object  # height, get_block_by_number
+    bundle: object
+
+
+def tampering(endpoint):
+    """An endpoint whose first stream starts with its first block's
+    orderer signature flipped; later streams pass through."""
+    opened = [0]
+
+    def connect(start):
+        opened[0] += 1
+        for k, blk in enumerate(endpoint(start)):
+            if opened[0] == 1 and k == 0:
+                blk = cb.Block.decode(blk.encode())
+                meta = cb.Metadata.decode(blk.metadata.metadata[cb.SIGNATURES])
+                sig = bytearray(meta.signatures[0].signature)
+                sig[8] ^= 0x40
+                meta.signatures[0].signature = bytes(sig)
+                blk.metadata.metadata[cb.SIGNATURES] = meta.encode()
+            yield blk
+
+    return connect
+
+
+def phase_order(device, world: ValidatorWorld, blocks: list, expect: dict,
+                com: dict, tmp: str, depth: int = DEPTH) -> dict:
+    """The commit cell's envelopes ordered by the port: one thread
+    broadcasts them through `BroadcastHandler.process_message` into a
+    solo `Registrar` (MaxMessageCount 1000, the orderer's identity from
+    the world's orderer CA), while a `DeliverClient` over an in-process
+    `DeliverService` (two endpoints, each of whose first stream carries a
+    block with a flipped signature) streams the blocks into
+    `Committer.store_stream` on an on-disk KVLedger with CUDACSP, B1
+    counted.  The refused envelopes and their statuses must be the
+    predicted ones, every delivered block's signature must verify, each
+    admitted transaction's flag and the state's keys and values must be
+    phase_commit's, and the mask the host route's.  Then ORDER_COMM_BLOCKS
+    blocks again, to a second peer, over comm's RPCServer under mutual
+    TLS (`deliver_response_frames`), and their FilteredBlocks
+    (`deliver_filtered_frames` on the first peer's ledger): flags and
+    FilteredBlocks must equal the in-process pass's."""
+    import queue
+    import threading
+
+    from fabric_tpu_torch.comm import RPCClient, RPCServer
+    from fabric_tpu_torch.comm.tls import credentials_from_ca
+    from fabric_tpu_torch.common import deliver
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+    from fabric_tpu_torch.orderer.blockwriter import verify_block_signature
+    from fabric_tpu_torch.orderer.broadcast import BroadcastHandler
+    from fabric_tpu_torch.orderer.multichannel import Registrar
+    from fabric_tpu_torch.peer.committer import Committer
+    from fabric_tpu_torch.peer.deliverclient import DeliverClient
+    from fabric_tpu_torch.protos import orderer as ob
+
+    os.environ["FABRIC_TPU_WAL_CHECKPOINT"] = WAL_CHECKPOINT
+    envs, keys = [], []
+    for b, raw in enumerate(blocks):
+        for i, env in enumerate(cb.Block.decode(raw).data.data):
+            envs.append(env)
+            keys.append((b, i))
+    sizes = [len(e) for e in envs]
+    predicted = order_refusals(expect)
+    admitted = [k for k in keys if k not in predicted]
+    print(f"order: {len(envs)} envelopes of {min(sizes)}-{max(sizes)} bytes "
+          f"({statistics.mean(sizes):.0f} mean; the first "
+          f"{ORDER_MAX_COUNT}: {sum(sizes[:ORDER_MAX_COUNT])} bytes); "
+          f"BatchSize {ORDER_MAX_COUNT} messages, PreferredMaxBytes "
+          f"{ORDER_PREFERRED}, AbsoluteMaxBytes {ORDER_ABSOLUTE}, "
+          f"BatchTimeout {ORDER_TIMEOUT}; predicted refusals "
+          f"{sorted(predicted.items())}")
+    check(sum(sizes[:ORDER_MAX_COUNT]) < ORDER_PREFERRED
+          and max(sizes) < ORDER_ABSOLUTE, "the batch size does not let "
+          "the count cut")
+    genesis_raw = order_genesis(world, ORDER_MAX_COUNT, ORDER_PREFERRED,
+                                ORDER_ABSOLUTE, ORDER_TIMEOUT)
+    genesis = cb.Block.decode(genesis_raw)
+    bundle = bundle_from_genesis(genesis_raw)
+    orderer = orderer_identity(world)
+    sign = orderer.sign = Timed(orderer.sign)
+    root = os.path.join(tmp, "order")
+    reg = Registrar(os.path.join(root, "orderer"),
+                    new_cuda_csp(device=device), signer=orderer)
+    reg.startup([genesis])
+    support = reg.get_chain(VALIDATOR_CHANNEL)
+    create = support.writer.create_next_block = Timed(
+        support.writer.create_next_block)
+    write = support.writer.write_block = Timed(support.writer.write_block)
+    sig_filter = support.processor._sig_filter = Timed(
+        support.processor._sig_filter)
+    svc = deliver.DeliverService(reg.get_chain, new_cuda_csp(device=device))
+    ordered: list = []  # the envelopes of each block written, in order
+    written_at: dict = {}
+
+    def on_block(channel, blk):
+        written_at[blk.header.number] = time.perf_counter()
+        ordered.append(len(blk.data.data))
+        svc.notifier.notify()
+
+    reg.add_block_listener(on_block)
+    policy = bundle.policy_manager.get_policy(
+        "/Channel/Orderer/BlockValidation")
+    csp = RecordingCSP(new_cuda_csp(device=device))
+    # warm-up in a ledger of its own, not timed (as phase_commit's)
+    warm_provider = LedgerProvider(os.path.join(root, "warm"))
+    warm = warm_provider.create(cb.Block.decode(world.genesis))
+    Committer(TxValidator(VALIDATOR_CHANNEL, warm, bundle, csp), warm) \
+        .store_block(validator_blocks(world, 1, 64, world.genesis_hash,
+                                      plant=False)[0][0])
+    warm_provider.close()
+    provider = LedgerProvider(os.path.join(root, "peer"), csp=csp)
+    ledger = provider.create(genesis)
+    validator = TxValidator(VALIDATOR_CHANNEL, ledger, bundle, csp)
+    committer = Committer(validator, ledger)
+
+    def endpoint(start):
+        env = deliver.make_seek_info_envelope(
+            VALIDATOR_CHANNEL, start, 1 << 62, signer=world.client)
+        return (value for kind, value in svc.deliver(env) if kind == "block")
+
+    inbox: queue.Queue = queue.Queue()
+    sunk = [1]  # the peer's next height
+    arrived_at: dict = {}
+
+    def sink(seq, raw):
+        arrived_at[seq] = time.perf_counter()
+        sunk[0] = seq + 1
+        inbox.put(raw)
+
+    client = DeliverClient(VALIDATOR_CHANNEL,
+                           [tampering(endpoint), tampering(endpoint)],
+                           lambda: sunk[0], sink, bundle=bundle,
+                           csp=csp.inner)
+    verify = client._verify = Timed(client._verify)
+    flags: list = []
+    durable: list = []
+    committer.add_commit_listener(
+        lambda block, f: durable.append(time.perf_counter()))
+
+    def commit():
+        for f in committer.store_stream(iter(inbox.get, None), depth=depth):
+            flags.append(list(f))
+
+    committing = threading.Thread(target=commit, name="order-commit")
+    csp.reset()
+    csp.inner.drain()
+    pk.launches_keytab = 0
+    pk.launches_lanekeys = 0
+    torch.cuda.synchronize()
+    gc_watch = FullCollections()
+    t0 = time.perf_counter()
+    with gc_watch:
+        committing.start()
+        client.start()
+        handler = BroadcastHandler(reg)
+        statuses, longest = [], 0.0
+        last = time.perf_counter()
+        for e in envs:
+            statuses.append(handler.process_message(cb.Envelope.decode(e)))
+            now = time.perf_counter()
+            longest, last = max(longest, now - last), now
+        t_broadcast = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while sum(ordered) < len(admitted) and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t_ordered = time.perf_counter() - t0
+        n_blocks = len(ordered)
+        while sunk[0] <= n_blocks and time.monotonic() < deadline:
+            time.sleep(0.005)
+        inbox.put(None)
+        committing.join(timeout=max(1.0, deadline - time.monotonic()))
+        csp.inner.drain()
+    pauses = gc_watch.pauses
+    launches = {B1_NAME: pk.launches_keytab, B2_NAME: pk.launches_lanekeys}
+    svc.stop()
+    client.stop()
+    reg.halt_all()
+    check(not committing.is_alive() and len(flags) == n_blocks,
+          f"{len(flags)} of {n_blocks} ordered blocks committed")
+
+    got_refused = {keys[j]: s for j, s in enumerate(statuses)
+                   if s != cb.SUCCESS}
+    check(got_refused == predicted, f"refused {sorted(got_refused.items())},"
+          f" predicted {sorted(predicted.items())}")
+    check(ordered == [ORDER_MAX_COUNT] * (len(admitted) // ORDER_MAX_COUNT)
+          + ([len(admitted) % ORDER_MAX_COUNT]
+             if len(admitted) % ORDER_MAX_COUNT else []),
+          f"blocks of {ordered} envelopes (the longest broadcast call "
+          f"{longest * 1e3:.1f} ms; the timer cuts after {ORDER_TIMEOUT})")
+    check(launches[B1_NAME] > 0, f"B1 did not launch on the order path: "
+          f"{launches}")
+    check(verify.n == n_blocks + 2, f"the deliver client checked "
+          f"{verify.n} blocks, {n_blocks} delivered and 2 tampered")
+    log = list(client.endpoint_log)
+    check(len(log) >= 3 and log[0] != log[1] and log[2] == log[0],
+          f"the deliver client's rotation {log}")
+    # every committed block: the orderer's, its signature valid
+    sig_ok = 0
+    for n in range(1, n_blocks + 1):
+        blk = ledger.get_block_by_number(n)
+        sig_ok += verify_block_signature(blk, policy, hostref.HostCSP())
+    check(sig_ok == n_blocks, f"{n_blocks - sig_ok} committed blocks fail "
+          "the BlockValidation policy")
+    got_flags = [f for block in flags for f in block]
+    want_flags = [com["flags"][b][i] for b, i in admitted]
+    differ = sum(a != b for a, b in zip(got_flags, want_flags))
+    check(got_flags == want_flags, "the ordered commit's flags differ from "
+          f"phase_commit's on {differ} transactions")
+    base_provider = LedgerProvider(com["root"])
+    want_state = state_pairs(base_provider.open(VALIDATOR_CHANNEL))
+    base_provider.close()
+    got_state = state_pairs(ledger)
+    check(got_state == want_state, f"the ordered commit's state ("
+          f"{len(got_state)} keys) differs from phase_commit's "
+          f"({len(want_state)} keys)")
+    lanes = check_mask_host(csp, "order")
+    n_tx = len(admitted)
+    valid = got_flags.count(pb.VALID)
+    peer_wall = durable[-1] - t0
+    peer_own = durable[-1] - arrived_at[1]
+    latency = [arrived_at[n] - written_at[n] for n in range(1, n_blocks + 1)]
+
+    # the pass over comm's RPC: blocks 1-2 to a second peer, and the first
+    # peer's FilteredBlocks
+    peer_svc = deliver.DeliverService(
+        lambda ch: (ChainView(ledger, bundle) if ch == VALIDATOR_CHANNEL
+                    else None), csp.inner)
+    order_svc = deliver.DeliverService(reg.get_chain, csp.inner)
+    ca = CA("tlsca.order.example.com", "order.example.com",
+            rng=np.random.default_rng(ORDER_CA_SEED))
+    server = RPCServer(tls=credentials_from_ca(ca, "orderer"))
+    server.register("orderer.Deliver", lambda body, stream:
+                    deliver.deliver_response_frames(order_svc, body))
+    server.register("peer.DeliverFiltered", lambda body, stream:
+                    deliver.deliver_filtered_frames(peer_svc, body))
+    server.start()
+    peer_tls = credentials_from_ca(ca, "peer")
+    check(server.tls.require_client_auth and peer_tls.verify_server_name,
+          "the deliver pass is not mutual TLS")
+    last = ORDER_COMM_BLOCKS
+    try:
+        def remote(start):
+            env = deliver.make_seek_info_envelope(
+                VALIDATOR_CHANNEL, start, last, signer=world.client,
+                behavior=ob.SeekInfo.FAIL_IF_NOT_READY)
+            for frame in RPCClient(*server.addr, tls=peer_tls).stream(
+                    "orderer.Deliver", env.encode()):
+                resp = ob.DeliverResponse.decode(frame)
+                if resp.which("Type") == "block":
+                    yield resp.block
+
+        csp2 = new_cuda_csp(device=device)
+        provider2 = LedgerProvider(os.path.join(root, "peer2"), csp=csp2)
+        ledger2 = provider2.create(genesis)
+        got2: list = []
+        t1 = time.perf_counter()
+        client2 = DeliverClient(VALIDATOR_CHANNEL, [remote],
+                                lambda: 1 + len(got2),
+                                lambda seq, raw: got2.append(raw),
+                                bundle=bundle, csp=csp2)
+        client2.start()
+        stop_at = time.monotonic() + 30
+        while len(got2) < last and time.monotonic() < stop_at:
+            time.sleep(0.005)
+        client2.stop()
+        fetch_s = time.perf_counter() - t1
+        check(len(got2) == last, f"{len(got2)} of {last} blocks over RPC")
+        csp2.drain()
+        pk.launches_keytab = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        flags2 = [list(f) for f in Committer(TxValidator(
+            VALIDATOR_CHANNEL, ledger2, bundle, csp2), ledger2)
+            .store_stream(got2[:last], depth=depth)]
+        csp2.drain()
+        comm_wall = time.perf_counter() - t1
+        comm_launches = pk.launches_keytab
+        check(comm_launches > 0, "B1 did not launch on the RPC pass")
+        check(flags2 == flags[:last], "the RPC pass's flags differ from "
+              "the in-process pass's")
+        env = deliver.make_seek_info_envelope(
+            VALIDATOR_CHANNEL, 1, last, signer=world.client,
+            behavior=ob.SeekInfo.FAIL_IF_NOT_READY)
+        filtered = [pb.DeliverResponse.decode(f) for f in RPCClient(
+            *server.addr, tls=peer_tls).stream("peer.DeliverFiltered",
+                                               env.encode())]
+        check([r.which("Type") for r in filtered] == ["filtered_block"]
+              * last + ["status"] and filtered[-1].status == cb.SUCCESS,
+              "the filtered stream's responses")
+        for n, resp in enumerate(filtered[:last], 1):
+            want = deliver.filter_block(ledger.get_block_by_number(n))
+            check(resp.filtered_block.encode() == want.encode()
+                  and deliver.filter_block(ledger2.get_block_by_number(n))
+                  .encode() == want.encode(), f"FilteredBlock {n} differs")
+            check([t.tx_validation_code for t in
+                   resp.filtered_block.filtered_transactions]
+                  == flags[n - 1], f"FilteredBlock {n}'s codes")
+        provider2.close()
+    finally:
+        server.stop()
+        provider.close()
+    sig_s = sig_filter.s
+    per_block = (create.s + write.s) / n_blocks
+    print(f"order: broadcast {len(envs)} envelopes in {t_broadcast * 1e3:.1f}"
+          f" ms = {len(envs) / t_broadcast:.0f} envelopes/s (the signature "
+          f"filter {sig_s * 1e3:.1f} ms, {sig_s / t_broadcast:.1%}; the "
+          f"longest call {longest * 1e3:.1f} ms; {len(pauses)} full garbage "
+          f"collections in the run, the longest "
+          f"{max(pauses, default=0.0) * 1e3:.1f} ms); statuses "
+          f"{dict(sorted(collections.Counter(statuses).items()))}, the "
+          f"refused ones as predicted")
+    print(f"order: {n_blocks} blocks cut ({ordered} envelopes), the last "
+          f"ordered {t_ordered * 1e3:.1f} ms from the start; on the orderer "
+          f"{per_block * 1e3:.2f} ms a block to cut, sign and write "
+          f"(create_next_block {create.s / n_blocks * 1e3:.2f}, write_block "
+          f"{write.s / n_blocks * 1e3:.2f}, of it signing "
+          f"{sign.s / max(sign.n, 1) * 1e3:.2f})")
+    print(f"order: deliver, a block written to its hand-off to the peer: "
+          f"median {statistics.median(latency) * 1e3:.2f} ms, blocks 2-"
+          f"{n_blocks} max {max(latency[1:], default=0) * 1e3:.2f} ms, block "
+          f"1 {latency[0] * 1e3:.1f} ms (two refusals and their backoffs); "
+          f"the client's signature check {verify.s / verify.n * 1e3:.2f} ms "
+          f"a block; 2 tampered blocks refused, endpoints {log[:3]}, backoffs"
+          f" {list(client.backoff_log)[:2]}; {sig_ok} committed blocks pass "
+          "/Channel/Orderer/BlockValidation")
+    print(f"order: peer committed {n_tx} transactions ({valid} VALID) in "
+          f"{peer_wall * 1e3:.1f} ms from the first broadcast = "
+          f"{n_tx / peer_wall:.0f} committed tx/s; from the first block in "
+          f"to the last durable {peer_own * 1e3:.1f} ms = "
+          f"{peer_own / n_blocks * 1e3:.1f} ms a block; {lanes} verify "
+          f"lanes; launches {launches}; flags and state (keys and values) "
+          "phase_commit's")
+    print(f"order: over RPC (mutual TLS, loopback) {last} blocks delivered "
+          f"in {fetch_s * 1e3:.1f} ms and committed in {comm_wall * 1e3:.1f}"
+          f" ms with {comm_launches} launches of {B1_NAME}; flags and "
+          f"FilteredBlocks the in-process pass's")
+    return {"launches": launches, "wall_s": peer_wall, "blocks": n_blocks,
+            "broadcast_s": t_broadcast, "comm_launches": comm_launches}
+
+
+# ---------------------------------------------------------------------------
 # Key custody: an HSM-style daemon signs, CUDACSP verifies on the card.
 # ---------------------------------------------------------------------------
 
@@ -4333,10 +4816,12 @@ def main(argv=None) -> int:
         phase_traced_commit(device, world, blocks, expect, conflicts, com,
                             tmp)
         host_check("traced commit", armed=True)
+        order = phase_order(device, world, blocks, expect, com, tmp)
+        host_check("order")
     b1 = next(row for row in rows if row["name"] == B1_NAME)
     for label, run in (("validator", val), ("commit", com),
                        ("commit_sharded", shc), ("smallbank", sb),
-                       ("bootstrap", snp)):
+                       ("bootstrap", snp), ("order", order)):
         b1[f"launches_{label}"] = run["launches"][B1_NAME]
         busy = b1[f"launches_{label}"] * b1["ms"]
         wall = run["wall_s"] * 1e3

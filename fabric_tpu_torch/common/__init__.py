@@ -1,5 +1,7 @@
 """Shared host pieces of the port: the SHA-256 seam (`hashing`), the
-channel-config bundle (`channelconfig`), and the in-memory CA and
+channel-config bundle (`channelconfig`), capabilities and the config
+transaction engine (`capabilities`, `configtx`), the in-memory CA and
 config-tree builder that mint a channel (`crypto`, `configtx_builder`),
-the shared host work pool (`workpool`), and the metrics providers and
-logging registry (`metrics`, `flogging`)."""
+the block-delivery service (`deliver`), the shared host work pool
+(`workpool`), and the metrics providers and logging registry
+(`metrics`, `flogging`)."""

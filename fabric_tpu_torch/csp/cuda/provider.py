@@ -899,7 +899,7 @@ class CUDACSP(CSP):
         open nothing is queued for the device: on a card the call raises
         BreakerOpenError, on the CPU the host answers."""
         if len(items) < self._min_device_batch:
-            result = self._sw.verify_batch(items)
+            result = _host_verify_batch(self._sw, list(items))
             return lambda: result
         if self._breaker_gate():
             # degraded mode: the gate ran this call's probe if it was due

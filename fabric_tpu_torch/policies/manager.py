@@ -2,7 +2,8 @@
 of `fabric_tpu/policies/manager.py`; reference common/policies): a policy
 namespace addressed by path (`/Channel/Application/Endorsement`), where
 ANY/ALL/MAJORITY combine the same-named policy of each sub-group.  Every
-policy speaks the prepare/finish protocol."""
+policy speaks the prepare/finish protocol, and evaluates one-shot through
+`evaluate_signed_data(signed_data, csp)`."""
 
 from __future__ import annotations
 
@@ -57,6 +58,10 @@ class ImplicitMetaPolicy:
         return _MetaPending([p.prepare(signed_data) for p in self._subs],
                             self._threshold)
 
+    def evaluate_signed_data(self, signed_data, csp) -> bool:
+        pending = self.prepare(signed_data)
+        return pending.finish(csp.verify_batch(pending.items))
+
 
 class RejectPolicy:
     """Stands for an absent or unparsable policy: always rejects, and
@@ -68,6 +73,9 @@ class RejectPolicy:
 
     def prepare(self, signed_data):
         return _MetaPending([], 1)
+
+    def evaluate_signed_data(self, signed_data, csp) -> bool:
+        return False
 
 
 class Manager:

@@ -5,7 +5,8 @@
 the verify items without verifying; the caller batches items of many
 policies into one verify; `PendingEvaluation.finish(mask)` runs the
 compiled closure over the identities whose signatures verified, one
-signature satisfying at most one leaf."""
+signature satisfying at most one leaf.  `evaluate_signed_data` is the
+one-shot path: its own verify of its own items."""
 
 from __future__ import annotations
 
@@ -116,6 +117,11 @@ class SignaturePolicy:
             else:
                 items.append(ident.verification_item(sd.data, sd.signature))
         return PendingEvaluation(items, self._closure, idents)
+
+    def evaluate_signed_data(self, signed_data, csp) -> bool:
+        """prepare, one `csp.verify_batch`, finish."""
+        pending = self.prepare(signed_data)
+        return pending.finish(csp.verify_batch(pending.items))
 
 
 __all__ = ["PolicyError", "PendingEvaluation", "SignaturePolicy"]

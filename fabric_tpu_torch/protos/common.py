@@ -1,4 +1,5 @@
-"""Schemas of package `common`: `common.proto`, `configtx.proto`,
+"""Schemas of package `common`: `common.proto` (with its `Status` codes),
+`configtx.proto`,
 `configuration.proto`, `policies.proto`, `ledger.proto` and
 `msp_principal.proto` (field numbers from the JAX package's
 `fabric_tpu/protos/common/*.proto` and `msp/msp_principal.proto`), and
@@ -16,6 +17,17 @@ from fabric_tpu_torch.protos.wire import (
     Field,
     Message,
 )
+
+# Status
+UNKNOWN = 0
+SUCCESS = 200
+BAD_REQUEST = 400
+FORBIDDEN = 403
+NOT_FOUND = 404
+REQUEST_ENTITY_TOO_LARGE = 413
+INTERNAL_SERVER_ERROR = 500
+NOT_IMPLEMENTED = 501
+SERVICE_UNAVAILABLE = 503
 
 # HeaderType
 MESSAGE_TYPE = 0
@@ -172,6 +184,26 @@ class ConfigEnvelope(Message):
     )
 
 
+class ConfigSignature(Message):
+    FIELDS = (Field(1, "signature_header", BYTES), Field(2, "signature", BYTES))
+
+
+class ConfigUpdateEnvelope(Message):
+    FIELDS = (
+        Field(1, "config_update", BYTES),
+        Field(2, "signatures", MESSAGE, "ConfigSignature", repeated=True),
+    )
+
+
+class ConfigUpdate(Message):
+    FIELDS = (
+        Field(1, "channel_id", STRING),
+        Field(2, "read_set", MESSAGE, "ConfigGroup"),
+        Field(3, "write_set", MESSAGE, "ConfigGroup"),
+        Field(5, "isolated_data", BYTES, key=STRING, value=BYTES),
+    )
+
+
 # -- configuration.proto ------------------------------------------------------
 
 
@@ -181,6 +213,23 @@ class HashingAlgorithm(Message):
 
 class BlockDataHashingStructure(Message):
     FIELDS = (Field(1, "width", UINT32),)
+
+
+class OrdererAddresses(Message):
+    FIELDS = (Field(1, "addresses", STRING, repeated=True),)
+
+
+class Consortium(Message):
+    FIELDS = (Field(1, "name", STRING),)
+
+
+class Capability(Message):
+    FIELDS = ()
+
+
+class Capabilities(Message):
+    FIELDS = (Field(1, "capabilities", MESSAGE, "Capability", key=STRING,
+                    value=MESSAGE),)
 
 
 # -- policies.proto -----------------------------------------------------------

@@ -1,6 +1,8 @@
 """Schemas of package `protos` (the peer): `proposal.proto`,
 `proposal_response.proto`, `transaction.proto`, `chaincode.proto`,
-`chaincode_event.proto`, `collection.proto`'s `ApplicationPolicy` and
+`chaincode_event.proto`, `events.proto`'s filtered blocks and
+`DeliverResponse`, `configuration.proto`'s anchor peers and ACLs,
+`collection.proto`'s `ApplicationPolicy` and
 `StaticCollectionConfig` (a collection's endorsement policy) and
 `chaincode_shim.proto`'s `StateMetadataResult` (a key's metadata as the
 state DB stores it; field numbers from the JAX package's
@@ -219,3 +221,62 @@ class StateMetadata(Message):
 
 class StateMetadataResult(Message):
     FIELDS = (Field(1, "entries", MESSAGE, "StateMetadata", repeated=True),)
+
+
+# -- events.proto ---------------------------------------------------------------
+
+
+class FilteredChaincodeAction(Message):
+    FIELDS = (Field(1, "chaincode_event", MESSAGE, "ChaincodeEvent"),)
+
+
+class FilteredTransactionActions(Message):
+    FIELDS = (Field(1, "chaincode_actions", MESSAGE, "FilteredChaincodeAction",
+                    repeated=True),)
+
+
+class FilteredTransaction(Message):
+    FIELDS = (
+        Field(1, "txid", STRING),
+        Field(2, "type", INT32),
+        Field(3, "tx_validation_code", ENUM),
+        Field(4, "transaction_actions", MESSAGE, "FilteredTransactionActions",
+              oneof="Data"),
+    )
+
+
+class FilteredBlock(Message):
+    FIELDS = (
+        Field(1, "channel_id", STRING),
+        Field(2, "number", UINT64),
+        Field(4, "filtered_transactions", MESSAGE, "FilteredTransaction",
+              repeated=True),
+    )
+
+
+class DeliverResponse(Message):
+    FIELDS = (
+        Field(1, "status", ENUM, oneof="Type"),
+        Field(2, "block", MESSAGE, f"{_COMMON}.Block", oneof="Type"),
+        Field(3, "filtered_block", MESSAGE, "FilteredBlock", oneof="Type"),
+    )
+
+
+# -- configuration.proto ----------------------------------------------------------
+
+
+class AnchorPeer(Message):
+    FIELDS = (Field(1, "host", STRING), Field(2, "port", INT32))
+
+
+class AnchorPeers(Message):
+    FIELDS = (Field(1, "anchor_peers", MESSAGE, "AnchorPeer", repeated=True),)
+
+
+class APIResource(Message):
+    FIELDS = (Field(1, "policy_ref", STRING),)
+
+
+class ACLs(Message):
+    FIELDS = (Field(1, "acls", MESSAGE, "APIResource", key=STRING,
+                    value=MESSAGE),)

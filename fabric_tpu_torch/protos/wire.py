@@ -383,7 +383,10 @@ class Message:
 
     # -- encode -----------------------------------------------------------
 
-    def encode(self) -> bytes:
+    def encode(self, deterministic: bool = False) -> bytes:
+        """The wire bytes; map entries in insertion order, or, with
+        `deterministic`, sorted by key at every depth (protobuf's
+        `SerializeToString(deterministic=True)`)."""
         out = bytearray()
         d = self.__dict__
         for f in self._fields:
@@ -392,12 +395,13 @@ class Message:
             v = d[f.name]
             tag = (f.num << 3) | f.wire
             if f.key is not None:
-                for k, val in v.items():
+                entries = sorted(v.items()) if deterministic else v.items()
+                for k, val in entries:
                     body = bytearray()
                     _put_varint(body, (1 << 3) | (0 if f.key in _NUMERIC else 2))
                     _put_scalar(body, f.key, k)
                     if f.value == MESSAGE:
-                        _put_len(body, (2 << 3) | 2, val.encode())
+                        _put_len(body, (2 << 3) | 2, val.encode(deterministic))
                     else:
                         _put_varint(body, (2 << 3) | (0 if f.value in _NUMERIC else 2))
                         _put_scalar(body, f.value, val)
@@ -412,13 +416,13 @@ class Message:
                     _put_len(out, (f.num << 3) | 2, body)
                 elif f.kind == MESSAGE:
                     for x in v:
-                        _put_len(out, tag, x.encode())
+                        _put_len(out, tag, x.encode(deterministic))
                 else:
                     for x in v:
                         _put_varint(out, tag)
                         _put_scalar(out, f.kind, x)
             elif f.kind == MESSAGE:
-                _put_len(out, tag, v.encode())
+                _put_len(out, tag, v.encode(deterministic))
             else:
                 if not f.presence and v == _DEFAULTS[f.kind]:
                     continue

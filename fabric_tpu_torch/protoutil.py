@@ -66,6 +66,19 @@ def make_payload_bytes(channel_header: cb.ChannelHeader,
     ).encode()
 
 
+def make_envelope(payload_bytes: bytes, signer=None) -> cb.Envelope:
+    """The payload wrapped in an envelope, signed by `signer` (anything
+    with `sign(msg) -> bytes`) when given."""
+    sig = signer.sign(payload_bytes) if signer is not None else b""
+    return cb.Envelope(payload=payload_bytes, signature=sig)
+
+
+def channel_header(env: cb.Envelope) -> cb.ChannelHeader:
+    """The ChannelHeader of an envelope's payload."""
+    payload = cb.Payload.decode(env.payload)
+    return cb.ChannelHeader.decode(payload.header.channel_header)
+
+
 # -- proposals and transactions (reference protoutil/proputils.go, txutils.go)
 
 
@@ -296,6 +309,7 @@ def set_tx_filter(block: cb.Block, flags) -> None:
 __all__ = [
     "SignedData", "random_nonce", "compute_tx_id", "check_tx_id",
     "make_channel_header", "make_signature_header", "make_payload_bytes",
+    "make_envelope", "channel_header",
     "create_chaincode_proposal", "proposal_hash", "proposal_hash2",
     "create_proposal_response", "create_signed_tx",
     "get_action_from_envelope", "block_header_bytes", "block_header_hash",

@@ -26,13 +26,16 @@ from fabric_tpu.protos.common import (
 from fabric_tpu.protos.ledger.rwset import rwset_pb2
 from fabric_tpu.protos.ledger.rwset.kvrwset import kv_rwset_pb2
 from fabric_tpu.protos.msp import identities_pb2, msp_config_pb2, msp_principal_pb2
+from fabric_tpu.protos.orderer import ab_pb2
 from fabric_tpu.protos.orderer import configuration_pb2 as orderer_pb2
 from fabric_tpu.protos.orderer import raft_pb2
+from fabric_tpu.protos.peer import configuration_pb2 as peer_config_pb2
 from fabric_tpu.protos.peer import (
     chaincode_event_pb2,
     chaincode_pb2,
     chaincode_shim_pb2,
     collection_pb2,
+    events_pb2,
     proposal_pb2,
     proposal_response_pb2,
     transaction_pb2,
@@ -45,9 +48,9 @@ _PB2 = {
     msp: (identities_pb2, msp_config_pb2),
     peer: (chaincode_pb2, chaincode_event_pb2, proposal_pb2,
            proposal_response_pb2, transaction_pb2, collection_pb2,
-           chaincode_shim_pb2),
+           chaincode_shim_pb2, events_pb2, peer_config_pb2),
     rwset: (rwset_pb2, kv_rwset_pb2),
-    orderer: (orderer_pb2, raft_pb2),
+    orderer: (orderer_pb2, raft_pb2, ab_pb2),
 }
 
 
