@@ -16,6 +16,7 @@
 #include <cstdint>
 #include <cstring>
 #include <map>
+#include <mutex>
 #include <string>
 #include <vector>
 
@@ -151,6 +152,70 @@ bool parse_der(const u8* sig, int n, u8* r32, u8* s32) {
   return pos == n;
 }
 
+// The EVP_PKEY of a key (an on-curve check and one provider export), or
+// nullptr for a key that is not on P-256.
+void* build_pkey(const Ossl& o, const u8* q) {
+  void* pkey = nullptr;
+  void* eckey = o.EC_KEY_new_by_curve_name(NID_P256);
+  if (!eckey) return nullptr;
+  void* bx = o.BN_bin2bn(q, 32, nullptr);
+  void* by = o.BN_bin2bn(q + 32, 32, nullptr);
+  int okk = (bx && by)
+                ? o.EC_KEY_set_public_key_affine_coordinates(eckey, bx, by)
+                : 0;
+  if (bx) o.BN_free(bx);
+  if (by) o.BN_free(by);
+  if (okk) {
+    pkey = o.EVP_PKEY_new();
+    if (pkey && o.EVP_PKEY_set1_EC_KEY(pkey, eckey) != 1) {
+      o.EVP_PKEY_free(pkey);
+      pkey = nullptr;
+    }
+  }
+  o.EC_KEY_free(eckey);  // pkey holds its own reference
+  return pkey;
+}
+
+// Keys across calls: the orderer's signature filter and a deliver
+// client verify one lane a call, under a handful of keys, and wrapping a
+// key costs more than verifying with it.  An EVP_PKEY is shared between
+// threads for reading; a key past the bound is wrapped for its call.
+const size_t KEY_CACHE_MAX = 4096;
+std::mutex key_cache_mu;
+
+std::map<std::string, void*>& key_cache() {  // 64-byte q -> pkey (null: bad)
+  static auto* cache = new std::map<std::string, void*>();
+  return *cache;
+}
+
+// The key's pkey; `owned` when the caller must free it.
+void* cached_pkey(const Ossl& o, const std::string& kb, bool* owned) {
+  *owned = false;
+  {
+    std::lock_guard<std::mutex> g(key_cache_mu);
+    auto it = key_cache().find(kb);
+    if (it != key_cache().end()) return it->second;
+  }
+  void* pkey = build_pkey(o, reinterpret_cast<const u8*>(kb.data()));
+  if (pkey) {
+    // the provider export, once, before the key is shared
+    void* ctx = o.EVP_PKEY_CTX_new(pkey, nullptr);
+    if (ctx) o.EVP_PKEY_CTX_free(ctx);
+  }
+  std::lock_guard<std::mutex> g(key_cache_mu);
+  auto it = key_cache().find(kb);
+  if (it != key_cache().end()) {  // another thread cached it meanwhile
+    if (pkey) o.EVP_PKEY_free(pkey);
+    return it->second;
+  }
+  if (key_cache().size() >= KEY_CACHE_MAX) {
+    *owned = pkey != nullptr;
+    return pkey;
+  }
+  key_cache().emplace(kb, pkey);
+  return pkey;
+}
+
 }  // namespace
 
 extern "C" {
@@ -165,13 +230,12 @@ int fabric_ecdsa_verify_host(int n, const u8* qxy, const u8* digests,
                              const i32* sig_len, u8* out) {
   const Ossl& o = ossl();
   if (!o.ok) return -1;
-  // Per-key cache of a ready EVP_PKEY_CTX: a block's lanes repeat a
-  // handful of endorser/creator keys; the affine-coordinate on-curve
-  // check, the EVP wrap (one provider export), and the verify-init are
-  // all paid once per distinct key, not once per lane.
+  // Per-key verify context for this call: a block's lanes repeat a
+  // handful of endorser/creator keys, each key's context is made once.
   struct KeyCtx {
     void* pkey = nullptr;
     void* ctx = nullptr;
+    bool owned = false;
   };
   std::map<std::string, KeyCtx> keys;  // 64-byte q -> ctx (null = bad)
   for (int i = 0; i < n; ++i) {
@@ -188,31 +252,13 @@ int fabric_ecdsa_verify_host(int n, const u8* qxy, const u8* digests,
     auto it = keys.find(kb);
     if (it == keys.end()) {
       KeyCtx kc;
-      void* eckey = o.EC_KEY_new_by_curve_name(NID_P256);
-      if (eckey) {
-        void* bx = o.BN_bin2bn(qxy + 64 * size_t(i), 32, nullptr);
-        void* by = o.BN_bin2bn(qxy + 64 * size_t(i) + 32, 32, nullptr);
-        int okk = (bx && by)
-                      ? o.EC_KEY_set_public_key_affine_coordinates(eckey, bx,
-                                                                   by)
-                      : 0;
-        if (bx) o.BN_free(bx);
-        if (by) o.BN_free(by);
-        if (okk) {
-          kc.pkey = o.EVP_PKEY_new();
-          if (kc.pkey && o.EVP_PKEY_set1_EC_KEY(kc.pkey, eckey) == 1) {
-            kc.ctx = o.EVP_PKEY_CTX_new(kc.pkey, nullptr);
-            if (kc.ctx && o.EVP_PKEY_verify_init(kc.ctx) != 1) {
-              o.EVP_PKEY_CTX_free(kc.ctx);
-              kc.ctx = nullptr;
-            }
-          }
-          if (!kc.ctx && kc.pkey) {
-            o.EVP_PKEY_free(kc.pkey);
-            kc.pkey = nullptr;
-          }
+      kc.pkey = cached_pkey(o, kb, &kc.owned);
+      if (kc.pkey) {
+        kc.ctx = o.EVP_PKEY_CTX_new(kc.pkey, nullptr);
+        if (kc.ctx && o.EVP_PKEY_verify_init(kc.ctx) != 1) {
+          o.EVP_PKEY_CTX_free(kc.ctx);
+          kc.ctx = nullptr;
         }
-        o.EC_KEY_free(eckey);  // pkey holds its own reference
       }
       it = keys.emplace(std::move(kb), kc).first;
     }
@@ -225,7 +271,7 @@ int fabric_ecdsa_verify_host(int n, const u8* qxy, const u8* digests,
   }
   for (auto& kv : keys) {
     if (kv.second.ctx) o.EVP_PKEY_CTX_free(kv.second.ctx);
-    if (kv.second.pkey) o.EVP_PKEY_free(kv.second.pkey);
+    if (kv.second.owned) o.EVP_PKEY_free(kv.second.pkey);
   }
   return 0;
 }

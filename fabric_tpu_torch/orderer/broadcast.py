@@ -11,8 +11,10 @@ from __future__ import annotations
 from fabric_tpu_torch.orderer.msgprocessor import (
     Classification,
     MsgProcessorError,
+    _headers,
 )
 from fabric_tpu_torch.protos import common as cb
+from fabric_tpu_torch.protos.wire import DecodeError
 
 
 class BroadcastHandler:
@@ -20,17 +22,24 @@ class BroadcastHandler:
         self._registrar = registrar
 
     def process_message(self, env: cb.Envelope) -> int:
-        """A `common.Status` code (SUCCESS once enqueued)."""
+        """A `common.Status` code (SUCCESS once enqueued).  The headers
+        are decoded once, for the lookup, the classification and the
+        filters."""
         try:
-            cs = self._registrar.broadcast_channel_support(env)
+            headers = _headers(env)
+        except DecodeError:
+            headers = None  # each step below decodes, and refuses, alike
+        chdr = headers[0] if headers else None
+        try:
+            cs = self._registrar.broadcast_channel_support(env, chdr)
         except KeyError:
             return cb.NOT_FOUND
         except Exception:
             return cb.BAD_REQUEST
         try:
-            kind = cs.processor.classify(env)
+            kind = cs.processor.classify(env, chdr)
             if kind == Classification.NORMAL:
-                seq = cs.processor.process_normal_msg(env)
+                seq = cs.processor.process_normal_msg(env, headers)
                 cs.chain.wait_ready()
                 cs.chain.order(env, seq)
             elif kind == Classification.CONFIG_UPDATE:

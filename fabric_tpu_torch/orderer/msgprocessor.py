@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import datetime
 import enum
+import functools
 import os
 
 from fabric_tpu_torch import protoutil
@@ -27,6 +28,20 @@ from fabric_tpu_torch.protoutil import SignedData
 
 STATE_NORMAL = ob.ConsensusType.STATE_NORMAL
 STATE_MAINTENANCE = ob.ConsensusType.STATE_MAINTENANCE
+
+
+@functools.lru_cache(maxsize=4096)
+def _not_valid_after(creator: bytes) -> datetime.datetime | None:
+    """The creator certificate's expiry, or None where the creator is no
+    certificate (the signature filter refuses what does not deserialize);
+    parsed once a creator, where the reference's C parser runs for every
+    message."""
+    try:
+        sid = mb.SerializedIdentity.decode(creator)
+        certs = x509.load_pem_certificates(sid.id_bytes)
+    except Exception:
+        return None
+    return certs[0].not_valid_after if certs else None
 
 
 class Classification(enum.Enum):
@@ -64,19 +79,23 @@ class StandardChannelProcessor:
         oc = self._bundle.orderer_config
         return oc is not None and oc.consensus_state == STATE_MAINTENANCE
 
-    def classify(self, env: cb.Envelope) -> Classification:
-        chdr = protoutil.channel_header(env)
+    def classify(self, env: cb.Envelope,
+                 chdr: cb.ChannelHeader | None = None) -> Classification:
+        """`chdr`: the envelope's channel header, when the caller has it."""
+        chdr = chdr or protoutil.channel_header(env)
         if chdr.type == cb.CONFIG_UPDATE:
             return Classification.CONFIG_UPDATE
         if chdr.type == cb.CONFIG:
             return Classification.CONFIG
         return Classification.NORMAL
 
-    def process_normal_msg(self, env: cb.Envelope) -> int:
+    def process_normal_msg(self, env: cb.Envelope, headers=None) -> int:
         """Raises MsgProcessorError on a refusal; returns the config
-        sequence the message was checked against."""
+        sequence the message was checked against.  `headers`: the
+        envelope's (channel header, signature header), when the caller
+        has them."""
         self._size_filter(env)
-        chdr, shdr = _headers(env)
+        chdr, shdr = headers or _headers(env)
         if chdr.channel_id != self.channel_id:
             raise MsgProcessorError(
                 f"message is for channel {chdr.channel_id!r}, this is "
@@ -94,13 +113,9 @@ class StandardChannelProcessor:
 
     @staticmethod
     def _expiration_filter(creator: bytes) -> None:
-        try:
-            sid = mb.SerializedIdentity.decode(creator)
-            certs = x509.load_pem_certificates(sid.id_bytes)
-        except Exception:
-            return  # the signature filter refuses what does not deserialize
-        now = datetime.datetime.now(datetime.timezone.utc)
-        if certs and certs[0].not_valid_after < now:
+        not_after = _not_valid_after(creator)
+        if not_after is not None and not_after < datetime.datetime.now(
+                datetime.timezone.utc):
             raise MsgProcessorError("creator certificate has expired")
 
     def _sig_filter(self, env: cb.Envelope, shdr: cb.SignatureHeader) -> None:

@@ -9,8 +9,10 @@ config's ConsensusType (solo or kafka).  A written config block swaps the
 channel's bundle, processor and batch settings, and a change of the
 consensus type (a migration through maintenance) replaces the consenter.
 
-Raft (`etcdraft`) channels are not ported yet: `create_chain` raises
-`RaftNotPortedError` for them.
+An `etcdraft` (or `raft`) channel runs a `RaftChain` with node id
+`node_id` on the registrar's `transport` (a `ChannelStepRouter` over an
+InProc or TCP transport), its consenters and options from the
+ConsensusType's `ConfigMetadata`, its WAL in `<root>/raft/<channel>`.
 """
 
 from __future__ import annotations
@@ -27,11 +29,7 @@ from fabric_tpu_torch.orderer.blockwriter import BlockWriter
 from fabric_tpu_torch.orderer.msgprocessor import StandardChannelProcessor
 from fabric_tpu_torch.orderer.solo import SoloChain
 from fabric_tpu_torch.protos import common as cb
-
-
-class RaftNotPortedError(NotImplementedError):
-    """A channel whose consensus type is etcdraft/raft: the port has no
-    raft consenter yet."""
+from fabric_tpu_torch.protos import orderer as ob
 
 
 class ChainSupport:
@@ -53,19 +51,26 @@ class ChainSupport:
 
 class Registrar:
     def __init__(self, root_dir: str | None, csp, signer=None,
-                 consenter_overrides: dict | None = None):
+                 node_id: int = 1, transport=None,
+                 consenter_overrides: dict | None = None,
+                 raft_metrics=None):
         """`consenter_overrides`: "type" (forces a consensus type),
         "broker" (kafka's partitions), "kafka_start_offset",
-        "follower_puller" and "in_consenter_set" (the follower path of
-        `demote_evicted`)."""
+        "eviction_suspicion_ticks" and "eviction_probe" (raft's eviction
+        suspicion), "follower_puller" and "in_consenter_set" (the
+        follower path of `demote_evicted`).  `raft_metrics`: a
+        common.metrics.RaftMetrics handed to every raft chain."""
         self.root_dir = root_dir
         self.csp = csp
         self.signer = signer
+        self.node_id = node_id
+        self.transport = transport
         self._chains: dict[str, ChainSupport] = {}
         self._lock = threading.Lock()
         self._halted = False
         self._consenter_overrides = consenter_overrides or {}
         self._on_block_hooks: list = []
+        self.raft_metrics = raft_metrics
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -120,9 +125,35 @@ class Registrar:
             self._fan_out(channel_id, blk)
 
         if ctype in ("raft", "etcdraft"):
-            raise RaftNotPortedError(
-                f"channel {channel_id!r}: consensus type {ctype!r} is not "
-                "ported (the port orders solo and kafka channels)")
+            from fabric_tpu_torch.orderer.raft import RaftChain
+
+            meta = ob.ConfigMetadata()
+            if oc and oc.consensus_metadata:
+                meta = ob.ConfigMetadata.decode(oc.consensus_metadata)
+            consenters = (list(meta.consenters)
+                          or [ob.Consenter(id=self.node_id)])
+            opts = meta.options
+            wal_dir = (os.path.join(self.root_dir, "raft", channel_id)
+                       if self.root_dir else None)
+            chain = RaftChain(
+                channel_id, self.node_id, consenters, cutter, writer,
+                self.transport, wal_dir=wal_dir, batch_timeout_s=timeout,
+                tick_interval_s=(opts.tick_interval_ms or 50) / 1000.0,
+                election_tick=opts.election_tick or 10,
+                heartbeat_tick=opts.heartbeat_tick or 1,
+                snapshot_interval_size=(opts.snapshot_interval_size
+                                        or (16 << 20)),
+                on_block=on_block,
+                eviction_suspicion_ticks=self._consenter_overrides.get(
+                    "eviction_suspicion_ticks"),
+                active_consenters_probe=self._consenter_overrides.get(
+                    "eviction_probe"),
+                on_eviction=lambda: self.demote_evicted(channel_id),
+                metrics=self.raft_metrics)
+            if self.transport is not None:
+                self.transport.register_channel(channel_id,
+                                                chain.handle_step)
+            return chain
         if ctype == "kafka":
             from fabric_tpu_torch.orderer.kafka import KafkaChain
 
@@ -148,8 +179,11 @@ class Registrar:
         with self._lock:
             return sorted(self._chains)
 
-    def broadcast_channel_support(self, env: cb.Envelope) -> ChainSupport:
-        chdr = protoutil.channel_header(env)
+    def broadcast_channel_support(self, env: cb.Envelope,
+                                  chdr: cb.ChannelHeader | None = None
+                                  ) -> ChainSupport:
+        """`chdr`: the envelope's channel header, when the caller has it."""
+        chdr = chdr or protoutil.channel_header(env)
         cs = self.get_chain(chdr.channel_id)
         if cs is None:
             raise KeyError(f"channel {chdr.channel_id!r} not found")
@@ -263,4 +297,33 @@ class Registrar:
             cs.halt()
 
 
-__all__ = ["Registrar", "ChainSupport", "RaftNotPortedError"]
+class ChannelStepRouter:
+    """A cluster transport shared by channels: Step requests go to the
+    chain of their channel (reference orderer/common/cluster/service.go)."""
+
+    def __init__(self, transport):
+        self._transport = transport
+        self._handlers: dict = {}
+        if hasattr(transport, "set_handler"):
+            transport.set_handler(self._route)
+
+    def register_channel(self, channel_id: str, handler) -> None:
+        self._handlers[channel_id] = handler
+
+    def register(self, node_id: int, handler) -> None:
+        # an in-process transport registers whole nodes
+        self._transport.register(node_id, self._route)
+
+    def _route(self, req: ob.StepRequest) -> None:
+        h = self._handlers.get(req.channel)
+        if h is not None:
+            h(req)
+
+    def send(self, frm: int, to: int, req: ob.StepRequest) -> None:
+        self._transport.send(frm, to, req)
+
+    def set_peer(self, node_id: int, addr) -> None:
+        self._transport.set_peer(node_id, addr)
+
+
+__all__ = ["Registrar", "ChainSupport", "ChannelStepRouter"]

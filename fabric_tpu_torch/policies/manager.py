@@ -7,6 +7,7 @@ policy speaks the prepare/finish protocol, and evaluates one-shot through
 
 from __future__ import annotations
 
+from fabric_tpu_torch.common.hashing import sha256
 from fabric_tpu_torch.policies.signature_policy import (
     PendingEvaluation,
     PolicyError,
@@ -55,12 +56,23 @@ class ImplicitMetaPolicy:
             raise PolicyError(f"unknown implicit meta rule {rule}")
 
     def prepare(self, signed_data):
+        # every sub-policy reads the same messages: hash each once
+        signed_data = [sd if sd.digest is not None
+                       else sd._replace(digest=sha256(sd.data))
+                       for sd in signed_data]
         return _MetaPending([p.prepare(signed_data) for p in self._subs],
                             self._threshold)
 
     def evaluate_signed_data(self, signed_data, csp) -> bool:
+        """One `csp.verify_batch` of the sub-policies' distinct lanes: each
+        sub-policy names the same signatures (six lanes of one signature
+        under /Channel/Writers), and equal lanes have equal verdicts."""
         pending = self.prepare(signed_data)
-        return pending.finish(csp.verify_batch(pending.items))
+        lanes = [(it.key.x, it.key.y, it.digest, it.signature)
+                 for it in pending.items]
+        first = dict(zip(lanes, pending.items))
+        verdict = dict(zip(first, csp.verify_batch(list(first.values()))))
+        return pending.finish([verdict[lane] for lane in lanes])
 
 
 class RejectPolicy:

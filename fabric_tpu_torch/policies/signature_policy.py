@@ -124,4 +124,19 @@ class SignaturePolicy:
         return pending.finish(csp.verify_batch(pending.items))
 
 
-__all__ = ["PolicyError", "PendingEvaluation", "SignaturePolicy"]
+def signed_by_any_member(mspids) -> cb.SignaturePolicyEnvelope:
+    """A 1-of-N member policy over the MSPs (reference policydsl
+    SignedByAnyMember)."""
+    return cb.SignaturePolicyEnvelope(
+        version=0,
+        rule=cb.SignaturePolicy(n_out_of=cb.NOutOf(n=1, rules=[
+            cb.SignaturePolicy(signed_by=i) for i in range(len(mspids))])),
+        identities=[cb.MSPPrincipal(
+            principal_classification=cb.MSPPrincipal.ROLE,
+            principal=cb.MSPRole(msp_identifier=mspid,
+                                 role=cb.MSPRole.MEMBER).encode())
+            for mspid in mspids])
+
+
+__all__ = ["PolicyError", "PendingEvaluation", "SignaturePolicy",
+           "signed_by_any_member"]

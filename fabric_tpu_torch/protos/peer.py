@@ -1,11 +1,9 @@
 """Schemas of package `protos` (the peer): `proposal.proto`,
 `proposal_response.proto`, `transaction.proto`, `chaincode.proto`,
 `chaincode_event.proto`, `events.proto`'s filtered blocks and
-`DeliverResponse`, `configuration.proto`'s anchor peers and ACLs,
-`collection.proto`'s `ApplicationPolicy` and
-`StaticCollectionConfig` (a collection's endorsement policy) and
-`chaincode_shim.proto`'s `StateMetadataResult` (a key's metadata as the
-state DB stores it; field numbers from the JAX package's
+`DeliverResponse`, `configuration.proto`'s anchor peers, ACLs and channel
+list, `collection.proto`, `chaincode_shim.proto` (the chaincode stream's
+messages) and `query.proto` (field numbers from the JAX package's
 `fabric_tpu/protos/peer/`)."""
 
 from fabric_tpu_torch.protos.wire import (
@@ -85,6 +83,11 @@ class ChaincodeSpec(Message):
 
 class ChaincodeInvocationSpec(Message):
     FIELDS = (Field(1, "chaincode_spec", MESSAGE, "ChaincodeSpec"),)
+
+
+class ChaincodeDeploymentSpec(Message):
+    FIELDS = (Field(1, "chaincode_spec", MESSAGE, "ChaincodeSpec"),
+              Field(3, "code_package", BYTES))
 
 
 class ChaincodeEvent(Message):
@@ -199,6 +202,15 @@ class CollectionPolicyConfig(Message):
                     f"{_COMMON}.SignaturePolicyEnvelope", oneof="payload"),)
 
 
+class CollectionConfigPackage(Message):
+    FIELDS = (Field(1, "config", MESSAGE, "CollectionConfig", repeated=True),)
+
+
+class CollectionConfig(Message):
+    FIELDS = (Field(1, "static_collection_config", MESSAGE,
+                    "StaticCollectionConfig", oneof="payload"),)
+
+
 class StaticCollectionConfig(Message):
     FIELDS = (
         Field(1, "name", STRING),
@@ -213,6 +225,100 @@ class StaticCollectionConfig(Message):
 
 
 # -- chaincode_shim.proto -----------------------------------------------------
+
+
+class ChaincodeMessage(Message):
+    UNDEFINED = 0  # Type
+    REGISTER = 1
+    REGISTERED = 2
+    INIT = 3
+    READY = 4
+    TRANSACTION = 5
+    COMPLETED = 6
+    ERROR = 7
+    GET_STATE = 8
+    PUT_STATE = 9
+    DEL_STATE = 10
+    INVOKE_CHAINCODE = 11
+    RESPONSE = 13
+    GET_STATE_BY_RANGE = 14
+    GET_QUERY_RESULT = 15
+    QUERY_STATE_NEXT = 16
+    QUERY_STATE_CLOSE = 17
+    KEEPALIVE = 18
+    GET_HISTORY_FOR_KEY = 19
+    GET_STATE_METADATA = 20
+    PUT_STATE_METADATA = 21
+    GET_PRIVATE_DATA_HASH = 22
+    FIELDS = (
+        Field(1, "type", ENUM),
+        Field(2, "payload", BYTES),
+        Field(3, "txid", STRING),
+        Field(4, "channel_id", STRING),
+        Field(5, "proposal", BYTES),
+        Field(6, "chaincode_event", BYTES),
+    )
+
+
+class GetState(Message):
+    FIELDS = (Field(1, "key", STRING), Field(2, "collection", STRING))
+
+
+class PutState(Message):
+    FIELDS = (Field(1, "key", STRING), Field(2, "value", BYTES),
+              Field(3, "collection", STRING))
+
+
+class DelState(Message):
+    FIELDS = (Field(1, "key", STRING), Field(2, "collection", STRING))
+
+
+class GetStateByRange(Message):
+    FIELDS = (
+        Field(1, "start_key", STRING),
+        Field(2, "end_key", STRING),
+        Field(3, "collection", STRING),
+        Field(4, "metadata", BYTES),
+    )
+
+
+class QueryResultBytes(Message):
+    FIELDS = (Field(1, "result_bytes", BYTES),)
+
+
+class KV(Message):
+    FIELDS = (Field(1, "namespace", STRING), Field(2, "key", STRING),
+              Field(3, "value", BYTES))
+
+
+class QueryResponse(Message):
+    FIELDS = (
+        Field(1, "results", MESSAGE, "QueryResultBytes", repeated=True),
+        Field(2, "has_more", BOOL),
+        Field(3, "id", STRING),
+    )
+
+
+class GetQueryResult(Message):
+    FIELDS = (Field(1, "query", STRING), Field(2, "collection", STRING),
+              Field(3, "metadata", BYTES))
+
+
+class QueryStateNext(Message):
+    FIELDS = (Field(1, "id", STRING),)
+
+
+class QueryStateClose(Message):
+    FIELDS = (Field(1, "id", STRING),)
+
+
+class GetStateMetadata(Message):
+    FIELDS = (Field(1, "key", STRING), Field(2, "collection", STRING))
+
+
+class PutStateMetadata(Message):
+    FIELDS = (Field(1, "key", STRING), Field(2, "collection", STRING),
+              Field(3, "metadata", MESSAGE, "StateMetadata"))
 
 
 class StateMetadata(Message):
@@ -280,3 +386,44 @@ class APIResource(Message):
 class ACLs(Message):
     FIELDS = (Field(1, "acls", MESSAGE, "APIResource", key=STRING,
                     value=MESSAGE),)
+
+
+class ChannelQueryResponse(Message):
+    FIELDS = (Field(1, "channels", MESSAGE, "ChannelInfo", repeated=True),)
+
+
+class ChannelInfo(Message):
+    FIELDS = (Field(1, "channel_id", STRING),)
+
+
+# -- query.proto ------------------------------------------------------------------
+
+
+class ChaincodeInfo(Message):
+    FIELDS = (
+        Field(1, "name", STRING),
+        Field(2, "version", STRING),
+        Field(3, "path", STRING),
+        Field(4, "input", STRING),
+        Field(5, "escc", STRING),
+        Field(6, "vscc", STRING),
+        Field(7, "id", BYTES),
+    )
+
+
+class ChaincodeQueryResponse(Message):
+    FIELDS = (Field(1, "chaincodes", MESSAGE, "ChaincodeInfo",
+                    repeated=True),)
+
+
+class ChaincodeData(Message):
+    FIELDS = (
+        Field(1, "name", STRING),
+        Field(2, "version", STRING),
+        Field(3, "escc", STRING),
+        Field(4, "vscc", STRING),
+        Field(5, "policy", BYTES),
+        Field(6, "data", BYTES),
+        Field(7, "id", BYTES),
+        Field(8, "instantiation_policy", BYTES),
+    )

@@ -87,7 +87,7 @@ class Field:
 
     @property
     def wire(self) -> int:
-        return 0 if self.kind in _NUMERIC else 2
+        return 0 if self.kind in _NUMERIC and self.key is None else 2
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +305,8 @@ class Message:
                 if wt == f.wire:
                     pos = self._field(f, buf, pos, end)
                     continue
-                if wt == 2 and f.repeated and f.kind in _NUMERIC:
+                if wt == 2 and f.repeated and f.kind in _NUMERIC \
+                        and f.key is None:
                     pos = self._packed(f, buf, pos, end)
                     continue
             pos = _skip(buf, pos, end, tag)
@@ -313,7 +314,7 @@ class Message:
 
     def _field(self, f: Field, buf: bytes, pos: int, end: int) -> int:
         d = self.__dict__
-        if f.kind in _NUMERIC:
+        if f.kind in _NUMERIC and f.key is None:
             v, pos = _varint(buf, pos, end)
             v = _scalar(f.kind, v)
             if f.repeated:

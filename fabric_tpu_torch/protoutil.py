@@ -4,6 +4,7 @@ port's codec (`fabric_tpu_torch.protos`)."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import typing
@@ -180,6 +181,33 @@ def create_signed_tx(prop: pb.Proposal, signer,
         header=hdr.signature_header, payload=cap.encode())])
     payload = cb.Payload(header=hdr, data=tx.encode()).encode()
     return cb.Envelope(payload=payload, signature=signer.sign(payload))
+
+
+@dataclasses.dataclass
+class UnpackedProposal:
+    proposal: pb.Proposal
+    channel_header: cb.ChannelHeader
+    signature_header: cb.SignatureHeader
+    chaincode_name: str
+    input: pb.ChaincodeInput
+
+
+def unpack_proposal(signed: pb.SignedProposal) -> UnpackedProposal:
+    """The endorser's unpacking and structural checks (reference
+    core/endorser/msgvalidation.go UnpackProposal)."""
+    prop = pb.Proposal.decode(signed.proposal_bytes)
+    hdr = cb.Header.decode(prop.header)
+    chdr = cb.ChannelHeader.decode(hdr.channel_header)
+    shdr = cb.SignatureHeader.decode(hdr.signature_header)
+    ext = pb.ChaincodeHeaderExtension.decode(chdr.extension)
+    if not ext.chaincode_id.name:
+        raise ValueError("ChaincodeHeaderExtension.chaincode_id.name is empty")
+    ccpp = pb.ChaincodeProposalPayload.decode(prop.payload)
+    cis = pb.ChaincodeInvocationSpec.decode(ccpp.input)
+    return UnpackedProposal(proposal=prop, channel_header=chdr,
+                            signature_header=shdr,
+                            chaincode_name=ext.chaincode_id.name,
+                            input=cis.chaincode_spec.input)
 
 
 def get_action_from_envelope(env: cb.Envelope

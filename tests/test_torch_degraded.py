@@ -505,6 +505,19 @@ def test_ecdsa_verify_host_matches_sw_on_the_corpus(corpus):
     assert native.ecdsa_verify_host([]) == []
 
 
+def test_ecdsa_verify_host_keeps_its_verdicts_lane_by_lane(corpus):
+    """The verifier keeps the keys it wrapped across calls: the corpus one
+    lane a call (a key off P-256 among them), twice over and in reverse,
+    gives the batch's verdicts."""
+    names, lanes, expect = corpus
+    port_items = [VerifyBatchItem(api.P256PublicKey(x, y), d, der)
+                  for x, y, d, der in lanes]
+    for order in (port_items, port_items, port_items[::-1]):
+        got = [native.ecdsa_verify_host([it])[0] for it in order]
+        want = list(expect) if order is port_items else list(expect)[::-1]
+        assert got == want
+
+
 def test_host_verify_takes_the_oracle_without_libcrypto(items, monkeypatch):
     monkeypatch.setattr(native, "ecdsa_verify_host", lambda its: None)
     calls = []

@@ -236,6 +236,67 @@ with tempfile.TemporaryDirectory() as root:
         CUDACSP(device="cpu")), ledger)
     assert len(list(committer.store_stream(got[:1], depth=2))[0]) == 6
     provider.close()
+# one proposal endorsed through a shim chaincode, ordered by a single-node
+# raft chain of the port's registrar (its WAL on disk) and committed
+from fabric_tpu_torch.chaincode.shim import Chaincode, success
+from fabric_tpu_torch.chaincode.support import ChaincodeSupport, InProcStream
+from fabric_tpu_torch.orderer.multichannel import ChannelStepRouter
+from fabric_tpu_torch.orderer.raft import InProcTransport
+from fabric_tpu_torch.peer.endorser import Endorser
+from fabric_tpu_torch import protoutil as pu
+from fabric_tpu_torch.protos import peer as pb
+class Put(Chaincode):
+    def invoke(self, stub):
+        stub.put_state("k", stub.get_args()[0])
+        return success()
+def put(sim, args):
+    resp, _ = support.execute("benchcc", "", "t%d" % len(resps), sim, args)
+    return resp.status, resp.message, resp.payload
+raft_genesis = chip_smoke.order_genesis(world, 1, 1 << 20, 1 << 20, "60s",
+                                        consensus_type="etcdraft")
+with tempfile.TemporaryDirectory() as root:
+    support = ChaincodeSupport()
+    stream = InProcStream(support, Put(), "benchcc")
+    stream.start()
+    stream.wait_registered(support, "benchcc")
+    provider = LedgerProvider(f"{root}/peer")
+    ledger = provider.create(cb.Block.decode(raft_genesis))
+    rbundle = bundle_from_genesis(raft_genesis)
+    prop, _ = pu.create_chaincode_proposal(
+        world.client.serialize(), chip_smoke.VALIDATOR_CHANNEL, "benchcc",
+        [b"v"])
+    sp = pb.SignedProposal(proposal_bytes=prop.encode(),
+                           signature=world.client.sign(prop.encode()))
+    resps = []
+    for peer in world.peers[:3]:
+        resps.append(Endorser(chip_smoke.VALIDATOR_CHANNEL, ledger, rbundle,
+                              peer, {"benchcc": put}, HostCSP())
+                     .process_proposal(sp))
+    env = pu.create_signed_tx(prop, world.client, resps)
+    router = ChannelStepRouter(InProcTransport())
+    reg = Registrar(f"{root}/orderer", HostCSP(),
+                    signer=chip_smoke.orderer_identity(world),
+                    transport=router)
+    router.register(1, None)
+    reg.startup([cb.Block.decode(raft_genesis)])
+    cs = reg.get_chain(chip_smoke.VALIDATOR_CHANNEL)
+    deadline = time.monotonic() + 30
+    while not cs.chain.is_leader and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert BroadcastHandler(reg).process_message(env) == cb.SUCCESS
+    while cs.store.height < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    reg.halt_all()
+    stream.stop()
+    assert os.path.getsize(f"{root}/orderer/raft/"
+                           f"{chip_smoke.VALIDATOR_CHANNEL}/raft.wal") > 0
+    committer = Committer(TxValidator(
+        chip_smoke.VALIDATOR_CHANNEL, ledger, rbundle, CUDACSP(device="cpu")),
+        ledger)
+    assert list(committer.store_stream([cs.store.get_block_by_number(1)],
+                                       depth=2)) == [[0]]
+    assert ledger.new_query_executor().get_state("benchcc", "k") == b"v"
+    provider.close()
 workpool.shutdown()
 assert not any(k in ("jax", "yaml", "cryptography")
                or k.startswith(("jax.", "fabric_tpu.", "google.protobuf"))
@@ -339,7 +400,13 @@ def test_no_file_of_the_port_imports_forbidden_modules():
         "orderer/blockwriter.py", "orderer/msgprocessor.py",
         "orderer/broadcast.py", "orderer/solo.py", "orderer/kafka.py",
         "orderer/follower.py", "orderer/multichannel.py",
-        "peer/deliverclient.py"} <= scanned
+        "peer/deliverclient.py", "orderer/raft/__init__.py",
+        "orderer/raft/raftcore.py", "orderer/raft/wal.py",
+        "orderer/raft/transport.py", "orderer/raft/chain.py",
+        "protos/lifecycle.py", "common/privdata.py", "peer/aclmgmt.py",
+        "peer/endorser.py", "chaincode/__init__.py", "chaincode/shim.py",
+        "chaincode/support.py", "chaincode/scc.py", "chaincode/lifecycle.py",
+        "chaincode/statebased.py"} <= scanned
     bad = []
     for path in _port_files():
         for name in _imported(path):
@@ -392,7 +459,7 @@ def test_ecverify_cc_includes_the_standard_library_and_dlfcn_only():
     text = (PORT / "native" / "ecverify.cc").read_text()
     assert not _QUOTED_INCLUDE.findall(text)
     assert set(_ANGLE_INCLUDE.findall(text)) <= {
-        "cstdint", "cstring", "map", "string", "vector", "dlfcn.h"}
+        "cstdint", "cstring", "map", "mutex", "string", "vector", "dlfcn.h"}
     assert "ecverify.cc" in native.SOURCES
 
 

@@ -18,7 +18,7 @@ by the same CA (one key, one certificate):
 - a restart: each package's Registrar resumes on the other's root at its
   height, with the genesis bundle and last-config index 0, as the
   reference does (ROADMAP Queue C);
-- an etcdraft channel raises the port's RaftNotPortedError.
+- a single-node etcdraft channel orders the same blocks in both.
 """
 
 import dataclasses
@@ -55,7 +55,6 @@ from fabric_tpu_torch.orderer.blockwriter import (
 from fabric_tpu_torch.orderer.broadcast import BroadcastHandler as PortHandler
 from fabric_tpu_torch.orderer.kafka import InProcBroker as PortBroker
 from fabric_tpu_torch.orderer.kafka import KafkaChain as PortKafka
-from fabric_tpu_torch.orderer.multichannel import RaftNotPortedError
 from fabric_tpu_torch.orderer.multichannel import Registrar as PortRegistrar
 from fabric_tpu_torch.protos import common as cb
 
@@ -247,11 +246,33 @@ def test_orderers_cut_and_sign_the_same_blocks(world, tmp_path, consensus):
 
 
 def test_etcdraft_channel_raises_the_named_error(world, tmp_path):
-    reg = PortRegistrar(str(tmp_path), HostCSP())
-    with pytest.raises(RaftNotPortedError, match="etcdraft"):
-        reg.create_chain(cb.Block.decode(world.genesis("etcdraft")))
-    assert reg.get_chain(CH) is None
-    reg.halt_all()
+    """Once a pin of the port's missing raft consenter, now a parity test
+    on the same inputs (its name kept): an etcdraft channel with no
+    consenter metadata runs one raft node (id 1) in both packages, which
+    cut the same blocks of the admitted envelopes."""
+    genesis = world.genesis("etcdraft")
+    views = {}
+    for pkg in ("jax", "port"):
+        p = PKG[pkg]
+        reg = p.Registrar(str(tmp_path / pkg), p.csp(),
+                          signer=getattr(world.orderer, pkg))
+        try:
+            reg.startup([p.block(genesis)])
+            chain = reg.get_chain(CH).chain
+            assert type(chain).__name__ == "RaftChain"
+            deadline = time.monotonic() + 10
+            while not chain.is_leader and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert chain.is_leader
+            for raw in world.envs[:2 * MAX_COUNT]:
+                chain.order(p.env(raw))
+            assert _wait_height(reg, 3) == 3
+            views[pkg] = _view(pkg, reg)
+        finally:
+            reg.halt_all()
+    assert views["port"] == views["jax"]
+    assert [v[3] for v in views["port"]] == [
+        world.envs[:MAX_COUNT], world.envs[MAX_COUNT:2 * MAX_COUNT]]
 
 
 # -- a restart over the other package's root -------------------------------------
@@ -442,7 +463,14 @@ def test_consensus_migration_through_maintenance_mode(world, tmp_path):
             regs[pkg] = _registrar(pkg, tmp_path / pkg, genesis,
                                    world.orderer)
         for step, height in steps:
-            cur = {pkg: _config_bytes(pkg, regs[pkg]) for pkg in regs}
+            # a registrar swaps its bundle after the config block's write,
+            # on the chain's thread: wait out that swap, not only the height
+            deadline = time.monotonic() + 10
+            while True:
+                cur = {pkg: _config_bytes(pkg, regs[pkg]) for pkg in regs}
+                if cur["port"] == cur["jax"] or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
             assert cur["port"] == cur["jax"]
             if step == "client":
                 raw = client

@@ -36,11 +36,21 @@ from fabric_tpu.protos.peer import (
     chaincode_shim_pb2,
     collection_pb2,
     events_pb2,
+    lifecycle_pb2,
     proposal_pb2,
     proposal_response_pb2,
+    query_pb2,
     transaction_pb2,
 )
-from fabric_tpu_torch.protos import common, msp, orderer, peer, rwset, wire
+from fabric_tpu_torch.protos import (
+    common,
+    lifecycle,
+    msp,
+    orderer,
+    peer,
+    rwset,
+    wire,
+)
 
 _PB2 = {
     common: (common_pb2, configtx_pb2, configuration_pb2, policies_pb2,
@@ -48,10 +58,25 @@ _PB2 = {
     msp: (identities_pb2, msp_config_pb2),
     peer: (chaincode_pb2, chaincode_event_pb2, proposal_pb2,
            proposal_response_pb2, transaction_pb2, collection_pb2,
-           chaincode_shim_pb2, events_pb2, peer_config_pb2),
+           chaincode_shim_pb2, events_pb2, peer_config_pb2, query_pb2),
     rwset: (rwset_pb2, kv_rwset_pb2),
     orderer: (orderer_pb2, raft_pb2, ab_pb2),
+    lifecycle: (lifecycle_pb2,),
 }
+
+
+def _classes(pb2) -> dict:
+    """A `_pb2` module's message classes by name, those nested one level
+    in another message too (unless a top-level one has the name)."""
+    out = {}
+    for name, desc in pb2.DESCRIPTOR.message_types_by_name.items():
+        outer = getattr(pb2, name)
+        for nested in desc.nested_types:
+            if not nested.GetOptions().map_entry:
+                out.setdefault(nested.name, getattr(outer, nested.name))
+    for name in pb2.DESCRIPTOR.message_types_by_name:
+        out[name] = getattr(pb2, name)
+    return out
 
 
 def _pairs():
@@ -64,7 +89,7 @@ def _pairs():
             if name == "NOutOf":
                 out.append((cls, policies_pb2.SignaturePolicy.NOutOf))
                 continue
-            found = [getattr(m, name) for m in pb2s if hasattr(m, name)]
+            found = [_classes(m)[name] for m in pb2s if name in _classes(m)]
             assert len(found) == 1, (module.__name__, name)
             out.append((cls, found[0]))
     return out
