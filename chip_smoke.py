@@ -139,6 +139,27 @@
    broadcast a second with the signature filter's share, blocks cut and
    ms a block to cut, sign and write, the deliver latency a block,
    committed tx/s and ms a block at the peer, and B1's launches.
+   The gateway and gossip (`phase_gateway`, after `phase_endorse` on the
+   raft cluster's second channel): five fresh peers (Org1-5), each on its
+   own root, join one gossip network over `TCPGossipComm` (mutual TLS,
+   `SignerMCS`), one after another; the elected leader alone runs its
+   deliver client on the cluster, the others take the channel's blocks
+   by push, pull and state transfer, and each commits through
+   `PrivDataCoordinator` over `TxValidator` into B1 (counted a peer);
+   their states must be phase_endorse's.  `DiscoveryService` on Org1's
+   peer (comm's RPC, mutual TLS) gives `benchcc`'s descriptor (four
+   layouts, three of Org1-4); two blocks' worth of 1000 proposals, each
+   endorsed at the peers `select_endorsers` picks, go back to back
+   through one `Gateway` over `ab.BroadcastStream` to the orderers (a
+   follower first), 10 txids resubmitted in flight (dedup), a raise at
+   the 600th stream write (failover and the unresolved window
+   resubmitted, its ordered copies DUPLICATE_TXID), Org5's peer stopped
+   after the first worth and restarted after the second (state transfer
+   alone).  Every status must be the peers' flag, the flags the
+   prediction, the five peers' flags and states equal, one deliver
+   client at a time; prints blocks by source, submit-to-commit p50 and
+   p99, the window and failovers, committed tx/s, the leader-to-last
+   commit lag, envelopes/s through the stream and the block sizes.
    Key custody (`phase_custody`): a `KeyCustodyServer` thread generates
    and holds 4 keys; a `CustodyCSP` whose local provider is `CUDACSP`
    signs 4000 digests through it (signs/s printed), then verifies them
@@ -210,7 +231,8 @@
    if any is not 0.
 10. Prints one JSON line of kernels (B1-B4; B1's with its launches on
    the validator, commit, sharded-commit, SmallBank, bootstrapped-ledger,
-   ordered-commit, joining-peer and custody paths, B2's on the last two, B3's with its launches on the idemix MSP's
+   ordered-commit, joining-peer, custody, raft, endorse and gateway
+   paths, B2's on custody, raft and endorse, B3's with its launches on the idemix MSP's
    batch, B4's with its launches at the snapshot's shape), then
    `{"ok": true, "device": {...}}` as its last line.
 
@@ -4185,7 +4207,13 @@ class RaftOrderer:
             self.stats.watch(cs.channel_id, self.nid, cs)
         self.halted = threading.Event()
         self.server = RPCServer(port=spec["rpc_port"], tls=self.rpc_tls)
+        from fabric_tpu_torch.orderer.broadcast import (
+            broadcast_stream_handler,
+        )
+
         for name, fn in (("orderer.Broadcast", self._broadcast),
+                         ("ab.BroadcastStream",
+                          broadcast_stream_handler(self.reg)),
                          ("orderer.Deliver", self._deliver),
                          ("raft.State", self._state),
                          ("raft.Blocks", self._blocks),
@@ -4820,6 +4848,22 @@ class BenchCC(Chaincode):
 LAUNCH_LOCK = threading.Lock()
 
 
+def count_launches(csp: CUDACSP, peer) -> None:
+    """Adds to `peer.launches` the B1 launches of `csp`: the global
+    counter's step over each of its launches (the peers launch one at a
+    time under LAUNCH_LOCK)."""
+    launch = csp._launch
+
+    def counted(packed, dev, keytab):
+        with LAUNCH_LOCK:
+            before = pk.launches_keytab
+            out = launch(packed, dev, keytab)
+            peer.launches += pk.launches_keytab - before
+        return out
+
+    csp._launch = counted
+
+
 class EndorsingPeer:
     """A peer of phase_endorse: its KVLedger, a ChaincodeSupport with
     `_lifecycle`, `qscc` and `benchcc` over InProcStreams, an Endorser
@@ -4856,18 +4900,7 @@ class EndorsingPeer:
         inner = new_cuda_csp(device=device)
         self.csp = RecordingCSP(inner)
         self.launches = 0
-        launch = inner._launch
-
-        def counted(packed, dev, keytab):
-            # the global counter's step over this peer's launch (the
-            # peers launch one at a time under the lock)
-            with LAUNCH_LOCK:
-                before = pk.launches_keytab
-                out = launch(packed, dev, keytab)
-                self.launches += pk.launches_keytab - before
-            return out
-
-        inner._launch = counted
+        count_launches(inner, self)
         self.provider = LedgerProvider(os.path.join(root, self.name),
                                        csp=self.csp)
         self.ledger = ledger = self.provider.create(
@@ -5182,7 +5215,698 @@ def endorse_cell(world: ValidatorWorld, cluster: RaftCluster, peers: list,
           f"({predicted.count(pb.VALID)} VALID) and equal states at the "
           f"three; qscc heights {heights}; {lanes} verify lanes; launches "
           f"{launches}")
-    return {"launches": launches, "wall_s": t_wall, "per_peer": per_peer}
+    return {"launches": launches, "wall_s": t_wall, "per_peer": per_peer,
+            "state": states[0], "height": 3 + n_blocks}
+
+
+# ---------------------------------------------------------------------------
+# The gateway and gossip: a client's transactions through discovery, the
+# gateway and the raft cluster to five peers joined by gossip.
+# ---------------------------------------------------------------------------
+
+GATEWAY_PEERS = 5  # one a org; Org1-4 endorse `benchcc`, Org5 commits only
+GATEWAY_TICK_S = 0.5  # every peer's gossip tick
+GATEWAY_ALIVE_TICKS = 20  # a peer silent this long is dead (10 s)
+GATEWAY_LEADER_TIMEOUT = 20  # ticks without a declaration: a new election
+GATEWAY_STARTUP_TICKS = 10  # a started peer only proposes for 5 s
+GATEWAY_TTL_TICKS = 4  # a block leaves a gossip store after 2 s
+GATEWAY_SEED = 29
+GATEWAY_TEAR_AT = 600  # the gateway's stream raises at this write
+GATEWAY_DUPS = range(100, 110)  # submitted again at once, while in flight
+GATEWAY_WINDOW = (1024, 4096)  # the gateway's admission window, min and max
+
+
+def ledger_tail(ledger, stop: threading.Event):
+    """A deliver endpoint over a peer's ledger: its committed blocks (with
+    the validator's flags) from `start`, as they land."""
+
+    def connect(start):
+        n = start
+        while not stop.is_set():
+            if n < ledger.height:
+                yield ledger.get_block_by_number(n)
+                n += 1
+            else:
+                time.sleep(0.005)
+
+    return connect
+
+
+class CountedStream:
+    """A duplex stream whose sends and acks are stamped into `log`."""
+
+    def __init__(self, stream, log: list):
+        self._stream = stream
+        self._log = log
+
+    def send(self, body: bytes) -> None:
+        self._stream.send(body)
+        self._log.append((time.perf_counter(), "send"))
+
+    def recv(self):
+        body = self._stream.recv()
+        if body is not None:
+            self._log.append((time.perf_counter(), "ack"))
+        return body
+
+    def finish(self) -> None:
+        self._stream.finish()
+
+    def close(self) -> None:
+        self._stream.close()
+
+
+class _Detached:
+    """What a stopped peer's state provider commits into: nothing (every
+    block is below its height)."""
+
+    height = 1 << 62
+
+
+class GossipPeer:
+    """A peer of phase_gateway: its KVLedger (created from the channel's
+    genesis block, or reopened on its root), a `PrivDataCoordinator` over
+    `TxValidator` with CUDACSP (its B1 launches counted) and the committed
+    definitions, a `GossipService` over `TCPGossipComm` (mutual TLS,
+    `SignerMCS`) ticked by a `GossipRunner`, and a deliver client on the
+    raft cluster that the service runs while this peer leads the channel;
+    for Org1-4 an Endorser with `benchcc`.  `events` gets each start and
+    stop of the deliver client."""
+
+    def __init__(self, device, world: ValidatorWorld, k: int, root: str,
+                 cluster: RaftCluster, genesis_raw: bytes, tls_ca: CA,
+                 port: int, bootstrap: str | None, events: list,
+                 restart: bool = False):
+        from fabric_tpu_torch.chaincode.lifecycle import DefinitionProvider
+        from fabric_tpu_torch.chaincode.support import (
+            ChaincodeSupport,
+            InProcStream,
+        )
+        from fabric_tpu_torch.comm.tls import credentials_from_ca
+        from fabric_tpu_torch.common.privdata import CollectionStore
+        from fabric_tpu_torch.gossip import (
+            GossipRunner,
+            GossipService,
+            SignerMCS,
+            TCPGossipComm,
+        )
+        from fabric_tpu_torch.gossip.privdata import PrivDataCoordinator
+        from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+        from fabric_tpu_torch.ledger.kvstore import MemKVStore
+        from fabric_tpu_torch.ledger.transientstore import TransientStore
+        from fabric_tpu_torch.peer.deliverclient import DeliverClient
+        from fabric_tpu_torch.peer.endorser import Endorser
+
+        import itertools
+
+        self.k = k
+        self.name = f"peer0.org{k + 1}"
+        signer = world.peers[k]
+        self.identity = signer.serialize()
+        self.bundle = bundle = bundle_from_genesis(genesis_raw)
+        self.inner = inner = new_cuda_csp(device=device)
+        self.launches = 0
+        count_launches(inner, self)
+        self.provider = LedgerProvider(os.path.join(root, self.name),
+                                       csp=inner)
+        self.ledger = (self.provider.open(ENDORSE_CHANNEL) if restart else
+                       self.provider.create(cb.Block.decode(genesis_raw)))
+        self.definitions = DefinitionProvider(self.ledger)
+        self.coordinator = PrivDataCoordinator(
+            TxValidator(ENDORSE_CHANNEL, self.ledger, bundle, inner,
+                        definition_provider=self.definitions),
+            self.ledger, TransientStore(MemKVStore(), ENDORSE_CHANNEL),
+            CollectionStore(bundle.msp_manager), self.identity)
+        self.committed_at: dict = {}  # block number -> perf time
+        self.coordinator.add_commit_listener(
+            lambda blk, flags: self.committed_at.__setitem__(
+                blk.header.number, time.perf_counter()))
+        self.streams = []
+        self.endorser = None
+        if k < GATEWAY_PEERS - 1:
+            self.support = ChaincodeSupport()
+            stream = InProcStream(self.support, BenchCC(), VALIDATOR_CC)
+            stream.start()
+            stream.wait_registered(self.support, VALIDATOR_CC)
+            self.streams.append(stream)
+            seq = itertools.count()
+
+            def run(sim, args):
+                resp, _ = self.support.execute(
+                    VALIDATOR_CC, "", f"{self.name}-gw-{next(seq)}", sim,
+                    args)
+                return resp.status, resp.message, resp.payload
+
+            self.endorser = Endorser(ENDORSE_CHANNEL, self.ledger, bundle,
+                                     signer, {VALIDATOR_CC: run},
+                                     new_cuda_csp(device=device))
+        self.comm = TCPGossipComm(
+            ("127.0.0.1", port), self.identity,
+            mcs=SignerMCS(signer, bundle.msp_manager, inner),
+            tls=credentials_from_ca(tls_ca, self.name))
+        self.endpoint = self.comm.endpoint
+        self.service = GossipService(
+            self.comm, [bootstrap or self.endpoint],
+            alive_expiration_ticks=GATEWAY_ALIVE_TICKS,
+            rng=random.Random(GATEWAY_SEED * 10 + k))
+        self.handle = None
+
+        def sink(seq_, raw):
+            self.handle.state.add_payload(seq_, raw, from_orderer=True)
+
+        self.client = DeliverClient(
+            ENDORSE_CHANNEL, [o.endpoint(ENDORSE_CHANNEL, world.client)
+                              for o in cluster.nodes.values()],
+            lambda: self.coordinator.height, sink, bundle=bundle, csp=inner)
+        start, stop = self.client.start, self.client.stop
+
+        def started():
+            events.append((time.perf_counter(), k, "start"))
+            start()
+
+        def stopped():
+            stop()
+            events.append((time.perf_counter(), k, "stop"))
+
+        self.client.start, self.client.stop = started, stopped
+        self.handle = self.service.join_channel(
+            ENDORSE_CHANNEL, self.coordinator, deliver_client=self.client,
+            store_ttl_ticks=GATEWAY_TTL_TICKS,
+            leader_timeout_ticks=GATEWAY_LEADER_TIMEOUT,
+            election_startup_ticks=GATEWAY_STARTUP_TICKS)
+        self.runner = GossipRunner(self.service, GATEWAY_TICK_S)
+        self.runner.start()
+
+    @property
+    def height(self) -> int:
+        """The durable height: blocks and state flushed."""
+        return self.ledger.durable_height
+
+    def sources(self) -> dict:
+        """Blocks received, by route."""
+        return {"deliver": self.client.delivered,
+                **self.handle.gossip.received,
+                "state": self.handle.state.blocks_received}
+
+    def flags_of(self, lo: int, hi: int) -> list:
+        return [list(pu.tx_filter(self.ledger.get_block_by_number(n)))
+                for n in range(lo, hi)]
+
+    def process(self, sp):
+        return self.endorser.process_proposal(sp)
+
+    def stop(self) -> None:
+        """Stop ticking and serving, detach the state layer from the
+        ledger (a message still in flight commits nothing), close."""
+        self.runner.stop()
+        self.client.stop()
+        self.comm.close()
+        state = self.handle.state
+        with state._commit_lock:
+            state._committer = _Detached()
+        for s in self.streams:
+            s.stop()
+        self.inner.drain()
+        self.provider.close()
+
+
+def gateway_discovery(peers: list, tls_ca: CA):
+    """`DiscoveryService` on peers[0] over comm's RPC (mutual TLS): its
+    peers are its gossip membership and itself, with ledger heights, and
+    only those with `benchcc` installed (Org1-4: what gossip's state info
+    carries in the reference); its chaincode policy the committed
+    definition's; its ACL the channel's Writers.  Returns the server and
+    the client's `send`."""
+    from fabric_tpu_torch.comm.tls import credentials_from_ca
+    from fabric_tpu_torch.discovery import (
+        DiscoveryService,
+        DiscoverySupport,
+        PeerInfo,
+    )
+    from fabric_tpu_torch.protos import discovery as dpb
+    from fabric_tpu_torch.protos.msp import SerializedIdentity
+
+    me = peers[0]
+    installed = {p.endpoint: (VALIDATOR_CC,) for p in peers
+                 if p.endorser is not None}
+    csp = me.inner
+
+    def members(channel):
+        out = [PeerInfo(me.endpoint, me.identity, me.bundle.msp_manager
+                        .deserialize_identity(me.identity).mspid, me.height,
+                        installed.get(me.endpoint, ()))]
+        heights = dict(me.handle.gossip._heights)
+        for ps in me.service.discovery.alive_peers():
+            ident = me.comm.identity_of(ps.pki_id)
+            if ident is None:
+                continue
+            out.append(PeerInfo(ps.endpoint, ident,
+                                SerializedIdentity.decode(ident).mspid,
+                                heights.get(ps.pki_id, 0),
+                                installed.get(ps.endpoint, ())))
+        return [p for p in out if VALIDATOR_CC in p.chaincodes]
+
+    def cc_policy(channel, cc):
+        info = me.definitions.validation_info(cc)
+        if info is None or not info[1]:
+            return None
+        ap = pb.ApplicationPolicy.decode(info[1])
+        return ap.signature_policy if ap.which("type") == \
+            "signature_policy" else None
+
+    writers = me.bundle.policy_manager.get_policy(
+        "/Channel/Application/Writers")
+
+    def acl_check(channel, sd):
+        if not writers.evaluate_signed_data([sd], csp):
+            raise PermissionError("discovery request does not satisfy the "
+                                  "channel's Writers policy")
+
+    svc = DiscoveryService(DiscoverySupport(
+        channels=lambda: [ENDORSE_CHANNEL], bundle=lambda ch: me.bundle,
+        peers=members, msp_configs=lambda ch: {}, orderer_endpoints=lambda
+        ch: {}, chaincode_policy=cc_policy,
+        collection_filter=lambda ch, cc, colls: (lambda p: True),
+        acl_check=acl_check), csp)
+    server = RPCServer(tls=credentials_from_ca(tls_ca, "discovery"))
+    server.register("discovery.Discover", lambda body, stream: svc.process(
+        dpb.SignedRequest.decode(body)).encode())
+    server.start()
+    client_tls = credentials_from_ca(tls_ca, "discovery-client")
+
+    def send(sreq):
+        return dpb.Response.decode(RPCClient(
+            *server.addr, tls=client_tls, timeout=30.0).call(
+                "discovery.Discover", sreq.encode()))
+
+    return server, send
+
+
+def phase_gateway(device, world: ValidatorWorld, cluster: RaftCluster,
+                  tmp: str, endorse: dict):
+    """A client's transactions through discovery and the gateway to five
+    peers joined by gossip, on the raft cluster's second channel.  Five
+    fresh peers (Org1-5) start behind the channel's blocks, one after
+    another, each on its own root, joined by `TCPGossipComm` (mutual
+    TLS); Org1's peer, elected before the others start, alone runs its
+    deliver client, the others
+    take the blocks by gossip (push, pull, state transfer), and each
+    commits through `PrivDataCoordinator` into B1; their states must be
+    phase_endorse's.  `DiscoveryService` on Org1's peer answers the
+    client over RPC with `benchcc`'s descriptor (four layouts, three of
+    Org1-4).  Then two blocks' worth of ENDORSE_TXS proposals (the
+    endorse cell's planted faults in the first), each endorsed at the
+    peers `select_endorsers` picks, submitted back to back through one
+    `Gateway` over `orderer_stream_connect` to the three orderers'
+    `ab.BroadcastStream` (a follower first), its status read off Org2's
+    blocks.  Planted: GATEWAY_DUPS resubmitted in flight (dedup), a raise
+    at the gateway's GATEWAY_TEAR_AT-th stream write (failover, the
+    unresolved window resubmitted, its ordered copies DUPLICATE_TXID),
+    Org5's peer stopped after the first worth and restarted after the
+    second (catch-up by state transfer alone)."""
+    genesis_raw = cluster.geneses[1]
+    root = os.path.join(tmp, "gateway")
+    tls_ca = CA("tlsca.gossip.example.com", "gossip.example.com",
+                rng=np.random.default_rng(GATEWAY_SEED))
+    ports = [free_port() for _ in range(GATEWAY_PEERS)]
+    events: list = []
+    peers: list = []
+    stop = threading.Event()
+    server = None
+    t_phase = time.perf_counter()
+    pk.launches_keytab = 0
+    pk.launches_lanekeys = 0
+
+    def start_peer(k, restart=False):
+        return GossipPeer(device, world, k, root, cluster, genesis_raw,
+                          tls_ca, ports[k], peers[0].endpoint if peers
+                          else None, events, restart=restart)
+
+    try:
+        for k in range(GATEWAY_PEERS):
+            peers.append(start_peer(k))
+            if k:
+                wait_for(lambda: len(peers[0].service.discovery
+                                     .alive_peers()) == k,
+                         f"{peers[k].name} in the bootstrap's membership",
+                         poll=0.05)
+            else:
+                # Org1's peer leads before the others start: each hears
+                # its declarations within its own startup ticks
+                wait_for(lambda: peers[0].handle.election.is_leader,
+                         f"{peers[0].name} to lead", poll=0.05)
+        t_start = time.perf_counter() - t_phase
+        target = endorse["height"]
+        wait_for(lambda: all(p.height >= target for p in peers),
+                 f"the five peers at height {target}", poll=0.05,
+                 on_timeout=lambda: str([p.height for p in peers]))
+        t_catch = time.perf_counter() - t_phase
+        for p in peers:
+            check(state_pairs(p.ledger) == endorse["state"],
+                  f"{p.name}'s state after the catch-up differs from "
+                  "phase_endorse's peers'")
+        caught = [p.sources() for p in peers]
+        server, send = gateway_discovery(peers, tls_ca)
+        return gateway_cell(world, cluster, peers, send, start_peer, events,
+                            stop, target, {"start_s": t_start,
+                                           "catch_s": t_catch,
+                                           "caught": caught,
+                                           "t_phase": t_phase})
+    finally:
+        stop.set()
+        if server is not None:
+            server.stop()
+        for p in peers:
+            if p is not None:
+                p.stop()
+
+
+def gateway_cell(world: ValidatorWorld, cluster: RaftCluster, peers: list,
+                 send, start_peer, events: list, stop: threading.Event,
+                 start_height: int, setup: dict) -> dict:
+    """phase_gateway's discovery, traffic, checks and prints."""
+    from fabric_tpu_torch.common.metrics import GatewayMetrics
+    from fabric_tpu_torch.discovery import DiscoveryClient, select_endorsers
+    from fabric_tpu_torch.gateway import Gateway, orderer_stream_connect
+    from fabric_tpu_torch.peer.endorser import ACLDeniedError, EndorserError
+
+    ch = ENDORSE_CHANNEL
+    rng = np.random.default_rng(GATEWAY_SEED)
+    pick = random.Random(GATEWAY_SEED)
+    client = world.client
+    outsider = orderer_identity(world, "gateway-outsider", ou="client")
+    by_endpoint = {p.endpoint: p for p in peers}
+
+    # -- discovery
+    desc = DiscoveryClient(client, send).endorsers(ch, VALIDATOR_CC)
+    layouts = sorted(tuple(sorted(lay.quantities_by_group.items()))
+                     for lay in desc.layouts)
+    groups = {g: sorted(p.endpoint for p in grp.peers)
+              for g, grp in desc.endorsers_by_groups.items()}
+    check(len(layouts) == 4 and all(len(lay) == 3 for lay in layouts)
+          and sorted(groups) == ["G0", "G1", "G2", "G3"]
+          and all(len(v) == 1 for v in groups.values())
+          and peers[GATEWAY_PEERS - 1].endpoint not in
+          {e for v in groups.values() for e in v},
+          f"benchcc's descriptor: layouts {layouts}, groups {groups}")
+    members = DiscoveryClient(client, send).peers(ch)
+
+    # -- the proposals, endorsed at the picked peers
+    def proposal(args, signer=client, tamper=False):
+        prop, _ = pu.create_chaincode_proposal(
+            signer.serialize(), ch, VALIDATOR_CC, args, nonce=rng.bytes(24))
+        raw = prop.encode()
+        sig = signer.sign(b"not the proposal" if tamper else raw)
+        return prop, pb.SignedProposal(proposal_bytes=raw, signature=sig)
+
+    def endorse_worth(w: int):
+        plan = ENDORSE_PLAN if w == 0 else {}
+        envs, kinds, ks, refusals = [], [], [], {}
+        k = 0
+        t0 = time.perf_counter()
+        while len(envs) < ENDORSE_TXS:
+            kind = plan.get(k)
+            read = f"gr-{w}-{k}"
+            if isinstance(kind, tuple):
+                read = f"gw-{w}-{kind[1]}"
+            args = [b"rw", read.encode(), f"gw-{w}-{k}".encode(), b"v%d" % k]
+            signer = client
+            if kind == "status_500":
+                args = [b"fail"]
+            elif kind == "outsider":
+                signer = outsider
+            prop, sp = proposal(args, signer, tamper=kind == "bad_signature")
+            chosen = [by_endpoint[p.endpoint]
+                      for p in select_endorsers(desc, pick)]
+            if kind == "two_endorsements":
+                chosen = chosen[:2]
+            # the endorsers at once, as the reference's client calls them
+            futs = [pool.submit(p.process, sp) for p in chosen]
+            concurrent.futures.wait(futs)
+            try:
+                resps = [f.result() for f in futs]
+            except (ACLDeniedError, EndorserError) as exc:
+                refusals[k] = type(exc).__name__
+                k += 1
+                continue
+            if resps[0].response.status >= 400:
+                refusals[k] = resps[0].response.status
+                k += 1
+                continue
+            envs.append(pu.create_signed_tx(prop, client, resps).encode())
+            kinds.append(kind)
+            ks.append(k)
+            k += 1
+        return envs, kinds, ks, refusals, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    # -- the gateway
+    stream_log: list = []
+    lead = cluster.leader(ch)
+    order = [n for n in RAFT_NODES if n != lead] + [lead]
+
+    def connect_to(n):
+        base = orderer_stream_connect(cluster.nodes[n].addr, timeout=30.0,
+                                      tls=cluster.client_tls)
+        return lambda: CountedStream(base(), stream_log)
+
+    observed: list = []
+    metrics = GatewayMetrics(PrometheusProvider())
+    hist = metrics.submit_to_commit_seconds
+
+    class Observed:
+        def With(self, *labels):
+            inner = hist.With(*labels)
+
+            class Child:
+                def observe(self, v):
+                    observed.append(v)
+                    inner.observe(v)
+
+            return Child()
+
+    metrics.submit_to_commit_seconds = Observed()
+    tail = peers[1]
+    gw = Gateway(ch, [connect_to(n) for n in order],
+                 deliver_endpoints=[ledger_tail(tail.ledger, stop)],
+                 start_height=tail.height, name="gateway", metrics=metrics,
+                 min_window=GATEWAY_WINDOW[0], max_window=GATEWAY_WINDOW[1],
+                 initial_window=GATEWAY_WINDOW[0], max_backoff_s=0.5)
+    gw.start()
+    dedup: list = []
+    worths = []
+    gone = None
+    try:
+        for w in range(ENDORSE_BLOCKS):
+            envs, kinds, ks, refusals, t_endorse = endorse_worth(w)
+            plan = ({"faults": [{"point": "gateway.stream.write",
+                                 "action": "raise", "error": "OSError",
+                                 "nth": GATEWAY_TEAR_AT}]} if w == 0
+                    else None)
+            t0 = time.perf_counter()
+            with (faultline.use_plan(plan) if plan
+                  else contextlib.nullcontext()):
+                for i, env in enumerate(envs):
+                    res = gw.submit(env)
+                    while not res.accepted:
+                        time.sleep(res.retry_after_s)
+                        res = gw.submit(env)
+                    if w == 0 and i in GATEWAY_DUPS:
+                        before = gw.in_flight
+                        again = gw.submit(env)
+                        dedup.append((again.accepted, again.dedup,
+                                      again.status, gw.in_flight - before))
+                t_sent = time.perf_counter()
+                txids = [pu.channel_header(cb.Envelope.decode(e)).tx_id
+                         for e in envs]
+                wait_for(lambda: all(gw.status(t) not in ("PENDING", None)
+                                     for t in txids),
+                         f"worth {w}'s statuses", on_timeout=lambda: (
+                             f"{sum(gw.status(t) == 'PENDING' for t in txids)}"
+                             f" pending, heights "
+                             f"{[p.height for p in peers if p]}"))
+            t_resolved = time.perf_counter()
+            running = [p for p in peers if p is not None]
+            # every copy ordered: the leader's cutter empty, then its height
+            wait_for(lambda: cluster.nodes[lead].chan(ch).get("pending") == 0,
+                     f"the leader's cutter to empty after worth {w}",
+                     poll=0.1)
+            top = cluster.nodes[lead].chan(ch)["height"]
+            wait_for(lambda: all(p.height >= top for p in running),
+                     f"worth {w}'s blocks at every running peer",
+                     on_timeout=lambda: str([p.height for p in running]))
+            t_all = time.perf_counter()
+            worths.append({"envs": envs, "kinds": kinds, "ks": ks,
+                           "txids": txids,
+                           "refusals": refusals, "t_endorse": t_endorse,
+                           "t0": t0, "t_sent": t_sent,
+                           "t_resolved": t_resolved, "t_all": t_all,
+                           "top": top, "peers": len(running)})
+            if w == 0:
+                # Org5's peer leaves, every block of the first worth in
+                # its ledger
+                gone = peers[GATEWAY_PEERS - 1]
+                peers[GATEWAY_PEERS - 1] = None
+                gone.stop()
+    finally:
+        stop.set()  # the tail's generator, then the gateway
+        gw.stop()
+        pool.shutdown()
+    # the stores let the second worth's blocks go, then Org5's peer comes
+    # back on its root
+    running = [p for p in peers if p is not None]
+    wait_for(lambda: all(not p.handle.gossip.store.digests()
+                         for p in running),
+             "the gossip stores to empty", poll=0.1)
+    t_back = time.perf_counter()
+    peers[GATEWAY_PEERS - 1] = late = start_peer(GATEWAY_PEERS - 1,
+                                                 restart=True)
+    top = worths[-1]["top"]
+    wait_for(lambda: late.height >= top, "Org5's peer to catch up",
+             on_timeout=lambda: f"at {late.height} of {top}")
+    t_caught = time.perf_counter() - t_back
+    t_phase = time.perf_counter() - setup["t_phase"]
+    launches = {B1_NAME: pk.launches_keytab, B2_NAME: pk.launches_lanekeys}
+
+    # -- checks
+    lo = start_height
+    flags = [p.flags_of(lo, top) for p in peers]
+    check(all(f == flags[0] for f in flags), "the five peers' flags differ")
+    states = [state_pairs(p.ledger) for p in peers]
+    check(all(s == states[0] for s in states), "the five peers' states "
+          "differ")
+    blocks = [tail.ledger.get_block_by_number(n) for n in range(lo, top)]
+    first: dict = {}  # txid -> (block, index, flag)
+    copies = collections.Counter()
+    dup_flags = []
+    for n, (blk, fl) in enumerate(zip(blocks, flags[0])):
+        for i, raw in enumerate(blk.data.data):
+            txid = pu.channel_header(cb.Envelope.decode(raw)).tx_id
+            copies[txid] += 1
+            if txid in first:
+                dup_flags.append(fl[i])
+            else:
+                first[txid] = (n, i, fl[i])
+    all_txids = [t for wv in worths for t in wv["txids"]]
+    check(set(first) == set(all_txids) and len(all_txids) == len(set(
+        all_txids)), f"{len(set(all_txids) - set(first))} submitted txids "
+          f"not ordered, {len(set(first) - set(all_txids))} unknown")
+    check(all(f == pb.DUPLICATE_TXID for f in dup_flags),
+          f"a second copy's flags {collections.Counter(dup_flags)}")
+    predicted = {}
+    for wv in worths:
+        for txid, kind in zip(wv["txids"], wv["kinds"]):
+            want = pb.VALID
+            if kind == "two_endorsements":
+                want = pb.ENDORSEMENT_POLICY_FAILURE
+            elif isinstance(kind, tuple):
+                # a read of a key that an earlier transaction writes:
+                # stale once that write is ordered first
+                writer = wv["txids"][wv["ks"].index(kind[1])]
+                want = (pb.MVCC_READ_CONFLICT if first[writer][:2]
+                        < first[txid][:2] else pb.VALID)
+            predicted[txid] = want
+    got_flags = {t: first[t][2] for t in all_txids}
+    check(got_flags == predicted, "flags differ from the prediction on "
+          f"{sum(got_flags[t] != predicted[t] for t in all_txids)} "
+          "transactions")
+    statuses = {t: gw.status(t) for t in all_txids}
+    check(not any(s in ("TIMEOUT", "PENDING", None)
+                  for s in statuses.values()),
+          f"statuses {collections.Counter(statuses.values())}")
+    check(all(statuses[t] == ("VALID" if got_flags[t] == pb.VALID
+                              else "INVALID") for t in all_txids),
+          "a status differs from the peers' flag")
+    want_refusals = {k: {"bad_signature": "EndorserError",
+                         "outsider": "ACLDeniedError",
+                         "status_500": 500}[v]
+                     for k, v in ENDORSE_PLAN.items() if isinstance(v, str)
+                     and v in ("bad_signature", "outsider", "status_500")}
+    check(worths[0]["refusals"] == want_refusals and
+          not worths[1]["refusals"], f"refusals "
+          f"{[sorted(wv['refusals'].items()) for wv in worths]}")
+    check(dedup == [(True, True, "PENDING", 0)] * len(GATEWAY_DUPS),
+          f"the in-flight resubmissions {dedup}")
+    log = list(gw.endpoint_log)
+    check(gw.failovers >= 1 and len(set(log)) >= 2,
+          f"failovers {gw.failovers}, endpoints {log}")
+    running_at = set()
+    overlap = False
+    for _, k, what in sorted(events):
+        if what == "start":
+            running_at.add(k)
+            overlap |= len(running_at) > 1
+        else:
+            running_at.discard(k)
+    leaders = sorted({k for _, k, what in events if what == "start"})
+    check(not overlap and leaders == [0],
+          f"deliver clients {sorted(events)}")
+    check(late.client.delivered == 0 and gone.client.delivered == 0
+          and late.handle.state.requests_sent
+          and late.handle.state.blocks_received >= 1
+          and sum(late.handle.gossip.received.values()) == 0,
+          f"Org5's restart: {late.sources()}, requests "
+          f"{list(late.handle.state.requests)}")
+    per_peer = [p.launches for p in peers]
+    per_peer[-1] += gone.launches
+    check(all(n > 0 for n in per_peer), f"B1 launches a peer {per_peer}")
+
+    # -- prints
+    sizes = [len(b.data.data) for b in blocks]
+    print(f"gateway: five peers (tick {GATEWAY_TICK_S} s, alive "
+          f"expiration {GATEWAY_ALIVE_TICKS} ticks, election timeout "
+          f"{GATEWAY_LEADER_TIMEOUT} ticks, {GATEWAY_STARTUP_TICKS} ticks "
+          f"before a first declaration, store TTL {GATEWAY_TTL_TICKS} "
+          f"ticks) up in {setup['start_s']:.2f} s, at height "
+          f"{start_height} (phase_endorse's state) {setup['catch_s']:.2f} s"
+          f" from the start; blocks by source at the catch-up "
+          f"{setup['caught']}")
+    print(f"gateway: discovery on {peers[0].name}: {len(members)} peers "
+          f"with {VALIDATOR_CC}, descriptor layouts {layouts}")
+    for w, wv in enumerate(worths):
+        n = len(wv["envs"])
+        acks = [t for t, what in stream_log if what == "ack"
+                and wv["t0"] <= t <= wv["t_resolved"]]
+        sends = [t for t, what in stream_log if what == "send"
+                 and wv["t0"] <= t <= wv["t_resolved"]]
+        span = max(acks + sends) - wv["t0"]
+        print(f"gateway: worth {w}: {n} transactions endorsed in "
+              f"{wv['t_endorse']:.2f} s (refusals "
+              f"{sorted(wv['refusals'].items())}); submitted in "
+              f"{(wv['t_sent'] - wv['t0']) * 1e3:.1f} ms; {len(sends)} "
+              f"envelopes through ab.BroadcastStream, {len(acks)} acked, "
+              f"{len(sends) / span:.0f} envelopes/s; all resolved "
+              f"{wv['t_resolved'] - wv['t0']:.2f} s after the first "
+              f"submission; committed at all {wv['peers']} running peers "
+              f"{wv['t_all'] - wv['t0']:.2f} s after it = "
+              f"{n / (wv['t_all'] - wv['t0']):.0f} committed tx/s")
+    lags = []
+    for n in range(lo, top):
+        times = [p.committed_at[n] for p in peers[:-1] if n in
+                 p.committed_at]
+        if n in peers[0].committed_at and len(times) == len(peers) - 1:
+            lags.append(max(times) - peers[0].committed_at[n])
+    obs = sorted(observed)
+    print(f"gateway: submit to commit p50 {statistics.median(obs):.3f} s, "
+          f"p99 {obs[int(len(obs) * 0.99)]:.3f} s over {len(obs)} "
+          f"(GatewayMetrics); window {gw.window}; failovers "
+          f"{gw.failovers}, endpoints {log}; dedup hits "
+          f"{len(dedup)}; copies ordered twice {len(dup_flags)} "
+          "(DUPLICATE_TXID at every peer)")
+    print(f"gateway: blocks {sizes}; the leader's commit to the last "
+          f"peer's, a block: median {statistics.median(lags) * 1e3:.1f} ms,"
+          f" max {max(lags) * 1e3:.1f} ms over {len(lags)} blocks")
+    print(f"gateway: blocks by source {[p.sources() for p in peers]} "
+          f"(Org5's stopped incarnation {gone.sources()}); Org5's restart "
+          f"caught up {top - worths[0]['top']} blocks in {t_caught:.2f} s "
+          f"by state transfer, {late.handle.state.requests_sent} requests "
+          f"{sorted(set(late.handle.state.requests))}; the deliver client "
+          f"ran on {[peers[k].name for k in leaders]} alone")
+    print(f"gateway: flags {dict(collections.Counter(got_flags.values()))}"
+          f" as predicted, statuses "
+          f"{dict(collections.Counter(statuses.values()))}; B1 launches a "
+          f"peer {per_peer}, launches {launches}; the phase {t_phase:.1f} s")
+    return {"launches": launches, "wall_s": t_phase, "per_peer": per_peer}
 
 
 # ---------------------------------------------------------------------------
@@ -6050,17 +6774,21 @@ def main(argv=None) -> int:
             host_check("raft")
             try:
                 endorse = phase_endorse(device, world, cluster, tmp)
+                host_check("endorse")
+                gwy = phase_gateway(device, world, cluster, tmp, endorse)
             finally:
                 cluster.halt_all()
         finally:
             gc.unfreeze()
-        host_check("endorse")
-        print(f"raft and endorse: {time.perf_counter() - t_cell:.1f} s")
+        host_check("gateway", armed=True)
+        print(f"raft, endorse and gateway: "
+              f"{time.perf_counter() - t_cell:.1f} s")
     b1 = next(row for row in rows if row["name"] == B1_NAME)
     for label, run in (("validator", val), ("commit", com),
                        ("commit_sharded", shc), ("smallbank", sb),
                        ("bootstrap", snp), ("order", order),
-                       ("raft", raft), ("endorse", endorse)):
+                       ("raft", raft), ("endorse", endorse),
+                       ("gateway", gwy)):
         b1[f"launches_{label}"] = run["launches"][B1_NAME]
         busy = b1[f"launches_{label}"] * b1["ms"]
         wall = run["wall_s"] * 1e3

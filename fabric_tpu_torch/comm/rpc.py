@@ -29,11 +29,13 @@ from __future__ import annotations
 
 import dataclasses
 import queue
+import select
 import socket
 import socketserver
 import ssl
 import struct
 import threading
+import time
 
 from fabric_tpu_torch.devtools import clockskew, faultline, netsplit
 from fabric_tpu_torch.devtools.lockwatch import spawn_thread
@@ -179,9 +181,11 @@ class DuplexStream:
     gateway's pipelined ``ab.BroadcastStream``): `send` writes raw
     request frames the server handler reads via ``Stream.recv``, and
     `recv` returns the DATA bodies the handler writes via
-    ``Stream.send``.  The two directions are independent, so a writer
-    thread and a reader thread may share the handle — but each
-    direction must stay single-threaded.
+    ``Stream.send``.  A writer thread and a reader thread may share the
+    handle (each direction single-threaded).  A TLS connection must not
+    be read and written by two threads at once, so every write and every
+    read attempt holds one lock, and a reader waits for data outside it
+    (the JAX package's handle reads and writes the socket unguarded).
 
     By convention an EMPTY ``send`` frame marks graceful end-of-stream
     (``finish()``); the handler answers by returning, which surfaces
@@ -191,20 +195,65 @@ class DuplexStream:
         self._sock = sock
         self._ka = keepalive
         self._ns_token = ns_token  # netsplit cut-registry handle
-        # recv() owns the socket timeout; sends rely on TCP buffering +
+        # recv() owns the read deadline; sends rely on TCP buffering +
         # kernel keepalive (set_tcp_keepalive) to detect a dead peer
-        sock.settimeout(
-            clockskew.io_timeout(
-                keepalive.ping_interval + keepalive.ping_timeout
-            )
-        )
+        self._deadline_s = clockskew.io_timeout(
+            keepalive.ping_interval + keepalive.ping_timeout)
+        sock.settimeout(self._deadline_s)
+        self._io = threading.Lock()
+        self._rbuf = bytearray()
 
     def send(self, body: bytes) -> None:
-        write_frame(self._sock, body)
+        with self._io:
+            write_frame(self._sock, body)
 
     def finish(self) -> None:
         """Signal graceful end-of-stream to the handler."""
-        write_frame(self._sock, b"")
+        with self._io:
+            write_frame(self._sock, b"")
+
+    def _fill(self) -> bool:
+        """Appends what the connection holds to the read buffer, waiting
+        up to the read deadline; False at the connection's end."""
+        sock = self._sock
+        deadline = (None if self._deadline_s is None
+                    else time.monotonic() + self._deadline_s)
+        while True:
+            pending = getattr(sock, "pending", None)
+            if not (pending is not None and pending()):
+                wait = 0.5 if deadline is None else min(
+                    0.5, deadline - time.monotonic())
+                if wait <= 0:
+                    raise socket.timeout("read deadline passed")
+                if not select.select([sock], [], [], wait)[0]:
+                    continue
+            with self._io:
+                sock.settimeout(0.0)
+                try:
+                    data = sock.recv(1 << 18)
+                except (BlockingIOError, ssl.SSLWantReadError,
+                        ssl.SSLWantWriteError):
+                    continue  # a partial TLS record: wait for the rest
+                finally:
+                    sock.settimeout(self._deadline_s)
+            if not data:
+                return False
+            self._rbuf += data
+            return True
+
+    def _read_frame(self) -> bytes | None:
+        buf = self._rbuf
+        while True:
+            if len(buf) >= 4:
+                (ln,) = struct.unpack(">I", buf[:4])
+                if ln > _MAX_FRAME:
+                    raise RPCError(f"frame too large: {ln}")
+                if len(buf) >= 4 + ln:
+                    frame = bytes(buf[4:4 + ln])
+                    del buf[:4 + ln]
+                    return frame
+            if not self._fill():
+                return None
 
     def recv(self) -> bytes | None:
         """Next DATA body from the server; None on END.  PING frames
@@ -212,7 +261,7 @@ class DuplexStream:
         keepalive deadline or a torn connection."""
         while True:
             try:
-                frame = read_frame(self._sock)
+                frame = self._read_frame()
             except socket.timeout:
                 raise RPCError(
                     "stream silent past the keepalive deadline"
@@ -229,9 +278,15 @@ class DuplexStream:
             return rest
 
     def close(self) -> None:
+        """Close the connection; a `recv` waiting on another thread
+        returns at once (the socket is shut down first)."""
         if self._ns_token is not None:
             netsplit.untrack(self._ns_token)
             self._ns_token = None
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:

@@ -293,7 +293,7 @@ class Plan:
     how soak-background trips and test-local trips stay attributable
     when plans nest."""
 
-    def __init__(self, spec):
+    def __init__(self, spec, _allow_empty: bool = False):
         if isinstance(spec, (str, bytes)):
             try:
                 spec = json.loads(spec)
@@ -313,7 +313,9 @@ class Plan:
         # hit for data only fuzz discovery ever reads
         self.register_points = bool(spec.get("register", True))
         faults = spec.get("faults")
-        if not isinstance(faults, list) or not faults:
+        if faults is None and _allow_empty:
+            faults = []
+        if not isinstance(faults, list) or (not faults and not _allow_empty):
             raise PlanError("plan must carry a non-empty 'faults' list")
         self.rules: list[_Rule] = [
             _Rule(i, fs, self.seed) for i, fs in enumerate(faults)
@@ -330,6 +332,12 @@ class Plan:
         # and a long-running soak plan must not pay a sort per hit
         self._merged: dict[str, list[_Rule]] = {}
         self._lock = threading.Lock()
+
+    @classmethod
+    def observer(cls) -> "Plan":
+        """A rule-less plan: armed, every fault point registers itself
+        and none fires (the discovery pass behind :func:`observe`)."""
+        return cls({"seed": 0, "label": "observe"}, _allow_empty=True)
 
     def visit(self, name: str, ctx: dict, kind: str = "point"):
         """Consult the schedule for one hit of `name`; returns the
@@ -643,6 +651,15 @@ def use_plan(plan):
         _drain_plan(p)
 
 
+@contextlib.contextmanager
+def observe():
+    """Arm a rule-less observer plan for a scope: every fault point hit
+    registers itself (name, kind, context samples) in :func:`registry`
+    and nothing fires.  Nests as :func:`use_plan` does."""
+    with use_plan(Plan.observer()) as p:
+        yield p
+
+
 def soak_plan(seed: int, label: str = "soak") -> dict:
     """A low-probability background plan over the WHOLE registry
     (wildcard points), benign by construction: tiny seeded delays that
@@ -716,5 +733,6 @@ __all__ = [
     "activate",
     "deactivate",
     "use_plan",
+    "observe",
     "soak_plan",
 ]

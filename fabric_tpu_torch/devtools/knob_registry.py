@@ -3,7 +3,8 @@ through the devtools seam.
 
 The port's copy of the JAX package's `fabric_tpu/devtools/knob_registry.py`,
 holding only the knobs the port reads through it: the CSP's circuit
-breaker, faultline's and netsplit's plan variables, and the lockwatch,
+breaker, the gossip sender's dial timeout, faultline's and netsplit's
+plan variables, and the lockwatch,
 threadwatch, tracing and profiling switches.  One entry per knob (name, type,
 default, subsystem, one-line doc) plus the one sanctioned ``os.environ``
 read (:func:`raw`): a read of an unregistered name raises, so a typo'd
@@ -46,6 +47,9 @@ KNOBS: dict[str, Knob] = {
              "breaker is open"),
         Knob("FABRIC_TPU_BREAKER_THRESHOLD", "int", "3", "csp.tpu",
              "consecutive device failures that trip the TPU breaker"),
+        Knob("FABRIC_TPU_DIAL_TIMEOUT_S", "int", "2", "gossip.comm",
+             "gossip sender dial timeout in seconds (fractions "
+             "accepted)"),
         Knob("FABRIC_TPU_FAULTLINE", "plan", "", "devtools.faultline",
              "arm a fault plan: inline JSON or `@/path/plan.json`"),
         Knob("FABRIC_TPU_LOCKWATCH", "flag", "", "devtools.lockwatch",

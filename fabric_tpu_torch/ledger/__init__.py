@@ -4,10 +4,11 @@ flush), the versioned state DB with rich-query indexes (`richquery`), the
 transaction simulator and MVCC validation (its prepare and preload fanned
 out per namespace on `common/workpool`), the history DB, the private-data
 and config-history stores, the block store, snapshots (export, verify,
-import, the request manager) with their bookkeeping, and `KVLedger` with
-its query executor and `LedgerProvider`, the transient store, chaincode
-event management and the offline admin tools (`admin`).  The remote
-snapshot fetch is not ported."""
+import, the request manager, and the remote fetch over comm's RPC,
+`snapshot.fetch_snapshot` with its server half `snapshot_fetch_handler`)
+with their bookkeeping, and `KVLedger` with its query executor and
+`LedgerProvider`, the transient store, chaincode event management and the
+offline admin tools (`admin`)."""
 
 from fabric_tpu_torch.ledger.kvstore import (
     KVStore,

@@ -4,6 +4,12 @@ find the channel, classify the message, run the channel's filters, and
 hand it to the consenter (`order` / `configure`).  Returns a `Status` per
 message, as the AtomicBroadcast.Broadcast stream does; every status and
 every exception class caught is the reference's.
+
+`broadcast_stream_handler` is the server half of the gateway's
+``ab.BroadcastStream`` over comm's RPC: a frame an envelope, each put
+through `process_message` and acked with its status.  The JAX package
+serves that stream from a test harness node that orders without the
+filters; here every envelope passes the channel's filters.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from fabric_tpu_torch.orderer.msgprocessor import (
     _headers,
 )
 from fabric_tpu_torch.protos import common as cb
+from fabric_tpu_torch.protos import orderer as ob
 from fabric_tpu_torch.protos.wire import DecodeError
 
 
@@ -57,4 +64,25 @@ class BroadcastHandler:
         return cb.SUCCESS
 
 
-__all__ = ["BroadcastHandler"]
+def broadcast_stream_handler(registrar):
+    """The RPC handler `(body, stream)` of ``ab.BroadcastStream``: each
+    request frame one marshaled Envelope, each reply frame the
+    BroadcastResponse with that envelope's status (BAD_REQUEST for bytes
+    that are no Envelope); an empty frame ends the stream."""
+    handler = BroadcastHandler(registrar)
+
+    def serve(body: bytes, stream):
+        while True:
+            frame = stream.recv()
+            if not frame:
+                return None
+            try:
+                status = handler.process_message(cb.Envelope.decode(frame))
+            except DecodeError:
+                status = cb.BAD_REQUEST
+            stream.send(ob.BroadcastResponse(status=status).encode())
+
+    return serve
+
+
+__all__ = ["BroadcastHandler", "broadcast_stream_handler"]

@@ -406,7 +406,14 @@ def test_no_file_of_the_port_imports_forbidden_modules():
         "protos/lifecycle.py", "common/privdata.py", "peer/aclmgmt.py",
         "peer/endorser.py", "chaincode/__init__.py", "chaincode/shim.py",
         "chaincode/support.py", "chaincode/scc.py", "chaincode/lifecycle.py",
-        "chaincode/statebased.py"} <= scanned
+        "chaincode/statebased.py", "protos/gossip.py",
+        "protos/discovery.py", "gossip/__init__.py", "gossip/comm.py",
+        "gossip/identity.py", "gossip/certstore.py", "gossip/discovery.py",
+        "gossip/core.py", "gossip/election.py", "gossip/state.py",
+        "gossip/privdata.py", "gossip/service.py", "discovery/__init__.py",
+        "discovery/inquire.py", "discovery/endorsement.py",
+        "discovery/service.py", "discovery/client.py",
+        "gateway/__init__.py", "gateway/core.py"} <= scanned
     bad = []
     for path in _port_files():
         for name in _imported(path):

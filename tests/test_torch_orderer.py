@@ -356,6 +356,12 @@ def test_registrar_resumes_on_the_other_packages_root(world, tmp_path,
                           lambda c: _set_consensus(c, timeout="59s"))
         assert _broadcast(writer, reg, [upd]) == [cb.SUCCESS]
         assert _wait_height(reg, 4) == 4
+        # the registrar swaps the bundle on the chain's thread after the
+        # block's write, so the new sequence may lag the height
+        deadline = time.monotonic() + 10
+        while reg.get_chain(CH).bundle.config.sequence != 1 \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
         assert reg.get_chain(CH).bundle.config.sequence == 1
         last = PKG[writer].encode(reg.get_chain(CH).store
                                   .get_block_by_number(3))

@@ -25,6 +25,8 @@ from fabric_tpu.protos.common import (
 )
 from fabric_tpu.protos.ledger.rwset import rwset_pb2
 from fabric_tpu.protos.ledger.rwset.kvrwset import kv_rwset_pb2
+from fabric_tpu.protos.discovery import protocol_pb2 as discovery_pb2
+from fabric_tpu.protos.gossip import message_pb2 as gossip_pb2
 from fabric_tpu.protos.msp import identities_pb2, msp_config_pb2, msp_principal_pb2
 from fabric_tpu.protos.orderer import ab_pb2
 from fabric_tpu.protos.orderer import configuration_pb2 as orderer_pb2
@@ -44,6 +46,8 @@ from fabric_tpu.protos.peer import (
 )
 from fabric_tpu_torch.protos import (
     common,
+    discovery,
+    gossip,
     lifecycle,
     msp,
     orderer,
@@ -62,6 +66,8 @@ _PB2 = {
     rwset: (rwset_pb2, kv_rwset_pb2),
     orderer: (orderer_pb2, raft_pb2, ab_pb2),
     lifecycle: (lifecycle_pb2,),
+    gossip: (gossip_pb2,),
+    discovery: (discovery_pb2,),
 }
 
 
@@ -395,7 +401,9 @@ _MUTATED = (common_pb2.Envelope, common_pb2.Payload, common_pb2.ChannelHeader,
             transaction_pb2.ChaincodeActionPayload, proposal_pb2.ChaincodeAction,
             proposal_pb2.ChaincodeProposalPayload, rwset_pb2.TxReadWriteSet,
             kv_rwset_pb2.KVRWSet, kv_rwset_pb2.HashedRWSet,
-            msp_config_pb2.FabricMSPConfig, raft_pb2.SnapshotMeta)
+            msp_config_pb2.FabricMSPConfig, raft_pb2.SnapshotMeta,
+            gossip_pb2.GossipMessage, gossip_pb2.ConnEstablish,
+            discovery_pb2.Request, discovery_pb2.QueryResult)
 
 
 @pytest.mark.parametrize("pb2_cls", _MUTATED,
