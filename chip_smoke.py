@@ -160,6 +160,28 @@
    client at a time; prints blocks by source, submit-to-commit p50 and
    p99, the window and failovers, committed tx/s, the leader-to-last
    commit lag, envelopes/s through the stream and the block sizes.
+   A network from the command line (`phase_nodes`): the port's cryptogen
+   and configtxgen write an orderer org's and Org1-3's material and a solo
+   channel (phase_order's batch values) in this process; an orderer and
+   three peers start as processes of `python -m fabric_tpu_torch.cmd.
+   orderer` and `... cmd.peer node start` (each on its own root and
+   operations port, the peers on `sampleconfig/core.yaml`, whose
+   `bccsp.default: TPU` is CUDACSP on the card, with a KV chaincode by
+   `--chaincode` spec and tracing armed), joined by `peer channel join`.
+   Three worths of 1000 transactions (a read and a write each), each
+   proposal endorsed at the three peers and each worth broadcast over one
+   `ab.BroadcastStream`, the endorse cell's faults planted in the first
+   (one endorsement of three where the channel's MAJORITY needs two);
+   Org3's peer is killed (SIGKILL) in the second worth, after its
+   endorsements, and started again on its root once the others hold the
+   worth's block.  Every peer must reach the
+   same height with the planted flags, equal at the three, the same state
+   through `peer chaincode query`, /healthz OK, no device failure on
+   /metrics, `tpu.collect` spans in its /traces whose lanes add up to each
+   block's (their flushes give B1's `launches_nodes`), no module of the
+   JAX package, and exit 0 on SIGTERM; prints each process's start-up,
+   envelopes/s into the orderer, committed tx/s at each peer, each
+   block's validate ms, the restarted peer's catch-up and B1's launches.
    Key custody (`phase_custody`): a `KeyCustodyServer` thread generates
    and holds 4 keys; a `CustodyCSP` whose local provider is `CUDACSP`
    signs 4000 digests through it (signs/s printed), then verifies them
@@ -231,8 +253,8 @@
    if any is not 0.
 10. Prints one JSON line of kernels (B1-B4; B1's with its launches on
    the validator, commit, sharded-commit, SmallBank, bootstrapped-ledger,
-   ordered-commit, joining-peer, custody, raft, endorse and gateway
-   paths, B2's on custody, raft and endorse, B3's with its launches on the idemix MSP's
+   ordered-commit, joining-peer, custody, raft, endorse, gateway and
+   nodes paths, B2's on custody, raft and endorse, B3's with its launches on the idemix MSP's
    batch, B4's with its launches at the snapshot's shape), then
    `{"ok": true, "device": {...}}` as its last line.
 
@@ -257,6 +279,11 @@ needs two cards or more: it puts 8 flushes of a 4000-lane block through
 enqueue, and checks that each flush took the next card, that B1 ran once
 a flush and that every mask is the planted one; then it times the same 8
 flushes on one card and on every card, in turns, and prints lanes/s.
+
+    python3 chip_smoke.py --nodes
+
+builds the kernels and the host library, then runs `phase_nodes` alone (a
+network of the port's CLIs: the orderer and three peer processes).
 
 Exits non-zero, before printing any result, on a host without CUDA; any
 failed phase raises.  Inputs are made from a seed (numpy for P-256 and
@@ -4699,7 +4726,10 @@ def raft_cell(device, world, cluster, envs, keys, predicted, admitted,
                     and node["commit"] >= leader["commit"]
                     and node["height"] >= predicted_h)
 
-        wait_for(settled, "the restarted orderer to join", poll=0.1)
+        wait_for(settled, "the restarted orderer to join", poll=0.1,
+                 on_timeout=lambda: {n: {k: chan(n).get(k) for k in (
+                     "term", "leader", "commit", "height", "last_index",
+                     "snap_index")} for n in RAFT_NODES})
         time.sleep(3 * RAFT_TICK_MS / 1e3)  # heartbeats: nothing more lands
         t_rejoin = time.monotonic() - t_restart
         rejoined_h = chan(lead)["height"]
@@ -5910,6 +5940,702 @@ def gateway_cell(world: ValidatorWorld, cluster: RaftCluster, peers: list,
 
 
 # ---------------------------------------------------------------------------
+# A network started from the command line: the port's cryptogen and
+# configtxgen, then one orderer and three peers as processes of the port's
+# CLIs, each peer validating its blocks on the card.
+# ---------------------------------------------------------------------------
+
+NODES_CHANNEL = "nodesch"
+NODES_ORGS = 3  # Org1-3, one peer each
+NODES_TXS = 1000  # transactions a worth, one block's
+NODES_WORTHS = 3
+NODES_KILL_WORTH = 1  # Org3's peer is killed during this worth's
+NODES_SEED = 43
+NODES_WORKERS = 16  # the client's proposals in flight
+NODES_WINDOW = 64  # envelopes unacknowledged on the broadcast stream
+NODES_WAIT_S = 120.0  # the longest wait for any one step
+NODES_STOP_S = 30.0  # a process must exit this soon after SIGTERM
+NODES_TRACE_EVENTS = 1 << 18  # each peer's flight recorder (FABRIC_TPU_TRACE)
+# the endorse cell's five faults, by proposal index of the first worth: a
+# bad creator signature, a creator outside the channel's writers, a
+# chaincode status of 500, too few endorsements (one of the three: the
+# channel's default MAJORITY Endorsement needs two), and a read of the key
+# an earlier transaction of the block writes
+NODES_PLAN = {3: "bad_signature", 5: "outsider", 7: "status_500",
+              9: "one_endorsement", 14: ("reads_write_of", 12)}
+
+# the peers' chaincode, written with the port's shim and installed by a
+# `--chaincode benchcc=nodes_kv:KV` spec: one read and one write a
+# transaction, the whole state as JSON, the process's modules of the JAX
+# package, or a refusal
+NODES_KV = '''"""The KV chaincode of chip_smoke.phase_nodes."""
+
+import json
+import sys
+
+from fabric_tpu_torch.chaincode.shim import Chaincode, error, success
+
+
+class KV(Chaincode):
+    def invoke(self, stub):
+        fn, params = stub.get_function_and_parameters()
+        if fn == "rw":
+            got = stub.get_state(params[0].decode())
+            stub.put_state(params[1].decode(), params[2])
+            return success(got or b"")
+        if fn == "get":
+            return success(stub.get_state(params[0].decode()) or b"")
+        if fn == "range":
+            return success(json.dumps(
+                {k: v.decode() for k, v in stub.get_state_by_range("", "")},
+                sort_keys=True).encode())
+        if fn == "modules":
+            return success(json.dumps(sorted(
+                m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "fabric_tpu"))
+            ).encode())
+        if fn == "fail":
+            return error("refused by the chaincode", status=500)
+        return error(f"unknown function {fn!r}")
+'''
+
+
+def nodes_crypto_config(n_orgs: int = NODES_ORGS) -> str:
+    """crypto-config.yaml: the orderer org and Org1..n, a peer and a user
+    each (the layout of `tests/test_nwo.py`)."""
+    return ("OrdererOrgs:\n"
+            "  - Name: Orderer\n    Domain: example.com\n"
+            "    Specs: [{Hostname: orderer}]\n"
+            "PeerOrgs:\n" + "".join(
+                f"  - Name: Org{i}\n    Domain: org{i}.example.com\n"
+                "    Template: {Count: 1}\n    Users: {Count: 1}\n"
+                for i in range(1, n_orgs + 1)))
+
+
+def nodes_configtx(n_orgs: int = NODES_ORGS) -> str:
+    """configtx.yaml: a solo profile with phase_order's batch values."""
+    orgs = ", ".join(f"Org{i}" for i in range(1, n_orgs + 1))
+    return ("Organizations:\n"
+            "  - Name: OrdererOrg\n    ID: OrdererMSP\n"
+            "    MSPDir: crypto-config/ordererOrganizations/example.com/msp\n"
+            + "".join(
+                f"  - Name: Org{i}\n    ID: Org{i}MSP\n    MSPDir: "
+                f"crypto-config/peerOrganizations/org{i}.example.com/msp\n"
+                for i in range(1, n_orgs + 1))
+            + "Profiles:\n"
+            "  Nodes:\n"
+            "    Orderer:\n"
+            "      OrdererType: solo\n"
+            f"      BatchTimeout: {ORDER_TIMEOUT}\n"
+            "      BatchSize:\n"
+            f"        MaxMessageCount: {ORDER_MAX_COUNT}\n"
+            f"        AbsoluteMaxBytes: {ORDER_ABSOLUTE}\n"
+            f"        PreferredMaxBytes: {ORDER_PREFERRED}\n"
+            "      Organizations: [OrdererOrg]\n"
+            "    Application:\n"
+            f"      Organizations: [{orgs}]\n")
+
+
+def ops_get(port: int, path: str) -> tuple[int, bytes]:
+    """(status, body) of a GET on an operations endpoint."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+class NodeProcess:
+    """One orderer or peer process of the port's CLI: its argv (ports
+    filled in at each start), its log, its operations endpoint."""
+
+    def __init__(self, name: str, argv, env: dict, root: str, client_tls,
+                 ops_env: str | None = None):
+        self.name = name
+        self._argv = argv  # (listen port, operations port) -> argv
+        self.env = env
+        # the variable that gives the operations address, where the CLI
+        # takes it from its config and not from a flag
+        self._ops_env = ops_env
+        self.log_path = os.path.join(root, f"{name}.log")
+        self._tls = client_tls
+        self.proc = None
+        self.port = self.ops = 0
+        self.t_start = 0.0
+        self.t_first = 0.0  # the first life's start
+        self._log_start = 0
+        self._client = None
+
+    def start(self) -> float:
+        """Starts the process and waits until it listens; returns the
+        seconds.  A port taken between the probe and the bind is retried
+        on other ports."""
+        for _ in range(3):
+            self.port, self.ops = free_port(), free_port()
+            with open(self.log_path, "ab") as log:
+                self._log_start = log.tell()
+                self.t_start = time.monotonic()
+                if not self.t_first:
+                    self.t_first = self.t_start
+                env = self.env if self._ops_env is None else dict(
+                    self.env, **{self._ops_env: f"127.0.0.1:{self.ops}"})
+                self.proc = subprocess.Popen(
+                    [sys.executable, "-m", *self._argv(self.port, self.ops)],
+                    stdout=log, stderr=subprocess.STDOUT, env=env)
+            while True:
+                if "listening on" in self.log_tail(1 << 20):
+                    return time.monotonic() - self.t_start
+                if self.proc.poll() is not None:
+                    break
+                check(time.monotonic() - self.t_start < NODES_WAIT_S,
+                      f"{self.name} did not listen: {self.log_tail()}")
+                time.sleep(0.02)
+            if "Address already in use" not in self.log_tail():
+                break
+        check(False, f"{self.name} exited with {self.proc.returncode}: "
+              f"{self.log_tail()}")
+
+    def log_tail(self, n: int = 3000) -> str:
+        """The end of this life's log."""
+        try:
+            with open(self.log_path, "rb") as f:
+                f.seek(self._log_start)
+                return f.read()[-n:].decode("utf-8", "replace")
+        except FileNotFoundError:
+            return ""
+
+    @property
+    def endpoint(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def rpc(self) -> RPCClient:
+        """A client of this life's port (one TLS context, shared by the
+        threads that call it)."""
+        if self._client is None or self._client._addr[1] != self.port:
+            self._client = RPCClient("127.0.0.1", self.port, tls=self._tls,
+                                     timeout=60)
+        return self._client
+
+    def height(self, ch: str) -> int:
+        return int(self.rpc().call("admin.Height", ch.encode()))
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait()
+
+    def terminate(self) -> tuple[int, float]:
+        """SIGTERM; (exit code, seconds to exit), or (None, s) when it did
+        not exit within NODES_STOP_S (then it is killed)."""
+        t0 = time.monotonic()
+        self.proc.terminate()
+        try:
+            rc = self.proc.wait(timeout=NODES_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            rc = None
+        return rc, time.monotonic() - t0
+
+
+class PeerTrace:
+    """A peer's trace events, read from its /traces by cursor, a list a
+    life (a restarted process starts a new recorder, and its span ids
+    start again)."""
+
+    def __init__(self):
+        self.lives: list = [[]]
+        self._cursor = None
+
+    def poll(self, ops_port: int) -> None:
+        path = "/traces" if self._cursor is None else \
+            f"/traces?since={self._cursor}"
+        status, body = ops_get(ops_port, path)
+        check(status == 200, f"/traces answered {status}")
+        doc = json.loads(body)
+        check(doc["otherData"]["armed"], "a peer's tracing is not armed")
+        self.lives[-1] += doc["traceEvents"]
+        self._cursor = doc["otherData"]["last_event_id"]
+
+    def new_life(self) -> None:
+        self.lives.append([])
+        self._cursor = None
+
+    def dispatches(self) -> list:
+        """The args of every `tpu.dispatch` span: the flush's device and
+        the launches its kernels' wrappers counted in the peer."""
+        return [ev["args"] for events in self.lives for ev in events
+                if ev.get("ph") == "X" and ev["name"] == "tpu.dispatch"]
+
+    def blocks(self) -> dict:
+        """block number -> {lanes, device_lanes, ms, life, end_s}: the
+        tpu.collect spans under each block's verify_wait, and the block's
+        collect, verify_wait and policy spans."""
+        out: dict = {}
+        for life, events in enumerate(self.lives):
+            spans = {ev["args"]["span"]: ev for ev in events
+                     if ev.get("ph") == "X"}
+            for ev in spans.values():
+                a = ev["args"]
+                if ev["name"] in ("collect", "verify_wait", "policy") \
+                        and "block" in a:
+                    check(out.get(a["block"], {}).get("life", life) == life,
+                          f"block {a['block']} validated in two lives")
+                    b = out.setdefault(a["block"], {
+                        "lanes": 0, "device_lanes": {}, "ms": 0.0,
+                        "life": life, "end_s": 0.0})
+                    b["ms"] += ev["dur"] / 1e3
+                    # the process's monotonic clock, the host's
+                    b["end_s"] = max(b["end_s"],
+                                     (ev["ts"] + ev["dur"]) / 1e6)
+            for ev in spans.values():
+                if ev["name"] != "tpu.collect":
+                    continue
+                parent = spans.get(ev["args"].get("parent"))
+                check(parent is not None and parent["name"] == "verify_wait",
+                      "a tpu.collect span outside a block's verify_wait")
+                b = out[parent["args"]["block"]]
+                b["lanes"] += ev["args"]["lanes"]
+                b["device_lanes"][(life, ev["args"]["batch"])] = \
+                    ev["args"]["device_lanes"]
+        return out
+
+
+def nodes_block_view(raw_blocks: list) -> tuple[dict, list, list]:
+    """({txid: flag}, block sizes, lanes a block) of delivered blocks:
+    a creator lane and one a endorsement for each transaction."""
+    flags, sizes, lanes = {}, [], []
+    for blk in raw_blocks:
+        filt = pu.tx_filter(blk)
+        sizes.append(len(blk.data.data))
+        n = 0
+        for i, raw in enumerate(blk.data.data):
+            env = cb.Envelope.decode(raw)
+            payload = cb.Payload.decode(env.payload)
+            txid = cb.ChannelHeader.decode(
+                payload.header.channel_header).tx_id
+            flags[txid] = filt[i]
+            tx = pb.Transaction.decode(payload.data)
+            cap = pb.ChaincodeActionPayload.decode(tx.actions[0].payload)
+            n += 1 + len(cap.action.endorsements)
+        lanes.append(n)
+    return flags, sizes, lanes
+
+
+def phase_nodes(device, tmp: str, n_txs: int = NODES_TXS,
+                n_worths: int = NODES_WORTHS) -> dict:
+    """A network started the way a user starts one (README "Running a
+    network on the port"): the port's cryptogen and configtxgen write the
+    material of an orderer org and Org1-3 and a solo channel with
+    phase_order's batch values (in this process); an orderer and three
+    peers start as processes of `python -m fabric_tpu_torch.cmd.orderer` and
+    `... cmd.peer node start`, each on its own root and operations port,
+    the peers on `sampleconfig/core.yaml` (`bccsp.default: TPU`: CUDACSP
+    on the card), with the KV chaincode by `--chaincode` spec and tracing
+    armed; `peer channel join` joins each.  Then `n_worths` worths of
+    `n_txs` transactions (a read and a write each), each proposal endorsed
+    at the three peers and each worth broadcast to the orderer process
+    once endorsed, the endorse cell's five faults planted in the first
+    worth; Org3's peer is killed (SIGKILL) during the second worth (after
+    its endorsements, before the broadcast) and started again on its root
+    once the others have committed the worth's block, which it then
+    takes from the orderer.  Every peer must reach the same height with the planted flags,
+    equal at the three, the same state through `peer chaincode query`,
+    /healthz OK, no device failure, `tpu.collect` spans whose lanes add up
+    to each block's, and exit 0 on SIGTERM."""
+    from fabric_tpu_torch.cmd import configtxgen, cryptogen
+    from fabric_tpu_torch.cmd.common import load_signer
+    from fabric_tpu_torch.comm.tls import credentials_from_files
+
+    root = os.path.join(tmp, "nodes")
+    os.makedirs(root)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ch = NODES_CHANNEL
+    t0 = time.perf_counter()
+    with open(os.path.join(root, "crypto-config.yaml"), "w") as f:
+        f.write(nodes_crypto_config())
+    with open(os.path.join(root, "configtx.yaml"), "w") as f:
+        f.write(nodes_configtx())
+    with open(os.path.join(root, "nodes_kv.py"), "w") as f:
+        f.write(NODES_KV)
+    cc_dir = os.path.join(root, "crypto-config")
+    check(cryptogen.main(["generate", "--config",
+                          os.path.join(root, "crypto-config.yaml"),
+                          "--output", cc_dir]) == 0, "cryptogen failed")
+    t1 = time.perf_counter()
+    block_path = os.path.join(root, f"{ch}.block")
+    check(configtxgen.main(["-profile", "Nodes", "-channelID", ch,
+                            "-outputBlock", block_path,
+                            "-configPath", root]) == 0, "configtxgen failed")
+    t2 = time.perf_counter()
+
+    ordo = os.path.join(cc_dir, "ordererOrganizations", "example.com")
+    org = [os.path.join(cc_dir, "peerOrganizations", f"org{i}.example.com")
+           for i in range(1, NODES_ORGS + 1)]
+    tlscas = [os.path.join(ordo, "tlsca", "tlsca.example.com-cert.pem")] + [
+        os.path.join(o, "tlsca", f"tlsca.org{i + 1}.example.com-cert.pem")
+        for i, o in enumerate(org)]
+    user = os.path.join(org[0], "users", "User1@org1.example.com")
+    client = load_signer(os.path.join(user, "msp"), "Org1MSP")
+    outsider = load_signer(os.path.join(ordo, "users", "Admin@example.com",
+                                        "msp"), "OrdererMSP")
+    client_tls = credentials_from_files(
+        os.path.join(user, "tls", "client.crt"),
+        os.path.join(user, "tls", "client.key"), tlscas)
+    roots = [a for path in tlscas for a in ("--tls-root", path)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([repo, root])
+    env["FABRIC_CFG_PATH"] = os.path.join(repo, "sampleconfig")
+    # the nodes' CSP comes from their config files alone: on the card
+    # CUDACSP on "cuda", in a rehearsal on the CPU its plain versions
+    for k in [k for k in env if k.startswith(("CORE_BCCSP_",
+                                              "ORDERER_GENERAL_BCCSP_"))]:
+        del env[k]
+    if device.type == "cpu":
+        env["CORE_BCCSP_TPU_DEVICE"] = "cpu"
+        env["ORDERER_GENERAL_BCCSP_TPU_DEVICE"] = "cpu"
+    peer_env = dict(env, FABRIC_TPU_TRACE=str(NODES_TRACE_EVENTS))
+    oroot = os.path.join(ordo, "orderers", "orderer.example.com")
+
+    def orderer_argv(port, ops):
+        return ["fabric_tpu_torch.cmd.orderer", "--listen",
+                f"127.0.0.1:{port}", "--root", os.path.join(root, "orderer"),
+                "--genesis", block_path, "--mspid", "OrdererMSP",
+                "--msp-dir", os.path.join(oroot, "msp"), "--tls-dir",
+                os.path.join(oroot, "tls"), *roots]
+
+    orderer = NodeProcess("orderer", orderer_argv, env, root, client_tls,
+                          ops_env="ORDERER_OPERATIONS_LISTENADDRESS")
+
+    def peer_argv(k):
+        proot = os.path.join(org[k], "peers", f"peer0.org{k + 1}.example.com")
+
+        def argv(port, ops):
+            return ["fabric_tpu_torch.cmd.peer", "node", "start", "--listen",
+                    f"127.0.0.1:{port}", "--root",
+                    os.path.join(root, f"peer{k}"), "--mspid",
+                    f"Org{k + 1}MSP", "--msp-dir", os.path.join(proot, "msp"),
+                    "--orderer", orderer.endpoint, "--chaincode",
+                    f"{VALIDATOR_CC}=nodes_kv:KV", "--tls-dir",
+                    os.path.join(proot, "tls"), *roots,
+                    "--operations-port", str(ops)]
+        return argv
+
+    peers = [NodeProcess(f"peer0.org{k + 1}", peer_argv(k), peer_env, root,
+                         client_tls) for k in range(NODES_ORGS)]
+    traces = [PeerTrace() for _ in peers]
+    procs = [orderer] + peers
+    rng = np.random.default_rng(NODES_SEED)
+    out: dict = {}
+    try:
+        up = {"orderer": orderer.start()}
+        with concurrent.futures.ThreadPoolExecutor(len(peers)) as pool:
+            for p, s in zip(peers, pool.map(NodeProcess.start, peers)):
+                up[p.name] = s
+        t3 = time.perf_counter()
+
+        def cli(args, admin_of: int | None = None):
+            """A run of the port's peer CLI as an org's admin or the
+            client user (TLS on)."""
+            if admin_of is None:
+                who, mspid = user, "Org1MSP"
+            else:
+                who = os.path.join(org[admin_of], "users",
+                                   f"Admin@org{admin_of + 1}.example.com")
+                mspid = f"Org{admin_of + 1}MSP"
+            msp = ["--mspid", mspid, "--msp-dir", os.path.join(who, "msp")] \
+                if args[0] == "chaincode" else []
+            return subprocess.run(
+                [sys.executable, "-m", "fabric_tpu_torch.cmd.peer", *args,
+                 *msp, "--tls-dir", os.path.join(who, "tls"), *roots],
+                env=env, capture_output=True, timeout=NODES_WAIT_S)
+
+        with concurrent.futures.ThreadPoolExecutor(len(peers)) as pool:
+            joins = list(pool.map(lambda k: cli(
+                ["channel", "join", "--block", block_path, "--peer",
+                 peers[k].endpoint], admin_of=k), range(len(peers))))
+        for p, r in zip(peers, joins):
+            check(r.returncode == 0 and r.stdout.strip()
+                  == f"joined channel {ch}".encode(),
+                  f"peer channel join at {p.name}: {r.stdout!r} {r.stderr!r}")
+
+        def deliver_lines(p):
+            text = ops_get(p.ops, "/metrics")[1].decode()
+            return [ln for ln in text.splitlines()
+                    if ln.startswith("deliver_")]
+
+        def heights(alive=peers):
+            return [p.height(ch) for p in alive]
+
+        def reach(height, alive=peers):
+            """Waits until every peer of `alive` is at `height`; the
+            monotonic time each reached it."""
+            at = {}
+            deadline = time.monotonic() + NODES_WAIT_S
+            while len(at) < len(alive):
+                for p in alive:
+                    if p.name not in at and p.height(ch) >= height:
+                        at[p.name] = time.monotonic()
+                check(time.monotonic() < deadline, f"height {height} not "
+                      f"reached: {heights(alive)}, deliver metrics "
+                      f"{[deliver_lines(p) for p in alive]}, logs "
+                      f"{[p.log_tail(600) for p in alive]}")
+                time.sleep(0.02)
+            return at
+
+        reach(1)
+        t4 = time.perf_counter()
+        print(f"nodes: material in {t1 - t0:.2f} s (cryptogen: an orderer "
+              f"org and Org1-{NODES_ORGS}) + {t2 - t1:.2f} s (configtxgen); "
+              f"processes listening after "
+              + ", ".join(f"{n} {s:.2f} s" for n, s in up.items())
+              + f"; joined by `peer channel join` in {t4 - t3:.2f} s")
+
+        def proposal(k, w, kind):
+            read = f"r-{w}-{k}"
+            if isinstance(kind, tuple):
+                read = f"w-{w}-{kind[1]}"
+            args = [b"rw", read.encode(), f"w-{w}-{k}".encode(),
+                    f"v{w}-{k}".encode()]
+            if kind == "status_500":
+                args = [b"fail"]
+            signer = outsider if kind == "outsider" else client
+            prop, txid = pu.create_chaincode_proposal(
+                signer.serialize(), ch, VALIDATOR_CC, args,
+                nonce=rng.bytes(24))
+            raw = prop.encode()
+            sig = signer.sign(b"not the proposal" if kind == "bad_signature"
+                              else raw)
+            return prop, txid, pb.SignedProposal(proposal_bytes=raw,
+                                                 signature=sig).encode()
+
+        def endorse_one(job):
+            k, prop, txid, sp, endorsers = job
+            try:
+                resps = [pb.ProposalResponse.decode(
+                    p.rpc().call("endorser.ProcessProposal", sp))
+                    for p in endorsers]
+            except RPCError as exc:
+                return k, txid, ("refused", str(exc)[:60]), None
+            if resps[0].response.status >= 400:
+                return k, txid, ("status", resps[0].response.status), None
+            return k, txid, None, pu.create_signed_tx(prop, client,
+                                                      resps).encode()
+
+        def broadcast(raws) -> list:
+            """The envelopes over one `ab.BroadcastStream`, up to
+            NODES_WINDOW unacknowledged; their statuses, in order."""
+            stream = orderer.rpc().duplex("ab.BroadcastStream")
+            statuses = []
+            try:
+                for i, raw in enumerate(raws):
+                    stream.send(raw)
+                    if i >= NODES_WINDOW - 1:
+                        statuses.append(ob.BroadcastResponse.decode(
+                            stream.recv()).status)
+                while len(statuses) < len(raws):
+                    statuses.append(ob.BroadcastResponse.decode(
+                        stream.recv()).status)
+                stream.finish()
+                check(stream.recv() is None, "the stream did not end")
+            finally:
+                stream.close()
+            return statuses
+
+        predicted: dict = {}
+        refusals: dict = {}
+        worth_lines = []
+        alive = list(peers)
+        restart = {}
+        for w in range(n_worths):
+            plan = NODES_PLAN if w == 0 else {}
+            total = n_txs + sum(1 for v in plan.values() if v in (
+                "bad_signature", "outsider", "status_500"))
+            jobs = []
+            for k in range(total):
+                kind = plan.get(k)
+                prop, txid, sp = proposal(k, w, kind)
+                jobs.append((k, prop, txid, sp, peers[:1]
+                             if kind == "one_endorsement" else peers))
+            te = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(NODES_WORKERS) as pool:
+                done = sorted(pool.map(endorse_one, jobs))
+            t_endorsed = time.perf_counter() - te
+            envs = []
+            for k, txid, refused, raw in done:
+                if refused is not None:
+                    refusals[(w, k)] = refused
+                    continue
+                kind = plan.get(k)
+                predicted[txid] = (
+                    pb.ENDORSEMENT_POLICY_FAILURE
+                    if kind == "one_endorsement"
+                    else pb.MVCC_READ_CONFLICT if isinstance(kind, tuple)
+                    else pb.VALID)
+                envs.append(raw)
+            check(len(envs) == n_txs, f"worth {w}: {len(envs)} endorsed")
+            if w == NODES_KILL_WORTH:
+                # Org3's peer dies after its endorsements, before the
+                # worth's block: it commits the block after its restart
+                victim = peers[-1]
+                traces[-1].poll(victim.ops)
+                victim.kill()
+                traces[-1].new_life()
+                alive = peers[:-1]
+            tb = time.monotonic()
+            statuses = broadcast(envs)
+            t_bcast = time.monotonic() - tb
+            check(statuses == [cb.SUCCESS] * n_txs,
+                  f"worth {w}: broadcast statuses "
+                  f"{collections.Counter(statuses)}")
+            at = reach(w + 2, alive)
+            if w == NODES_KILL_WORTH:
+                t_restart = time.monotonic()
+                restart["listening_s"] = victim.start()
+                at.update(reach(w + 2, [victim]))
+                restart["catch_up_s"] = (at[victim.name] - t_restart
+                                         - restart["listening_s"])
+                alive = peers
+            rates = ", ".join(
+                f"{n} {n_txs / (t - tb):.0f}" for n, t in sorted(at.items())
+                if not (w == NODES_KILL_WORTH and n == victim.name))
+            worth_lines.append(
+                f"nodes: worth {w}: {total} proposals endorsed at "
+                f"{len(peers)} peers in {t_endorsed:.2f} s "
+                f"({total / t_endorsed:.0f}/s), {n_txs} envelopes into the "
+                f"orderer in {t_bcast:.3f} s ({n_txs / t_bcast:.0f}/s); "
+                f"committed tx/s from the first broadcast: {rates}")
+        for line in worth_lines:
+            print(line)
+        want_refusals = {(0, k): v for k, v in NODES_PLAN.items()
+                         if v in ("bad_signature", "outsider", "status_500")}
+        check(set(refusals) == set(want_refusals)
+              and refusals[(0, 7)] == ("status", 500)
+              and all(refusals[k][0] == "refused" for k in refusals
+                      if k != (0, 7)),
+              f"refusals {refusals}, predicted {want_refusals}")
+
+        # -- the flags, the lanes and the state at every peer
+        height = n_worths + 1
+        views = []
+        for p in peers:
+            env_seek = deliver.make_seek_info_envelope(ch, 1, height - 1,
+                                                       signer=client)
+            raw_blocks = [ob.DeliverResponse.decode(fr).block for fr in
+                          p.rpc().stream("deliver.Deliver", env_seek.encode())
+                          if ob.DeliverResponse.decode(fr).which("Type")
+                          == "block"]
+            views.append(nodes_block_view(raw_blocks))
+        flags, sizes, lanes = views[0]
+        check(all(v == views[0] for v in views), "the peers' blocks differ")
+        check(flags == predicted, "flags differ from the prediction on "
+              f"{sum(flags.get(t) != f for t, f in predicted.items())} "
+              "transactions")
+        queries = {}
+        with concurrent.futures.ThreadPoolExecutor(len(peers)) as pool:
+            for p, r in zip(peers, pool.map(lambda p: cli(
+                    ["chaincode", "query", "-C", ch, "-n", VALIDATOR_CC,
+                     "-a", "range", "--peer", p.endpoint]), peers)):
+                check(r.returncode == 0, f"peer chaincode query at {p.name}: "
+                      f"{r.stderr[-500:]!r}")
+                queries[p.name] = json.loads(r.stdout)
+        state = queries[peers[0].name]
+        n_valid = list(predicted.values()).count(pb.VALID)
+        check(all(q == state for q in queries.values())
+              and len(state) == n_valid
+              and state.get(f"w-{n_worths - 1}-0") == f"v{n_worths - 1}-0",
+              f"the peers' states differ or hold {len(state)} keys "
+              f"(predicted {n_valid})")
+        mods = cli(["chaincode", "query", "-C", ch, "-n", VALIDATOR_CC,
+                    "-a", "modules", "--peer", peers[-1].endpoint])
+        check(mods.returncode == 0 and json.loads(mods.stdout) == [],
+              f"a peer process imported {mods.stdout!r} {mods.stderr!r}")
+
+        launches, per_peer, first_ms, later_ms, first_s = 0, {}, {}, {}, {}
+        for p, tr in zip(peers, traces):
+            tr.poll(p.ops)
+            status, body = ops_get(p.ops, "/healthz")
+            check(status == 200 and json.loads(body)["status"] == "OK",
+                  f"{p.name} /healthz {status} {body!r}")
+            status, body = ops_get(p.ops, "/metrics")
+            text = body.decode()
+            check("# TYPE csp_tpu_device_failures_total counter" in text
+                  and not re.search(
+                      r"^csp_tpu_device_failures_total [1-9]", text, re.M),
+                  f"{p.name}: device failures on /metrics")
+            blocks = tr.blocks()
+            check(sorted(blocks) == list(range(1, height)) and all(
+                blocks[n]["lanes"] == lanes[n - 1] for n in blocks),
+                  f"{p.name}: tpu.collect lanes "
+                  f"{[blocks[n]['lanes'] for n in sorted(blocks)]}, "
+                  f"the blocks' {lanes}")
+            # B1's launches as the peer's wrapper counted them, from its
+            # tpu.dispatch spans, each flush on the peer's CSP device
+            chunks = sum(len(cuda_provider._chunk_plan(
+                dl, cuda_provider._MAX_CHUNK)) for b in blocks.values()
+                for dl in b["device_lanes"].values() if dl)
+            disp = tr.dispatches()
+            devs = sorted({d.get("device") for d in disp})
+            n = sum(d.get("launches_keytab", 0) for d in disp)
+            n_b2 = sum(d.get("launches_lanekeys", 0) for d in disp)
+            if device.type == "cuda":
+                check(chunks >= 1 and devs and all(
+                    str(d).startswith("cuda:") for d in devs) and n == chunks
+                      and n_b2 == 0,
+                      f"{p.name}: flushes on {devs}, B1 launched {n} times "
+                      f"and B2 {n_b2} for {chunks} chunks of device lanes")
+            else:
+                check(chunks >= 1 and devs == ["cpu"] and n == n_b2 == 0,
+                      f"{p.name}: flushes on {devs}, {n} + {n_b2} launches")
+            per_peer[p.name] = n
+            launches += n
+            first_ms[p.name] = blocks[1]["ms"]
+            first_s[p.name] = blocks[1]["end_s"] - p.t_first
+            later_ms[p.name] = [round(blocks[b]["ms"], 1)
+                                for b in sorted(blocks)[1:]]
+        status, body = ops_get(orderer.ops, "/healthz")
+        check(status == 200, f"orderer /healthz {status} {body!r}")
+        exits = {}
+        for p in procs:
+            exits[p.name] = p.terminate()
+        check(all(rc == 0 for rc, _ in exits.values()),
+              f"exit codes on SIGTERM {exits}")
+        wall = time.perf_counter() - t0
+        print(f"nodes: blocks of {sizes} transactions, lanes {lanes}; flags "
+              f"as predicted ({n_valid} VALID) and equal at the "
+              f"{len(peers)} peers; refusals {sorted(refusals.values())}; "
+              f"states equal through `peer chaincode query` ({len(state)} "
+              f"keys); no module of the JAX package in a peer")
+        print("nodes: a peer's start to its first block validated: "
+              + ", ".join(f"{n} {v:.2f} s" for n, v in first_s.items())
+              + " (the block's broadcast waits for the worth's "
+              "endorsements)")
+        print("nodes: validate ms a block (collect + verify_wait + policy, "
+              "from each peer's /traces): first block "
+              + ", ".join(f"{n} {v:.1f}" for n, v in first_ms.items())
+              + "; later " + ", ".join(f"{n} {v}" for n, v in
+                                       later_ms.items()))
+        print(f"nodes: {peers[-1].name} killed before worth "
+              f"{NODES_KILL_WORTH}'s block and started again once the "
+              f"others committed it: listening "
+              f"{restart['listening_s']:.2f} s after its restart, at the "
+              f"others' height {restart['catch_up_s']:.2f} s after that")
+        print(f"nodes: B1 launches a peer (its wrapper's count, from its "
+              f"tpu.dispatch spans) {per_peer}; "
+              "exit on SIGTERM " + ", ".join(
+                  f"{n} rc {rc} in {s:.2f} s" for n, (rc, s) in
+                  exits.items()) + f"; the phase {wall:.1f} s")
+        out = {"launches": launches, "per_peer": per_peer, "wall_s": wall}
+    finally:
+        for p in procs:
+            if p.proc is not None and p.proc.poll() is None:
+                p.kill()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Key custody: an HSM-style daemon signs, CUDACSP verifies on the card.
 # ---------------------------------------------------------------------------
 
@@ -6680,6 +7406,22 @@ def multi_card(turns: int = 3, n_flushes: int = MULTI_FLUSHES,
     return 0
 
 
+def nodes_only() -> int:
+    """`--nodes`: the kernels and the host library built, then
+    `phase_nodes` alone (a short call for that phase; card only)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print_device()
+    phase_build()
+    phase_native()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out = phase_nodes(torch.device("cuda", 0), tmp)
+    print(json.dumps({"launches_nodes": out["launches"],
+                      "per_peer": out["per_peer"]}))
+    return 0
+
+
 def print_device() -> str:
     """Prints the card's name, and its name and power limit as nvidia-smi
     gives them; returns the name."""
@@ -6705,10 +7447,12 @@ def main(argv=None) -> int:
         return raft_orderer_main(argv[1])
     if argv[:1] == ["--shards-ab"] and len(argv) in (1, 2):
         return shards_ab(*(int(a) for a in argv[1:]))
+    if argv == ["--nodes"]:
+        return nodes_only()
     if argv:
         print("usage: chip_smoke.py [--commit-ab PARENT_TREE [TURNS] | "
-              "--multi-card | --shards-ab [TURNS] | --raft-orderer SPEC]",
-              file=sys.stderr)
+              "--multi-card | --shards-ab [TURNS] | --raft-orderer SPEC | "
+              "--nodes]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6783,6 +7527,8 @@ def main(argv=None) -> int:
         host_check("gateway", armed=True)
         print(f"raft, endorse and gateway: "
               f"{time.perf_counter() - t_cell:.1f} s")
+        nodes = phase_nodes(device, tmp)
+        host_check("nodes", armed=True)
     b1 = next(row for row in rows if row["name"] == B1_NAME)
     for label, run in (("validator", val), ("commit", com),
                        ("commit_sharded", shc), ("smallbank", sb),
@@ -6796,6 +7542,8 @@ def main(argv=None) -> int:
               f"ms wall ({busy / wall:.1%}; launches x B1's ms at 8000 "
               "lanes)")
     b1["launches_smallbank_sharded"] = sb["launches_sharded"][B1_NAME]
+    # counted in the peer processes, from their traces
+    b1["launches_nodes"] = nodes["launches"]
     cus = phase_custody(device, errs)
     host_check("custody")
     b2 = next(row for row in rows if row["name"] == B2_NAME)

@@ -1,8 +1,8 @@
 """The chaincode runtime of the port (copies of the JAX package's
 `fabric_tpu/chaincode/` modules of the same names): the shim, the peer's
 chaincode support, the system chaincodes, `_lifecycle` and key-level
-endorsement policies.  The legacy lifecycle (`lscc`), the external
-builders and the platforms are not ported."""
+endorsement policies, the legacy lifecycle (`lscc`), the chaincode
+packagers (`platforms`) and the external builders (`externalbuilder`)."""
 
 from fabric_tpu_torch.chaincode.shim import Chaincode, ChaincodeStub, shim_main
 from fabric_tpu_torch.chaincode.support import ChaincodeSupport, InProcStream

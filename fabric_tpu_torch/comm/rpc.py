@@ -127,6 +127,17 @@ def set_tcp_keepalive(sock, ka: "KeepaliveOptions") -> None:
         pass  # platform without the options: lifecycle still app-level
 
 
+def set_nodelay(sock) -> None:
+    """Frames go out as written: a call's small frames (a request; a
+    reply's DATA then END) would otherwise wait out Nagle's algorithm
+    against the peer's delayed ACK, ~40 ms a unary call on Linux.  The
+    JAX package's transport leaves Nagle on; the bytes are the same."""
+    try:
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    except OSError:
+        pass  # not a TCP socket
+
+
 class RPCError(Exception):
     pass
 
@@ -299,6 +310,7 @@ class _Handler(socketserver.BaseRequestHandler):
         sock = self.request
         ka = server.keepalive
         set_tcp_keepalive(sock, ka)
+        set_nodelay(sock)
         # Idle reaping: a connected-but-silent peer must not hold this
         # thread (and later a limiter permit) forever — the handshake
         # and the request read each get the idle window, then the
@@ -585,6 +597,7 @@ class RPCClient:
         netsplit.connect(addr=self._addr)
         sock = socket.create_connection(self._addr, timeout=self._timeout)
         set_tcp_keepalive(sock, self._keepalive)
+        set_nodelay(sock)
         if self._ssl_context is not None:
             try:
                 sock = self._ssl_context.wrap_socket(
@@ -692,4 +705,5 @@ class RPCClient:
 
 __all__ = ["RPCServer", "RPCClient", "RPCError", "Stream",
            "DuplexStream", "KeepaliveOptions", "set_tcp_keepalive",
+           "set_nodelay",
            "read_frame", "write_frame"]

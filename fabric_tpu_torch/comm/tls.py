@@ -13,7 +13,11 @@ certificate's DER with the port's own `msp.x509`.
 
 Python's ssl requires the *cert chain* to come from files, so key
 material is written to a private (0700) temp directory per credentials
-object; CA roots load from memory via `cadata`.
+object; CA roots load from memory via `cadata`.  Unlike the reference's,
+the write happens once under a lock: a node's deliver thread (a client
+context) and its server (a server context) materialize the same object
+at start-up, and in the reference the second writer's directory could
+replace the first's before its files were written.
 """
 
 from __future__ import annotations
@@ -22,9 +26,14 @@ import dataclasses
 import os
 import ssl
 import tempfile
+import threading
 
 from fabric_tpu_torch.common.hashing import sha256 as _sha256
 from fabric_tpu_torch.msp import x509
+
+
+# one credentials object's files are written once, whichever thread asks
+_MATERIALIZE_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -56,16 +65,18 @@ class TLSCredentials:
     def _materialize(self) -> tuple[str, str]:
         """Write cert/key to a private temp dir (ssl.load_cert_chain is
         path-only); reused across contexts for this object's lifetime."""
-        if self._tmpdir is None:
-            self._tmpdir = tempfile.TemporaryDirectory(prefix="fabric-tls-")
-            os.chmod(self._tmpdir.name, 0o700)
-            cp = os.path.join(self._tmpdir.name, "cert.pem")
-            kp = os.path.join(self._tmpdir.name, "key.pem")
-            with open(cp, "wb") as f:
-                f.write(self.cert_pem)
-            with open(kp, "wb") as f:
-                f.write(self.key_pem)
-            os.chmod(kp, 0o600)
+        with _MATERIALIZE_LOCK:
+            if self._tmpdir is None:
+                tmp = tempfile.TemporaryDirectory(prefix="fabric-tls-")
+                os.chmod(tmp.name, 0o700)
+                cp = os.path.join(tmp.name, "cert.pem")
+                kp = os.path.join(tmp.name, "key.pem")
+                with open(cp, "wb") as f:
+                    f.write(self.cert_pem)
+                with open(kp, "wb") as f:
+                    f.write(self.key_pem)
+                os.chmod(kp, 0o600)
+                self._tmpdir = tmp
         return (
             os.path.join(self._tmpdir.name, "cert.pem"),
             os.path.join(self._tmpdir.name, "key.pem"),

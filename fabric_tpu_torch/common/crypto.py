@@ -246,4 +246,63 @@ class CA:
                                "X509 CRL")
 
 
-__all__ = ["CA", "CertKeyPair", "key_pem", "public_key_pem"]
+def cert_expiration(pem: bytes) -> datetime.datetime:
+    """Earliest not-after among the certificates of a PEM bundle
+    (reference common/crypto/expiration.go warns ahead of expiry)."""
+    return min(c.not_valid_after for c in x509.load_pem_certificates(pem))
+
+
+def expiration_warning(
+    pem: bytes, label: str, now: datetime.datetime | None = None,
+    warn_within: datetime.timedelta = datetime.timedelta(days=7),
+) -> str | None:
+    """Warning text when `pem`'s earliest certificate expires within
+    `warn_within` (or has expired); None otherwise, and for a PEM that
+    does not parse.  Reference common/crypto/expiration.go
+    TrackExpiration, wired at node start."""
+    try:
+        exp = cert_expiration(pem)
+    except (ValueError, IndexError):
+        return None
+    return _expiry_text(exp, label, now, warn_within)
+
+
+def _expiry_text(exp, label, now=None,
+                 warn_within=datetime.timedelta(days=7)):
+    now = now or datetime.datetime.now(datetime.timezone.utc)
+    if exp <= now:
+        return f"{label} certificate EXPIRED at {exp.isoformat()}"
+    if exp - now <= warn_within:
+        days = -((now - exp) // datetime.timedelta(days=1))  # ceil
+        return (
+            f"{label} certificate expires within "
+            f"{days} day(s), at {exp.isoformat()}"
+        )
+    return None
+
+
+def track_expiration(entries, warn) -> None:
+    """Run expiration_warning over [(label, pem)] pairs, calling
+    `warn(text)` for each finding: the node-start expiration sweep."""
+    for label, pem in entries:
+        if not pem:
+            continue
+        text = expiration_warning(pem, label)
+        if text:
+            warn(text)
+
+
+def warn_node_cert_expirations(signer, tls, signer_label: str, warn) -> None:
+    """The peer's and orderer's start-time sweep: week-ahead warnings for
+    the node's signing identity and its TLS certificate."""
+    if signer is not None:
+        text = _expiry_text(signer.expires_at(), signer_label)
+        if text:
+            warn(text)
+    if tls is not None:
+        track_expiration([("server TLS", tls.cert_pem)], warn)
+
+
+__all__ = ["CA", "CertKeyPair", "key_pem", "public_key_pem",
+           "cert_expiration", "expiration_warning", "track_expiration",
+           "warn_node_cert_expirations"]

@@ -1,0 +1,423 @@
+"""Operations HTTP endpoint: /metrics, /healthz, /version, /logspec,
+/traces.
+
+The port's copy of `fabric_tpu/common/operations.py`, over the port's
+`metrics`, `flogging`, `tracing` and `profile`.
+
+Reference: core/operations/system.go:75-265 — an HTTP server exposing
+prometheus metrics, health checks with registered checkers, the build
+version, and GET/PUT of the runtime log spec (flogging httpadmin).
+``GET /traces`` goes beyond the reference: it serves the tracelens
+flight recorder as Chrome trace-event JSON (empty, with
+``otherData.armed=false``, while ``FABRIC_TPU_TRACE`` is unset).
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from fabric_tpu_torch.devtools.lockwatch import spawn_thread
+
+from fabric_tpu_torch.common import flogging
+from fabric_tpu_torch.common.metrics import (
+    DisabledProvider,
+    PrometheusProvider,
+    StatsdProvider,
+)
+
+VERSION = "0.1.0"
+
+
+class System:
+    """Reference operations.System: owns the metrics provider + server."""
+
+    def __init__(
+        self,
+        listen_address: tuple[str, int] = ("127.0.0.1", 0),
+        provider: str = "prometheus",
+        version: str = VERSION,
+        statsd_send=None,
+        process_metrics: bool = False,
+    ):
+        self.version = version
+        self._checkers: dict[str, object] = {}
+        self._last_errors: dict[str, str] = {}
+        self._snapshot_metrics = None
+        self._commit_metrics = None
+        self._validate_metrics = None
+        self._csp_metrics = None
+        self._raft_metrics = None
+        self._workpool_metrics = None
+        self._gossip_metrics = None
+        self._deliver_metrics = None
+        self._gateway_metrics = None
+        self._ledger_metrics = None
+        self._lock_metrics = None
+        self._process_metrics = None
+        self._lock = threading.Lock()
+        if provider == "prometheus":
+            self.metrics_provider = PrometheusProvider()
+            self._registry = self.metrics_provider.registry
+            if process_metrics:
+                # standard process gauges (CPU seconds, RSS, open fds,
+                # GC collections/pauses) read at scrape time — opt-in
+                # because their values track the real process clock,
+                # which would break virtual-clock scrape determinism
+                from fabric_tpu_torch.common.metrics import ProcessMetrics
+
+                self._process_metrics = ProcessMetrics(
+                    self.metrics_provider
+                )
+                self._registry.register_collector(
+                    self._process_metrics.collect
+                )
+        elif provider == "statsd":
+            self.metrics_provider = StatsdProvider(
+                statsd_send or (lambda line: None)
+            )
+            self._registry = None
+        else:
+            self.metrics_provider = DisabledProvider()
+            self._registry = None
+        system = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):  # quiet
+                pass
+
+            def _reply(self, code: int, body: bytes, ctype="application/json"):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/metrics":
+                    if system._registry is None:
+                        self._reply(404, b"metrics provider is not prometheus")
+                        return
+                    self._reply(
+                        200,
+                        system._registry.expose().encode(),
+                        "text/plain; version=0.0.4",
+                    )
+                elif self.path == "/healthz" or self.path.startswith(
+                    "/healthz?"
+                ):
+                    from urllib.parse import parse_qs, urlsplit
+
+                    qs = parse_qs(urlsplit(self.path).query)
+                    detail = qs.get("detail", ["0"])[0] not in ("", "0")
+                    status, body = system.health(detail=detail)
+                    self._reply(200 if status else 503, json.dumps(body).encode())
+                elif self.path == "/version":
+                    self._reply(
+                        200, json.dumps({"Version": system.version}).encode()
+                    )
+                elif self.path == "/logspec":
+                    self._reply(
+                        200, json.dumps({"spec": flogging.spec()}).encode()
+                    )
+                elif self.path == "/traces" or self.path.startswith(
+                    "/traces?"
+                ):
+                    from urllib.parse import parse_qs, urlsplit
+
+                    from fabric_tpu_torch.common import tracing
+
+                    qs = parse_qs(urlsplit(self.path).query)
+                    since = None
+                    if "since" in qs:
+                        try:
+                            since = int(qs["since"][0])
+                        except ValueError:
+                            self._reply(
+                                400,
+                                json.dumps(
+                                    {"error": "since must be an integer "
+                                              "event id"}
+                                ).encode(),
+                            )
+                            return
+                    self._reply(
+                        200,
+                        json.dumps(
+                            tracing.export(since=since), sort_keys=True
+                        ).encode(),
+                    )
+                elif self.path == "/profile/heap":
+                    from fabric_tpu_torch.common import profile
+
+                    self._reply(
+                        200,
+                        json.dumps(
+                            profile.heap_doc(), sort_keys=True
+                        ).encode(),
+                    )
+                elif self.path == "/profile" or self.path.startswith(
+                    "/profile?"
+                ):
+                    from urllib.parse import parse_qs, urlsplit
+
+                    from fabric_tpu_torch.common import profile
+
+                    qs = parse_qs(urlsplit(self.path).query)
+                    try:
+                        seconds = float(qs.get("seconds", ["0"])[0])
+                    except ValueError:
+                        self._reply(
+                            400,
+                            json.dumps(
+                                {"error": "seconds must be a number"}
+                            ).encode(),
+                        )
+                        return
+                    if seconds > 0:
+                        # on-demand session sampled inline in THIS
+                        # handler thread (the server is threading, so
+                        # other endpoints stay live); capped like the
+                        # old pprof listener
+                        doc = profile.sample_for(min(seconds, 120.0))
+                    else:
+                        # the armed profiler's accumulated aggregate
+                        # (or the valid disarmed doc)
+                        doc = profile.export()
+                    self._reply(
+                        200, json.dumps(doc, sort_keys=True).encode()
+                    )
+                else:
+                    self._reply(404, b"not found", "text/plain")
+
+            def do_PUT(self):
+                if self.path != "/logspec":
+                    self._reply(404, b"not found", "text/plain")
+                    return
+                length = int(self.headers.get("Content-Length", "0"))
+                try:
+                    payload = json.loads(self.rfile.read(length) or b"{}")
+                    flogging.activate_spec(payload.get("spec", ""))
+                except (ValueError, flogging.LogSpecError) as exc:
+                    self._reply(400, json.dumps({"error": str(exc)}).encode())
+                    return
+                self._reply(204, b"")
+
+            do_POST = do_PUT
+
+        self._server = ThreadingHTTPServer(listen_address, Handler)
+        self._thread: threading.Thread | None = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def addr(self) -> tuple[str, int]:
+        return self._server.server_address
+
+    def start(self) -> None:
+        self._thread = spawn_thread(
+            target=self._server.serve_forever, name="operations-server",
+            kind="service",
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+    # -- workload metric bundles -------------------------------------------
+
+    def snapshot_metrics(self):
+        """Lazily-built channel-snapshot metrics bound to this system's
+        provider, so snapshot generation/pending gauges surface on the
+        /metrics endpoint (prometheus) or the statsd stream."""
+        with self._lock:
+            if self._snapshot_metrics is None:
+                from fabric_tpu_torch.common.metrics import SnapshotMetrics
+
+                self._snapshot_metrics = SnapshotMetrics(
+                    self.metrics_provider
+                )
+            return self._snapshot_metrics
+
+    def commit_metrics(self):
+        """Lazily-built ledger-commit stage metrics bound to this
+        system's provider — the per-stage mvcc/append/pvt/state/history/
+        fsync breakdown on the /metrics endpoint."""
+        with self._lock:
+            if self._commit_metrics is None:
+                from fabric_tpu_torch.common.metrics import CommitMetrics
+
+                self._commit_metrics = CommitMetrics(self.metrics_provider)
+            return self._commit_metrics
+
+    def validate_metrics(self):
+        """Lazily-built block-validate stage metrics (the
+        collect/verify_wait/policy split) bound to this system's
+        provider — hand it to TxValidator(metrics=...)."""
+        with self._lock:
+            if self._validate_metrics is None:
+                from fabric_tpu_torch.common.metrics import ValidateMetrics
+
+                self._validate_metrics = ValidateMetrics(
+                    self.metrics_provider
+                )
+            return self._validate_metrics
+
+    def csp_metrics(self):
+        """Lazily-built CUDA-CSP degraded-mode metrics (circuit-breaker
+        state/trips, device failures, recovery probes) bound to this
+        system's provider — hand it to CUDACSP(metrics=...) or
+        set_metrics() so breaker transitions surface on /metrics."""
+        with self._lock:
+            if self._csp_metrics is None:
+                from fabric_tpu_torch.common.metrics import CSPMetrics
+
+                self._csp_metrics = CSPMetrics(self.metrics_provider)
+            return self._csp_metrics
+
+    def raft_metrics(self):
+        """Lazily-built raft cluster-comm metrics (dropped sends,
+        dial attempts) for TCPTransport(metrics=...)."""
+        with self._lock:
+            if self._raft_metrics is None:
+                from fabric_tpu_torch.common.metrics import RaftMetrics
+
+                self._raft_metrics = RaftMetrics(self.metrics_provider)
+            return self._raft_metrics
+
+    def workpool_metrics(self):
+        """Lazily-built shared-host-work-pool metrics (queue depth,
+        in-flight chunks, worker saturation) — hand the bundle to
+        ``workpool.set_metrics`` so the parallel collect/prepare
+        stages' fan-out pressure surfaces on /metrics."""
+        with self._lock:
+            if self._workpool_metrics is None:
+                from fabric_tpu_torch.common.metrics import WorkpoolMetrics
+
+                self._workpool_metrics = WorkpoolMetrics(
+                    self.metrics_provider
+                )
+            return self._workpool_metrics
+
+    def gossip_metrics(self):
+        """Lazily-built gossip-plane metrics (message flow, state
+        transfer, membership) — hand the bundle to
+        ``GossipService.set_metrics`` so the netscope scraper sees the
+        dissemination layer."""
+        with self._lock:
+            if self._gossip_metrics is None:
+                from fabric_tpu_torch.common.metrics import GossipMetrics
+
+                self._gossip_metrics = GossipMetrics(self.metrics_provider)
+            return self._gossip_metrics
+
+    def deliver_metrics(self):
+        """Lazily-built deliver-client metrics (blocks pulled,
+        reconnect episodes, cumulative backoff) for
+        ``DeliverClient(metrics=...)``."""
+        with self._lock:
+            if self._deliver_metrics is None:
+                from fabric_tpu_torch.common.metrics import DeliverMetrics
+
+                self._deliver_metrics = DeliverMetrics(
+                    self.metrics_provider
+                )
+            return self._deliver_metrics
+
+    def gateway_metrics(self):
+        """Lazily-built gateway front-end metrics (admission queue
+        depth, adaptive in-flight window, dedup hits, rejections,
+        failover episodes, submit→commit latency) for
+        ``Gateway(metrics=...)`` — the series netscope's scraper and
+        SLO rollup read off the gateway's /metrics."""
+        with self._lock:
+            if self._gateway_metrics is None:
+                from fabric_tpu_torch.common.metrics import GatewayMetrics
+
+                self._gateway_metrics = GatewayMetrics(
+                    self.metrics_provider
+                )
+            return self._gateway_metrics
+
+    def ledger_metrics(self):
+        """Lazily-built per-channel ledger progress metrics (height /
+        durable_height gauges + block/tx counters) for
+        ``LedgerProvider(ledger_metrics=...)`` — the series netscope
+        derives cross-peer commit lag from."""
+        with self._lock:
+            if self._ledger_metrics is None:
+                from fabric_tpu_torch.common.metrics import LedgerMetrics
+
+                self._ledger_metrics = LedgerMetrics(self.metrics_provider)
+            return self._ledger_metrics
+
+    def lock_metrics(self):
+        """Lazily-built lock-contention histograms
+        (``lock_wait_seconds{role}`` / ``lock_hold_seconds{role}``) —
+        hand the bundle to ``profile.set_lock_metrics`` so an armed
+        profscope's acquire-wait/hold observations surface on
+        /metrics (the runtime complement to fabriclint's static
+        lock-order graph)."""
+        with self._lock:
+            if self._lock_metrics is None:
+                from fabric_tpu_torch.common.metrics import LockMetrics
+
+                self._lock_metrics = LockMetrics(self.metrics_provider)
+            return self._lock_metrics
+
+    # -- health ------------------------------------------------------------
+
+    def register_checker(self, component: str, checker) -> None:
+        """checker() raises or returns False when unhealthy (reference
+        healthz registered checkers, e.g. couchdb/docker)."""
+        with self._lock:
+            self._checkers[component] = checker
+
+    def health(self, detail: bool = False) -> tuple[bool, dict]:
+        """Run every registered checker.  Plain mode keeps the
+        reference healthz body (``status`` + ``failed_checks``);
+        ``detail`` (``GET /healthz?detail=1``) adds one entry per
+        checker with its name, pass/fail status, and the failure
+        reason — the netscope health timeline's per-checker input.
+        ``last_error`` persists across calls: a checker that failed
+        once and recovered still shows what went wrong last."""
+        failed = []
+        checks = []
+        with self._lock:
+            checkers = dict(self._checkers)
+        for name, check in sorted(checkers.items()):
+            error = None
+            try:
+                if check() is False:
+                    error = "check returned False"
+            except Exception as exc:
+                error = str(exc) or type(exc).__name__
+            if error is not None:
+                failed.append(
+                    name if error == "check returned False"
+                    else f"{name}: {error}"
+                )
+                with self._lock:
+                    self._last_errors[name] = error
+                last = error
+            else:
+                with self._lock:
+                    last = self._last_errors.get(name)
+            checks.append({
+                "component": name,
+                "status": "OK" if error is None else "failed",
+                "last_error": last,
+            })
+        ok = not failed
+        body: dict = (
+            {"status": "OK"} if ok
+            else {"status": "Service Unavailable", "failed_checks": failed}
+        )
+        if detail:
+            body["checks"] = checks
+        return ok, body
+
+
+__all__ = ["System", "VERSION"]

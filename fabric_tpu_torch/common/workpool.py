@@ -133,6 +133,40 @@ def default_pool():
         return _pool
 
 
+def saturation() -> tuple[int, int, int]:
+    """Instantaneous pool pressure: ``(in_flight chunks, worker cap,
+    executor queue depth)``; all zeros while the shared pool has never
+    been made (probing does not make it)."""
+    with _pool_lock:
+        pool = _pool
+    if pool is None:
+        return 0, 0, 0
+    workers = getattr(pool, "_max_workers", 0) or 0
+    q = getattr(pool, "_work_queue", None)
+    depth = q.qsize() if q is not None else 0
+    with _stats_lock:
+        inflight = _stats["in_flight"]
+    return inflight, workers, depth
+
+
+def health_checker():
+    """A /healthz checker (`operations.System.register_checker`) that
+    fails while fan-outs queue behind each other: more chunks in flight
+    than the pool has workers and tasks waiting in the executor's
+    queue."""
+
+    def check() -> bool:
+        inflight, workers, depth = saturation()
+        if workers and inflight > workers and depth > 0:
+            raise RuntimeError(
+                f"workpool saturated: {inflight} chunks in flight over "
+                f"{workers} workers, {depth} queued"
+            )
+        return True
+
+    return check
+
+
 def shutdown(wait: bool = True) -> None:
     """Shut the shared executor down (idempotent); the next use makes a
     new one."""
@@ -225,4 +259,5 @@ def run_chunked(pool, fn, items, width: int) -> list:
 
 
 __all__ = ["default_pool", "scoped_pool", "shutdown", "stage_width",
-           "run_chunked", "set_metrics", "stats", "reset_stats"]
+           "run_chunked", "set_metrics", "stats", "reset_stats",
+           "saturation", "health_checker"]

@@ -34,7 +34,11 @@ breaker once the device answers it.  The breaker's state goes to
 `metrics` (`common.metrics.CSPMetrics`) and `degraded_stats`.  While
 tracing is armed a flush's dispatch and each collector run under the JAX
 package's ``tpu.dispatch`` and ``tpu.collect`` spans (the latter with
-``lane_wall_ewma_us``), so a trace reads the same from either package.
+``lane_wall_ewma_us``), so a trace reads the same from either package;
+the port's ``tpu.dispatch`` adds the flush's ``device`` and the launches
+the kernels' wrappers counted in it (``launches_keytab``,
+``launches_lanekeys``), so a trace read from another process counts
+them.
 
 On a card the fault raises out of every collector of the flush (or out
 of `hash_batch`), and an open breaker refuses the call
@@ -737,8 +741,11 @@ class CUDACSP(CSP):
         self._stats = _Stats()
         self._probe_cache: list | None = None
         self._key_table = _KeyTable()
-        # keys live in hostref's provider over an in-memory keystore
-        self._host = hostref.HostCSP()
+        # keys live in the host route's provider when `sw` is one (its
+        # keystore: a node's file keystore), else in hostref's over an
+        # in-memory keystore
+        self._host = (sw if isinstance(sw, hostref.HostCSP)
+                      else hostref.HostCSP())
         # the coalescing state behind this lock is asserted with
         # lockwatch.guarded under FABRIC_TPU_LOCKWATCH
         self._pend_lock = named_rlock("csp.tpu.pend")
@@ -966,9 +973,22 @@ class CUDACSP(CSP):
         gen = self._gen
         self._gen += 1
         t0 = time.perf_counter()
+        counts = (p256_kernel.launches_keytab, p256_kernel.launches_lanekeys)
         try:
             with tracing.span("tpu.dispatch", batch=gen, lanes=len(items)):
-                res = self._dispatch(items)
+                try:
+                    res = self._dispatch(items)
+                finally:
+                    if tracing.enabled():
+                        # the launches the kernels' wrappers counted in
+                        # this flush, and where it ran: what a reader of
+                        # another process's trace counts launches by
+                        tracing.annotate(
+                            device=str(self.device),
+                            launches_keytab=(p256_kernel.launches_keytab
+                                             - counts[0]),
+                            launches_lanekeys=(
+                                p256_kernel.launches_lanekeys - counts[1]))
         except BUILD_ERRORS as e:
             # every collector of this flush raises it
             res = _FlushResult([], len(items), error=e)

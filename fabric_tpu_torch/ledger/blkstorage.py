@@ -294,7 +294,7 @@ class BlockStore:
                      index=None) -> None:
         """`txids` may carry the validator's txid of each position (a
         position without one is parsed here); `checkpoint` rides the
-        number and hash batch."""
+        number and hash batch, with the height the block makes."""
         num_b = struct.pack(">Q", blk.header.number)
         puts = {
             b"n" + num_b: struct.pack(">QQ", file_idx, offset),
@@ -302,7 +302,7 @@ class BlockStore:
         }
         if checkpoint is not None:
             puts[b"cp"] = struct.pack(">QQQ", checkpoint[0], checkpoint[1],
-                                      self._height)
+                                      blk.header.number + 1)
         data = blk.data.data
         if txids is None or len(txids) != len(data):
             txids = [None] * len(data)
@@ -410,7 +410,6 @@ class BlockStore:
             raw = protoutil.serialize_block(blk, env_bytes)
             if self._mem_blocks is not None:
                 self._mem_blocks.append(raw)
-                self._height += 1
                 self._index_block(blk, 0, len(self._mem_blocks) - 1, txids,
                                   checkpoint=(0, len(self._mem_blocks)),
                                   index=index)
@@ -432,10 +431,14 @@ class BlockStore:
                 f.flush()
                 if sync:
                     os.fdatasync(f.fileno())
-                self._height += 1
                 self._index_block(blk, file_idx, offset, txids,
                                   checkpoint=(file_idx, offset + rec),
                                   index=index)
+            # the height moves after the block's index entry is written,
+            # so a lock-free reader (a deliver stream) never sees a height
+            # whose block it cannot read (the reference's store moves it
+            # first: ROADMAP Queue C)
+            self._height += 1
             self._last_hash = protoutil.block_header_hash(blk.header)
             return file_idx
 

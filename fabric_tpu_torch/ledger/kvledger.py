@@ -196,6 +196,12 @@ class KVLedger:
 
     # -- recovery (reference recoverDBs) --------------------------------------
 
+    def set_btl_policy(self, btl_policy) -> None:
+        """The private data's blocks-to-live, (ns, coll) -> blocks (0:
+        forever), from the channel's collections (a node sets it once the
+        ledger is open)."""
+        self.pvt_store._btl = btl_policy or (lambda ns, coll: 0)
+
     def _recover(self) -> None:
         """Replay the blocks newer than the state savepoint through a
         collector, one KV transaction per FABRIC_TPU_RECOVERY_GROUP blocks;

@@ -33,6 +33,9 @@ class Identity:
                 mspid=self.mspid, id_bytes=self.cert.pem()).encode()
         return self._serialized
 
+    def expires_at(self):
+        return self.cert.not_valid_after
+
     def verification_item(self, msg: bytes, sig: bytes) -> VerifyBatchItem:
         return VerifyBatchItem(self.public_key, sha256(msg), sig)
 

@@ -1,0 +1,187 @@
+"""Single-process dev network: solo orderer + one committing peer (the
+port's copy of `fabric_tpu/node/devnode.py`).
+
+The minimum end-to-end slice (SURVEY.md §7 step 4): one "model running".
+Broadcast -> msgprocessor filters -> solo chain -> blockcutter ->
+blockwriter -> (in-process deliver) -> batched txvalidator -> MVCC ->
+kvledger commit.  Its CSP is the factory's default unless given.
+
+Multi-process deployment splits this same wiring across the gRPC services
+(AtomicBroadcast/Deliver), mirroring internal/peer/node/start.go serve()
+and orderer/common/server/main.go Main().
+"""
+
+from __future__ import annotations
+
+import queue
+
+from fabric_tpu_torch import protoutil
+from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
+from fabric_tpu_torch.common.privdata import LedgerBackedCollectionStore
+from fabric_tpu_torch.csp import factory as csp_factory
+from fabric_tpu_torch.gossip.privdata import PrivDataCoordinator
+from fabric_tpu_torch.ledger import BlockStore, LedgerProvider
+from fabric_tpu_torch.ledger.transientstore import TransientStore
+from fabric_tpu_torch.orderer.blockcutter import BlockCutter
+from fabric_tpu_torch.orderer.blockwriter import BlockWriter
+from fabric_tpu_torch.orderer.msgprocessor import (
+    Classification,
+    StandardChannelProcessor,
+)
+from fabric_tpu_torch.orderer.solo import SoloChain
+from fabric_tpu_torch.peer.endorser import Endorser
+from fabric_tpu_torch.peer.txvalidator import TxValidator
+from fabric_tpu_torch.protos import common as cb
+
+
+class DevNode:
+    def __init__(
+        self,
+        genesis: cb.Block,
+        root_dir: str | None = None,
+        csp=None,
+        peer_signer=None,
+        chaincodes: dict | None = None,
+        batch_timeout_s: float | None = None,
+        definition_provider=None,
+    ):
+        self.csp = csp or csp_factory.get_default()
+        self.bundle = bundle_from_genesis(genesis, self.csp)
+        self.channel_id = self.bundle.channel_id
+        self._peer_signer = peer_signer
+        self._chaincodes = chaincodes or {}
+        self._definitions = definition_provider
+
+        # peer side
+        self.provider = LedgerProvider(root_dir)
+        self.ledger = self.provider.create(genesis)
+        self.validator = TxValidator(
+            self.channel_id, self.ledger, self.bundle, self.csp,
+            definition_provider=definition_provider,
+        )
+        # single-process private-data loop: the endorser persists
+        # cleartext collection writes to the transient store, the
+        # commit coordinator reads them back at commit (no gossip leg
+        # in a one-peer dev network)
+        self.collections = LedgerBackedCollectionStore(
+            definition_provider, self.bundle.msp_manager
+        )
+        self.transient = TransientStore(self.provider.kv, self.channel_id)
+        self.ledger.set_btl_policy(self.collections.btl_policy())
+        self.committer = PrivDataCoordinator(
+            self.validator, self.ledger, self.transient, self.collections,
+            self_identity=(
+                peer_signer.serialize() if peer_signer is not None else b""
+            ),
+        )
+        self.endorser = (
+            Endorser(
+                self.channel_id, self.ledger, self.bundle, peer_signer,
+                chaincodes or {}, self.csp,
+                pvt_handoff=lambda txid, pvt: self.transient.persist(
+                    txid, self.ledger.height, pvt
+                ),
+            )
+            if peer_signer is not None
+            else None
+        )
+        self._commit_events: queue.Queue = queue.Queue()
+        self.committer.add_commit_listener(
+            lambda blk, flags: self._commit_events.put((blk.header.number, flags))
+        )
+
+        # orderer side
+        oc = self.bundle.orderer_config
+        self._orderer_store = BlockStore(None, name=f"orderer-{self.channel_id}")
+        self._orderer_store.add_block(genesis)
+        self.writer = BlockWriter(self._orderer_store)
+        cutter = BlockCutter.from_orderer_config(oc) if oc else BlockCutter()
+        self.processor = StandardChannelProcessor(
+            self.channel_id, self.bundle, self.csp, signer=peer_signer
+        )
+        timeout = batch_timeout_s if batch_timeout_s is not None else (
+            oc.batch_timeout_s if oc else 2.0
+        )
+        self.chain = SoloChain(
+            cutter, self.writer, timeout, on_block=self._deliver_to_peer
+        )
+        self.chain.start()
+
+    # in-process deliver: orderer block -> fresh copy -> commit pipeline
+    def _deliver_to_peer(self, blk: cb.Block) -> None:
+        copy = cb.Block.decode(blk.encode())
+        self.committer.store_block(copy)
+        self._maybe_adopt_config(copy)
+
+    def _maybe_adopt_config(self, blk: cb.Block) -> None:
+        """After a VALID config tx commits, swap in the new channel
+        resources on both halves of the dev node (the registrar does
+        this in multichannel._maybe_apply_config; without it, follow-up
+        config updates validate against stale config and a maintenance
+        migration can never reach its second step).  The dev node stays
+        on its solo chain regardless of a consensus-type value change —
+        it is a single-process tool; type changes only matter for the
+        maintenance-filter semantics."""
+        try:
+            env = protoutil.extract_envelope(blk, 0)
+            chdr = protoutil.channel_header(env)
+            if chdr.type != cb.CONFIG:
+                return
+            if list(protoutil.tx_filter(blk))[:1] != [0]:
+                return  # invalid config tx: keep the old bundle
+            new_bundle = bundle_from_genesis(blk, self.csp)
+        except Exception:
+            return
+        self.bundle = new_bundle
+        self.processor.update_bundle(new_bundle)
+        self.validator = TxValidator(
+            self.channel_id, self.ledger, new_bundle, self.csp,
+            definition_provider=self._definitions,
+        )
+        self.committer = PrivDataCoordinator(
+            self.validator, self.ledger, self.transient, self.collections,
+            self_identity=(
+                self._peer_signer.serialize()
+                if self._peer_signer is not None
+                else b""
+            ),
+        )
+        self.committer.add_commit_listener(
+            lambda b, flags: self._commit_events.put((b.header.number, flags))
+        )
+        if self.endorser is not None:
+            self.endorser = Endorser(
+                self.channel_id, self.ledger, new_bundle,
+                self._peer_signer, self._chaincodes, self.csp,
+                pvt_handoff=lambda txid, pvt: self.transient.persist(
+                    txid, self.ledger.height, pvt
+                ),
+            )
+
+    # -- client surface ----------------------------------------------------
+
+    def broadcast(self, env: cb.Envelope) -> None:
+        """AtomicBroadcast.Broadcast equivalent (orderer/common/broadcast)."""
+        kind = self.processor.classify(env)
+        if kind == Classification.NORMAL:
+            seq = self.processor.process_normal_msg(env)
+            self.chain.order(env, seq)
+        elif kind == Classification.CONFIG_UPDATE:
+            # configtx engine + maintenance filter, same as the real
+            # orderer's broadcast path (msgprocessor
+            # process_config_update_msg)
+            new_env, seq = self.processor.process_config_update_msg(env)
+            self.chain.configure(new_env, seq)
+        else:
+            self.chain.configure(env, 0)
+
+    def wait_commit(self, timeout: float = 10.0):
+        """Block until the peer commits the next block; returns (num, flags)."""
+        return self._commit_events.get(timeout=timeout)
+
+    def shutdown(self) -> None:
+        self.chain.halt()
+        self.provider.close()
+
+
+__all__ = ["DevNode"]

@@ -1,0 +1,876 @@
+"""Peer daemon: endorsement + commit pipeline behind the RPC transport
+(the port's copy of `fabric_tpu/node/peer_node.py`).
+
+Reference: internal/peer/node/start.go serve() assembles the peer object
+graph — gRPC endorser (core/endorser/endorser.go:296), deliver-to-client
+events (core/peer/deliverevents.go), chaincode runtime, SCCs, per-channel
+txvalidator/committer, and the deliver client pulling blocks from the
+ordering service (internal/pkg/peer/blocksprovider).
+
+RPC surface:
+  endorser.ProcessProposal  SignedProposal -> ProposalResponse
+  deliver.Deliver           signed SeekInfo Envelope -> stream
+                            DeliverResponse (the peer's committed blocks)
+  deliver.DeliverFiltered   the same, FilteredBlocks
+  discovery.Process         SignedRequest -> Response
+  admin.JoinChannel         genesis Block -> channel id (cscc JoinChain)
+  admin.Channels            "" -> ChannelQueryResponse
+  admin.Height              channel id -> ascii int
+  admin.Snapshot*, admin.JoinBySnapshot  the channel-snapshot calls
+
+User chaincodes are supplied as "name=module.path:attr" specs (external
+builder role) or injected callables; every chaincode — user and system
+(qscc/cscc/_lifecycle/lscc) — runs through the shim stream runtime.  As
+in the reference, the chaincodes' adapter passes no signed proposal to
+the runtime, so `_lifecycle`'s approval cannot name the approving org
+through a node.
+
+Each channel validates its blocks through a `TxValidator` on the node's
+CSP (`CUDACSP` on the card when the node's core.yaml says
+`bccsp.default: TPU`) and commits through a `PrivDataCoordinator`.
+"""
+
+from __future__ import annotations
+
+import importlib
+import itertools
+import os
+import threading
+
+from fabric_tpu_torch.chaincode import ChaincodeSupport, InProcStream
+from fabric_tpu_torch.chaincode.lifecycle import (
+    DefinitionProvider,
+    LifecycleSCC,
+    PackageStore,
+)
+from fabric_tpu_torch.chaincode.lscc import LSCC
+from fabric_tpu_torch.chaincode.scc import CSCC, QSCC
+from fabric_tpu_torch.comm import RPCServer
+from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
+from fabric_tpu_torch.common.deliver import BlockNotifier, DeliverService
+from fabric_tpu_torch.common.privdata import LedgerBackedCollectionStore
+from fabric_tpu_torch.common.semaphore import Semaphore
+from fabric_tpu_torch.devtools.lockwatch import spawn_thread
+from fabric_tpu_torch.gossip.privdata import PrivDataCoordinator
+from fabric_tpu_torch.ledger import LedgerProvider
+from fabric_tpu_torch.ledger.transientstore import TransientStore
+from fabric_tpu_torch.peer import aclmgmt
+from fabric_tpu_torch.peer.aclmgmt import ACLProvider
+from fabric_tpu_torch.peer.deliverclient import DeliverClient
+from fabric_tpu_torch.peer.endorser import Endorser
+from fabric_tpu_torch.peer.txvalidator import TxValidator
+from fabric_tpu_torch.protos import common as cb
+from fabric_tpu_torch.protos import orderer as ob
+from fabric_tpu_torch.protos import peer as pb
+
+
+class _Channel:
+    """Per-channel resources (reference core/peer/peer.go channel map)."""
+
+    def __init__(self, node: "PeerNode", genesis: cb.Block, ledger=None):
+        self._node = node
+        self.bundle = bundle_from_genesis(genesis, node.csp)
+        self.channel_id = self.bundle.channel_id
+        # the channel's config block: chain block 0 normally, or the
+        # snapshot-carried config for a join-by-snapshot channel (whose
+        # chain has no block 0); cscc GetConfigBlock serves this
+        self.config_block = genesis
+        # per-channel ACL catalog (defaults + the channel config's ACLs
+        # overrides), consulted by the endorser, deliver, and discovery
+        self.acl = ACLProvider(self.bundle.acls, csp=node.csp)
+        # create() opens an existing ledger and commits the genesis block
+        # only to an empty chain; a snapshot-bootstrapped ledger arrives
+        # built
+        self.ledger = (
+            ledger if ledger is not None else node.provider.create(genesis)
+        )
+        self.definitions = DefinitionProvider(self.ledger)
+        self.validator = TxValidator(
+            self.channel_id, self.ledger, self.bundle, node.csp,
+            definition_provider=self.definitions,
+            metrics=(
+                node.operations.validate_metrics()
+                if node.operations is not None else None
+            ),
+        )
+        # private-data stack: collections from committed lifecycle
+        # definitions, the channel's transient store, and a commit
+        # coordinator that assembles cleartext private data (transient
+        # first, gossip pull second) before the ledger commit
+        # (reference gossip/privdata/coordinator.go:149)
+        self.collections = LedgerBackedCollectionStore(
+            self.definitions, self.bundle.msp_manager
+        )
+        self.transient = TransientStore(node.provider.kv, self.channel_id)
+        self.ledger.set_btl_policy(self.collections.btl_policy())
+        self.committer = PrivDataCoordinator(
+            self.validator, self.ledger, self.transient, self.collections,
+            self_identity=(
+                node.signer.serialize() if node.signer is not None else b""
+            ),
+        )
+        self.pvt_handler = None   # bound when gossip joins the channel
+        self.distributor = None
+        self.reconciler = None
+        self.notifier = BlockNotifier()
+        self.committer.add_commit_listener(
+            lambda *a, **k: self.notifier.notify()
+        )
+        self.endorser = Endorser(
+            self.channel_id, self.ledger, self.bundle, node.signer,
+            node.chaincodes, node.csp, acl_provider=self.acl,
+            pvt_handoff=self._pvt_handoff,
+        )
+        self._lock = threading.Lock()
+        self.deliver_client: DeliverClient | None = None
+        if node.orderer_endpoints:
+            self.deliver_client = DeliverClient(
+                self.channel_id,
+                [
+                    _orderer_deliver_fn(
+                        ep, self.channel_id, node.signer, tls=node.tls
+                    )
+                    for ep in node.orderer_endpoints
+                ],
+                height_fn=lambda: self.ledger.height,
+                sink=self._receive_block,
+                bundle=self.bundle,
+                csp=node.csp,
+                metrics=(
+                    node.operations.deliver_metrics()
+                    if node.operations is not None else None
+                ),
+            )
+            # with gossip enabled, leader election decides which peer
+            # runs the orderer deliver client (gossip_service.go:205);
+            # without it, every peer pulls for itself
+            if node.gossip is None:
+                self.deliver_client.start()
+        if node.gossip is not None:
+            node.gossip_join_channel(self)
+
+    def _pvt_handoff(self, txid: str, pvt_bytes: bytes) -> None:
+        """Endorsement-time private-data handoff (reference
+        endorser.go:234 -> distributor.go:138): persist the cleartext
+        rwsets to the transient store at the current height, then push
+        to collection-eligible peers over gossip.  Raises (failing the
+        endorsement) when a collection's required_peer_count cannot be
+        met."""
+        self.transient.persist(txid, self.ledger.height, pvt_bytes)
+        if self.distributor is not None:
+            self.distributor.distribute(
+                self.channel_id, txid, self.ledger.height, pvt_bytes
+            )
+
+    @property
+    def store(self):  # DeliverService's support surface (.height,
+        # .get_block_by_number): the ledger has both
+        return self.ledger
+
+    def _receive_block(self, seq: int, block_bytes: bytes) -> None:
+        # with gossip up, delivered blocks enter the channel's state
+        # provider: it commits in order and disseminates to org peers;
+        # without gossip, commit directly
+        handle = (
+            self._node.gossip.channel(self.channel_id)
+            if self._node.gossip is not None
+            else None
+        )
+        if handle is not None:
+            handle.state.add_payload(seq, block_bytes, from_orderer=True)
+            return
+        blk = cb.Block.decode(block_bytes)
+        with self._lock:
+            if blk.header.number == self.ledger.height:
+                self.committer.store_block(blk)
+
+    def stop(self) -> None:
+        if self.deliver_client is not None:
+            self.deliver_client.stop()
+
+
+def _orderer_deliver_fn(endpoint: tuple[str, int], channel_id: str, signer,
+                        tls=None):
+    """start_num -> iterator of Block, over the orderer's ab.Deliver."""
+    from fabric_tpu_torch.comm import RPCClient
+    from fabric_tpu_torch.common.deliver import make_seek_info_envelope
+
+    def connect(start_num: int):
+        client = RPCClient(*endpoint, timeout=30.0, tls=tls)
+        env = make_seek_info_envelope(
+            channel_id, start_num, 0x7FFFFFFFFFFFFFFF, signer=signer
+        )
+        for raw in client.stream("ab.Deliver", env.encode()):
+            resp = ob.DeliverResponse.decode(raw)
+            if resp.which("Type") == "block":
+                yield resp.block
+            else:
+                return
+
+    return connect
+
+
+class _NodeDeserializer:
+    """Identity deserializer spanning every joined channel's MSP manager
+    (gossip message verification is node-scoped)."""
+
+    def __init__(self, node: "PeerNode"):
+        self._node = node
+
+    def deserialize_identity(self, raw: bytes):
+        last: Exception | None = None
+        for ch in list(self._node.channels.values()):
+            try:
+                return ch.bundle.msp_manager.deserialize_identity(raw)
+            except Exception as e:  # try the next channel's MSPs
+                last = e
+        raise last or ValueError("no channel MSP recognizes identity")
+
+
+class PeerNode:
+    def __init__(
+        self,
+        root_dir: str | None,
+        csp,
+        signer,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        chaincode_specs: list[str] | None = None,
+        chaincodes: dict | None = None,
+        orderer_endpoints: list[tuple[str, int]] | None = None,
+        operations_port: int | None = None,
+        endorser_concurrency: int = 2500,
+        deliver_concurrency: int = 2500,
+        tls=None,
+        keepalive=None,
+    ):
+        self.csp = csp
+        self.signer = signer
+        self.tls = tls  # comm.tls.TLSCredentials | None: all transports
+        self.gossip = None  # GossipService once enable_gossip() ran
+        self.gossip_comm = None
+        self._gossip_runner = None
+        self._gossip_opts: dict = {}
+        # operations endpoint: /metrics /healthz /version /logspec
+        # /traces /profile (reference core/operations wired in start.go
+        # serve()); made before the ledger provider, whose metrics it
+        # carries
+        self.operations = None
+        if operations_port is not None:
+            from fabric_tpu_torch.common.operations import System
+
+            self.operations = System(
+                ("127.0.0.1", operations_port), process_metrics=True
+            )
+            self.operations.register_checker(
+                "ledgers",
+                lambda: None if all(
+                    ch.ledger.height > 0 for ch in self.channels.values()
+                ) else "empty ledger",
+            )
+            if hasattr(csp, "set_metrics"):
+                # CUDACSP: the degraded mode's breaker state, trips and
+                # device failures on this node's /metrics
+                csp.set_metrics(self.operations.csp_metrics())
+            if hasattr(csp, "health_checker"):
+                # /healthz?detail=1 shows an open breaker with its trips
+                self.operations.register_checker(
+                    "csp.tpu.breaker", csp.health_checker()
+                )
+            # shared host work pool: queue-depth / in-flight / saturation
+            # gauges, and the saturation checker
+            from fabric_tpu_torch.common import workpool
+
+            workpool.set_metrics(self.operations.workpool_metrics())
+            self.operations.register_checker(
+                "workpool", workpool.health_checker()
+            )
+            # an armed profiler's lock-contention samples on /metrics
+            from fabric_tpu_torch.common import profile
+
+            if profile.enabled():
+                profile.set_lock_metrics(self.operations.lock_metrics())
+        # the port's snapshot manager keeps no metrics, so the provider
+        # takes no SnapshotMetrics (the reference's `metrics=`)
+        self.provider = LedgerProvider(
+            root_dir,
+            csp=csp,
+            commit_metrics=(
+                self.operations.commit_metrics()
+                if self.operations is not None else None
+            ),
+            ledger_metrics=(
+                self.operations.ledger_metrics()
+                if self.operations is not None else None
+            ),
+        )
+        self.orderer_endpoints = orderer_endpoints or []
+        self.channels: dict[str, _Channel] = {}
+        self._lock = threading.Lock()
+
+        # chaincode runtime: everything goes through the shim stream FSM
+        self.support = ChaincodeSupport()
+        if root_dir is None:
+            import tempfile
+
+            root_dir = tempfile.mkdtemp(prefix="fabric-peer-")
+        self.package_store = PackageStore(os.path.join(root_dir, "chaincodes"))
+        self._txid = itertools.count()
+        self.chaincodes: dict = {}
+        self._cc_streams: list = []
+        self._launch_scc("qscc", QSCC(self._ledger_of))
+        self._launch_scc(
+            "cscc",
+            CSCC(self.channel_list, self._config_block, self.join_channel),
+        )
+        self._launch_scc(
+            "_lifecycle",
+            LifecycleSCC(self.package_store, org_lister=self._app_orgs),
+        )
+        self._launch_scc("lscc", LSCC(self.package_store))
+        for spec in chaincode_specs or []:
+            name, _, target = spec.partition("=")
+            mod, _, attr = target.partition(":")
+            obj = getattr(importlib.import_module(mod), attr)
+            self.install_chaincode(name, obj() if isinstance(obj, type) else obj)
+        for name, cc in (chaincodes or {}).items():
+            self.install_chaincode(name, cc)
+
+        # two deliver services over one notifier: the full-block and
+        # filtered streams are gated by different ACL resources
+        # (reference deliverevents.go:258-281), each resolved through the
+        # channel's ACL catalog
+        notifier = BlockNotifier()
+        self.deliver = DeliverService(
+            lambda ch: self.channels.get(ch), csp,
+            policy_path=lambda sup: sup.acl.policy_ref(aclmgmt.EVENT_BLOCK),
+            notifier=notifier,
+        )
+        self.deliver_filtered_svc = DeliverService(
+            lambda ch: self.channels.get(ch), csp,
+            policy_path=lambda sup: sup.acl.policy_ref(
+                aclmgmt.EVENT_FILTERED_BLOCK
+            ),
+            notifier=notifier,
+        )
+        # ledgermgmt-style recovery: reopen every channel this peer had
+        # joined (reference ledgermgmt.NewLedgerMgr opens all ledger ids;
+        # internal/peer/node/start.go re-initializes each channel)
+        if os.path.isdir(root_dir):
+            from fabric_tpu_torch.ledger import admin as ledger_admin
+            from fabric_tpu_torch.ledger.snapshot import SnapshotError
+
+            paused = ledger_admin.paused_channels(root_dir)
+            for entry in sorted(os.listdir(root_dir)):
+                if not os.path.isdir(os.path.join(root_dir, entry, "chains")):
+                    continue
+                if entry in paused:  # `peer node resume` re-enables
+                    continue
+                try:
+                    ledger = self.provider.open(entry)
+                except SnapshotError as exc:
+                    # a node killed mid join-by-snapshot leaves this
+                    # channel's half-import marker behind: every other
+                    # channel serves, this one stays refused until the
+                    # operator discards the import and rejoins
+                    from fabric_tpu_torch.common.flogging import (
+                        must_get_logger,
+                    )
+
+                    must_get_logger("peer").error(
+                        "channel %s not reopened: %s", entry, exc,
+                    )
+                    continue
+                genesis = ledger.get_block_by_number(0)
+                if genesis is None:
+                    # snapshot-bootstrapped channel: no chain block 0 —
+                    # its config block rides the block store's index
+                    raw = ledger.block_store.config_block_bytes()
+                    if raw:
+                        genesis = cb.Block.decode(raw)
+                if genesis is not None:
+                    self.join_channel(genesis)
+
+        self.rpc = RPCServer(host, port, tls=tls, keepalive=keepalive)
+        # per-service concurrency limiters (reference
+        # internal/peer/node/grpc_limiters.go; core.yaml
+        # peer.limits.concurrency through the CLI, defaults 2500)
+        endorser_sem = Semaphore(endorser_concurrency)
+        deliver_sem = Semaphore(deliver_concurrency)
+        self.rpc.register(
+            "endorser.ProcessProposal", self._process_proposal,
+            limiter=endorser_sem,
+        )
+        self.rpc.register("deliver.Deliver", self._deliver, limiter=deliver_sem)
+        self.rpc.register(
+            "deliver.DeliverFiltered", self._deliver_filtered,
+            limiter=deliver_sem,
+        )
+        self.rpc.register("discovery.Process", self._discovery)
+        self.rpc.register("admin.JoinChannel", self._admin_join)
+        self.rpc.register("admin.Channels", self._admin_channels)
+        self.rpc.register("admin.Height", self._admin_height)
+        # channel-snapshot surface (reference internal/peer/snapshot CLI
+        # over the snapshot gRPC service)
+        self.rpc.register("admin.SnapshotSubmit", self._admin_snapshot_submit)
+        self.rpc.register("admin.SnapshotCancel", self._admin_snapshot_cancel)
+        self.rpc.register("admin.SnapshotList", self._admin_snapshot_list)
+        self.rpc.register("admin.SnapshotFetch", self._admin_snapshot_fetch)
+        self.rpc.register("admin.JoinBySnapshot", self._admin_join_by_snapshot)
+
+    # -- chaincode wiring --------------------------------------------------
+
+    def _launch_scc(self, name: str, cc) -> None:
+        stream = InProcStream(self.support, cc, name)
+        # tracked before start/wait: a registration timeout must leave
+        # the stream stoppable by stop()
+        self._cc_streams.append(stream)
+        stream.start()
+        stream.wait_registered(self.support, name)
+        self.chaincodes[name] = self._shim_adapter(name)
+
+    def install_chaincode(self, name: str, cc) -> None:
+        """Register a user chaincode (shim Chaincode instance or plain
+        callable(sim, args))."""
+        if callable(cc) and not hasattr(cc, "invoke"):
+            self.chaincodes[name] = cc
+            return
+        self._launch_scc(name, cc)
+
+    def _shim_adapter(self, name: str):
+        # no signed proposal reaches the runtime, as in the reference
+        # (JAX node/peer_node.py:449-455)
+        def run(sim, args):
+            txid = f"{name}-{next(self._txid)}"
+            resp, _ev = self.support.execute(name, "", txid, sim, args)
+            return resp.status, resp.message, resp.payload
+
+        return run
+
+    # -- channel management ------------------------------------------------
+
+    def join_channel(self, genesis: cb.Block) -> str:
+        bundle = bundle_from_genesis(genesis, self.csp)
+        with self._lock:
+            if bundle.channel_id in self.channels:
+                return bundle.channel_id
+            ch = _Channel(self, genesis)
+            self.channels[ch.channel_id] = ch
+            ch.notifier = self.deliver.notifier
+            return ch.channel_id
+
+    def join_by_snapshot(self, snapshot_dir: str) -> str:
+        """Join a channel from a verified snapshot directory (reference
+        peer channel joinbysnapshot -> peer.JoinChannelBySnapshot): the
+        ledger bootstraps blockless at the snapshot height, the channel
+        bundle comes from the snapshot's config block, and the deliver
+        client starts catch-up at ledger.height.  The whole create-and-
+        join runs under the node lock, like join_channel."""
+        with self._lock:
+            ledger = self.provider.create_from_snapshot(snapshot_dir)
+            raw = ledger.block_store.config_block_bytes()
+            if not raw:
+                raise ValueError(
+                    f"snapshot at {snapshot_dir!r} carries no channel config"
+                )
+            ch = _Channel(self, cb.Block.decode(raw), ledger=ledger)
+            self.channels[ch.channel_id] = ch
+            ch.notifier = self.deliver.notifier
+            return ch.channel_id
+
+    def channel_list(self) -> list[str]:
+        return sorted(self.channels)
+
+    def _ledger_of(self, channel_id: str):
+        ch = self.channels.get(channel_id)
+        return ch.ledger if ch else None
+
+    def _config_block(self, channel_id: str):
+        ch = self.channels.get(channel_id)
+        return ch.config_block if ch else None
+
+    def _app_orgs(self) -> list[str]:
+        for ch in self.channels.values():
+            app = ch.bundle.application_config
+            if app is not None:
+                return sorted(o.mspid for o in app.orgs.values())
+        return []
+
+    # -- RPC handlers ------------------------------------------------------
+
+    # node-scoped SCC functions servable without a channel (the reference
+    # endorser routes channel-less proposals to lscc install /
+    # _lifecycle InstallChaincode the same way)
+    _CHANNELLESS = {
+        "_lifecycle": {
+            "InstallChaincode", "QueryInstalledChaincodes",
+            "GetInstalledChaincodePackage",
+        },
+        "lscc": {"install", "getinstalledchaincodes"},
+    }
+
+    def _process_proposal(self, body: bytes, stream) -> bytes:
+        signed = pb.SignedProposal.decode(body)
+        prop = pb.Proposal.decode(signed.proposal_bytes)
+        hdr = cb.Header.decode(prop.header)
+        chdr = cb.ChannelHeader.decode(hdr.channel_header)
+        if not chdr.channel_id:
+            return self._process_channelless(signed)
+        ch = self.channels.get(chdr.channel_id)
+        if ch is None:
+            raise KeyError(f"channel {chdr.channel_id!r} not joined")
+        return ch.endorser.process_proposal(signed).encode()
+
+    def _process_channelless(self, signed) -> bytes:
+        """Channel-less proposal: node-scoped SCC ops only, executed
+        against a throwaway simulator (these functions read and write no
+        channel state)."""
+        from fabric_tpu_torch import protoutil
+        from fabric_tpu_torch.ledger.kvstore import MemKVStore
+        from fabric_tpu_torch.ledger.statedb import VersionedDB
+        from fabric_tpu_torch.ledger.txmgmt import TxSimulator
+        from fabric_tpu_torch.msp import x509
+        from fabric_tpu_torch.msp.identity import Identity
+        from fabric_tpu_torch.protos.msp import SerializedIdentity
+
+        up = protoutil.unpack_proposal(signed)
+        allowed = self._CHANNELLESS.get(up.chaincode_name, set())
+        fn = up.input.args[0].decode() if up.input.args else ""
+        if fn not in allowed:
+            raise KeyError(
+                f"{up.chaincode_name}.{fn!r} requires a channel"
+            )
+        # the creator's signature against its embedded certificate (no
+        # channel MSP exists here; org admin-ship is the deployment's
+        # transport concern, as with the reference's channel-less path)
+        sid = SerializedIdentity.decode(up.signature_header.creator)
+        creator = Identity(sid.mspid,
+                           x509.load_pem_certificates(sid.id_bytes)[0])
+        if not self.csp.verify_batch([creator.verification_item(
+                signed.proposal_bytes, signed.signature)])[0]:
+            raise PermissionError("invalid creator signature on proposal")
+        cc = self.chaincodes.get(up.chaincode_name)
+        if cc is None:
+            raise KeyError(f"chaincode {up.chaincode_name!r} not installed")
+        sim = TxSimulator(VersionedDB(MemKVStore()))
+        status, message, payload = cc(sim, list(up.input.args))
+        if status >= 400:
+            return pb.ProposalResponse(
+                response=pb.Response(status=status, message=message)
+            ).encode()
+        return protoutil.create_proposal_response(
+            up.proposal,
+            results=b"",
+            events=b"",
+            response=pb.Response(
+                status=status, message=message, payload=payload
+            ),
+            chaincode_id=pb.ChaincodeID(name=up.chaincode_name),
+            endorser_signer=self.signer,
+        ).encode()
+
+    def _deliver(self, body: bytes, stream):
+        from fabric_tpu_torch.common.deliver import deliver_response_frames
+
+        return deliver_response_frames(self.deliver, body)
+
+    def _deliver_filtered(self, body: bytes, stream):
+        from fabric_tpu_torch.common.deliver import deliver_filtered_frames
+
+        return deliver_filtered_frames(self.deliver_filtered_svc, body)
+
+    def _admin_join(self, body: bytes, stream) -> bytes:
+        return self.join_channel(cb.Block.decode(body)).encode("utf-8")
+
+    def _admin_channels(self, body: bytes, stream) -> bytes:
+        return pb.ChannelQueryResponse(channels=[
+            pb.ChannelInfo(channel_id=ch)
+            for ch in self.channel_list()]).encode()
+
+    def _admin_height(self, body: bytes, stream) -> bytes:
+        ch = self.channels.get(body.decode("utf-8"))
+        return str(ch.ledger.height if ch else 0).encode()
+
+    # -- snapshot admin (reference internal/peer/snapshot client) ----------
+
+    def _snapshot_mgr(self, channel_id: str):
+        ch = self.channels.get(channel_id)
+        if ch is None:
+            raise KeyError(f"channel {channel_id!r} not joined")
+        if ch.ledger.snapshots is None:
+            raise ValueError(
+                f"channel {channel_id!r} has no snapshot support"
+            )
+        return ch.ledger.snapshots
+
+    def _admin_snapshot_submit(self, body: bytes, stream) -> bytes:
+        import json
+
+        req = json.loads(body.decode("utf-8"))
+        res = self._snapshot_mgr(req["channel"]).submit_request(
+            int(req.get("block_number", 0))
+        )
+        return json.dumps(res).encode()
+
+    def _admin_snapshot_cancel(self, body: bytes, stream) -> bytes:
+        import json
+
+        req = json.loads(body.decode("utf-8"))
+        self._snapshot_mgr(req["channel"]).cancel_request(
+            int(req["block_number"])
+        )
+        return b"ok"
+
+    def _admin_snapshot_list(self, body: bytes, stream) -> bytes:
+        import json
+
+        return json.dumps(
+            self._snapshot_mgr(body.decode("utf-8")).list_pending()
+        ).encode()
+
+    def _admin_snapshot_fetch(self, body: bytes, stream):
+        """Stream a completed snapshot directory to a remote peer (the
+        snapshot-serving RPC that removes joinbysnapshot's need for a
+        shared disk).  Integrity rides on verify-on-import at the
+        receiver, not on the transport."""
+        import json
+
+        from fabric_tpu_torch.ledger import snapshot as snap
+
+        req = json.loads(body.decode("utf-8"))
+        sdir = snap.completed_snapshot_dir(
+            self.provider.snapshots_root, req["channel"],
+            int(req["block_number"]),
+        )
+        return snap.stream_snapshot_dir(sdir)
+
+    def _admin_join_by_snapshot(self, body: bytes, stream) -> bytes:
+        return self.join_by_snapshot(body.decode("utf-8")).encode("utf-8")
+
+    def _discovery(self, body: bytes, stream) -> bytes:
+        from fabric_tpu_torch.discovery import PeerInfo
+        from fabric_tpu_torch.discovery.service import (
+            DiscoveryService,
+            DiscoverySupport,
+        )
+        from fabric_tpu_torch.protos import discovery as dpb
+
+        def peers(channel):
+            chn = self.channels.get(channel)
+            if chn is None:
+                return []
+            host, port = self.addr
+            return [
+                PeerInfo(
+                    f"{host}:{port}",
+                    self.signer.serialize(),
+                    self.signer.mspid,
+                    chn.ledger.height,
+                    tuple(
+                        n for n in self.chaincodes
+                        if not n.startswith("_") and n not in ("qscc", "cscc")
+                    ),
+                )
+            ]
+
+        def cc_policy(channel, cc):
+            chn = self.channels.get(channel)
+            if chn is None or cc not in self.chaincodes:
+                return None
+            info = chn.definitions.validation_info(cc)
+            if info is not None and info[1]:
+                # a committed definition: its validation parameter is the
+                # endorsement policy (an inline signature policy resolves
+                # here; a channel-policy reference falls through to the
+                # member fallback)
+                try:
+                    ap = pb.ApplicationPolicy.decode(info[1])
+                    if ap.which("type") == "signature_policy":
+                        return ap.signature_policy
+                except Exception:
+                    pass
+            # installed but not (yet) defined: any channel member
+            from fabric_tpu_torch.policies.signature_policy import (
+                signed_by_any_member,
+            )
+
+            app = chn.bundle.application_config
+            orgs = [o.mspid for o in app.orgs.values()] if app else []
+            return signed_by_any_member(sorted(orgs))
+
+        def acl_check(channel, sd):
+            """Channel-scoped discovery requires the channel's Writers
+            policy (reference internal/peer/node/start.go:945), whose
+            evaluation also verifies the request signature."""
+            chn = self.channels.get(channel)
+            if chn is None:
+                raise PermissionError(f"unknown channel {channel!r}")
+            pol = chn.bundle.policy_manager.get_policy(
+                "/Channel/Application/Writers"
+            )
+            if pol is None or not pol.evaluate_signed_data([sd], self.csp):
+                raise PermissionError(
+                    "discovery request does not satisfy the channel's "
+                    "Writers policy"
+                )
+
+        support = DiscoverySupport(
+            channels=self.channel_list,
+            bundle=lambda ch: self.channels[ch].bundle,
+            peers=peers,
+            msp_configs=lambda ch: {},
+            orderer_endpoints=lambda ch: {},
+            chaincode_policy=cc_policy,
+            collection_filter=lambda ch, cc, colls: (lambda p: True),
+            acl_check=acl_check,
+        )
+        svc = DiscoveryService(support, self.csp)
+        return svc.process(dpb.SignedRequest.decode(body)).encode()
+
+    # -- gossip ------------------------------------------------------------
+
+    def enable_gossip(
+        self,
+        listen: tuple[str, int],
+        bootstrap: list[str],
+        fanout: int = 3,
+        store_capacity: int = 200,
+        tick_interval_s: float = 1.0,
+        identity_ttl_s: float = 3600.0,
+        reconcile_interval_s: float = 60.0,
+    ) -> None:
+        """Start the gossip stack (TCP transport over the node's TLS,
+        membership, identity pull, per-channel block dissemination and
+        leader election).  Call before start(); knobs come from core.yaml
+        peer.gossip.* through the CLI."""
+        from fabric_tpu_torch.gossip import GossipRunner, GossipService
+        from fabric_tpu_torch.gossip.comm import SignerMCS, TCPGossipComm
+
+        mcs = SignerMCS(self.signer, _NodeDeserializer(self), self.csp)
+        self.gossip_comm = TCPGossipComm(
+            listen, self.signer.serialize(), mcs=mcs, tls=self.tls
+        )
+        self.gossip = GossipService(
+            self.gossip_comm, bootstrap, identity_ttl_s=identity_ttl_s
+        )
+        if self.operations is not None:
+            self.gossip.set_metrics(self.operations.gossip_metrics())
+        self._gossip_opts = {
+            "fanout": fanout, "store_capacity": store_capacity,
+        }
+        for ch in list(self.channels.values()):
+            self.gossip_join_channel(ch)
+        self._gossip_runner = GossipRunner(self.gossip, tick_interval_s)
+        self._gossip_runner.start()
+        # background private-data repair (reference reconcile.go runs on
+        # peer.gossip.pvtData.reconcileSleepInterval, default 1m); a
+        # non-positive interval disables the loop, as in the reference
+        self._reconcile_stop = threading.Event()
+        if reconcile_interval_s > 0:
+
+            def reconcile_loop():
+                while not self._reconcile_stop.wait(reconcile_interval_s):
+                    for ch in list(self.channels.values()):
+                        rec = ch.reconciler
+                        if rec is None:
+                            continue
+                        try:
+                            rec.reconcile_once()
+                        except Exception:
+                            pass  # endpoints down; the next sweep retries
+
+            self._reconcile_thread = spawn_thread(
+                target=reconcile_loop, name="pvtdata-reconciler",
+                kind="service",
+            )
+            self._reconcile_thread.start()
+
+    def gossip_join_channel(self, ch: _Channel) -> None:
+        if self.gossip.channel(ch.channel_id) is not None:
+            return
+        self.gossip.join_channel(
+            ch.channel_id,
+            ch.committer,
+            deliver_client=ch.deliver_client,
+            **self._gossip_opts,
+        )
+        # private data over the gossip comm: push receiver and pull
+        # server (handler), commit-time pull (the coordinator's fetcher),
+        # endorsement-time push (distributor), background repair
+        # (reconciler)
+        from fabric_tpu_torch.gossip.privdata import (
+            PrivDataDistributor,
+            PrivDataHandler,
+            Reconciler,
+        )
+
+        def peer_endpoints():
+            return [
+                p.endpoint for p in self.gossip.discovery.alive_peers()
+            ]
+
+        def membership():
+            return [
+                (p.endpoint, self.gossip_comm.identity_of(p.pki_id))
+                for p in self.gossip.discovery.alive_peers()
+            ]
+
+        ch.pvt_handler = PrivDataHandler(
+            self.gossip_comm, ch.transient, ch.ledger.pvt_store,
+            ch.collections, lambda: ch.ledger.height,
+            channel=ch.channel_id,
+        )
+        ch.committer.set_fetcher(ch.pvt_handler, peer_endpoints)
+        ch.distributor = PrivDataDistributor(
+            self.gossip_comm, ch.collections, membership
+        )
+        ch.reconciler = Reconciler(
+            ch.ledger, ch.pvt_handler, ch.channel_id, peer_endpoints
+        )
+
+    @property
+    def addr(self):
+        return self.rpc.addr
+
+    def start(self) -> None:
+        self._warn_expiring_certs()
+        self.rpc.start()
+        if self.operations is not None:
+            self.operations.start()
+
+    def _warn_expiring_certs(self) -> None:
+        """Week-ahead warnings for the node's enrollment and TLS certs
+        (reference common/crypto/expiration.go TrackExpiration, wired at
+        internal/peer/node/start.go:310)."""
+        from fabric_tpu_torch.common.crypto import warn_node_cert_expirations
+        from fabric_tpu_torch.common.flogging import must_get_logger
+
+        warn_node_cert_expirations(
+            self.signer, self.tls, "enrollment",
+            must_get_logger("peer").warning,
+        )
+
+    def stop(self) -> None:
+        # idempotent: a process reaches stop() from its signal handler and
+        # from its finally block
+        if getattr(self, "_stopped", False):
+            return
+        self._stopped = True
+        self.rpc.stop()
+        self.deliver.stop()
+        self.deliver_filtered_svc.stop()
+        if self._gossip_runner is not None:
+            self._gossip_runner.stop()
+        if getattr(self, "_reconcile_stop", None) is not None:
+            self._reconcile_stop.set()
+        if self.gossip_comm is not None:
+            self.gossip_comm.close()
+        if self.operations is not None:
+            self.operations.stop()
+        for stream in self._cc_streams:
+            stream.stop()
+        for ch in self.channels.values():
+            ch.stop()
+
+
+__all__ = ["PeerNode"]

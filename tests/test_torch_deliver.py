@@ -610,3 +610,33 @@ def test_a_block_written_between_the_check_and_the_wait_waits_out_the_poll(
         assert [k for k, _ in times] == ["block", "block", "status"]
         gaps[pkg] = times[1][1] - times[0][1]
     assert gaps["jax"] >= 0.2 and gaps["port"] >= 0.2, gaps
+
+
+@pytest.mark.parametrize("on_disk", [False, True], ids=["memory", "files"])
+def test_a_reader_never_sees_a_height_whose_block_it_cannot_read(
+        world, tmp_path, on_disk):
+    """The reference's store moves its height before it writes the block's
+    index entry, so a deliver stream that reads in that window gets no
+    block and ends NOT_FOUND (ROADMAP Queue C); the port's moves it after.
+    What a reader sees while block 1's index is being written."""
+    seen = {}
+    for pkg, Store, decode in (
+            ("jax", JaxStore, common_pb2.Block.FromString),
+            ("port", PortStore, cb.Block.decode)):
+        root = str(tmp_path / pkg) if on_disk else None
+        store = Store(root)
+        store.add_block(decode(world.chain[0]))
+        index_block = store._index_block
+
+        def reading(blk, *a, _store=store, _index=index_block, **kw):
+            h = _store.height
+            seen[pkg] = (h, _store.get_block_by_number(h - 1) is not None)
+            return _index(blk, *a, **kw)
+
+        store._index_block = reading
+        store.add_block(decode(world.chain[1]))
+        assert store.height == 2
+        assert store.get_block_by_number(1).header.number == 1
+        store.close()
+    assert seen["jax"] == (2, False)  # height 2, block 1 unreadable
+    assert seen["port"] == (1, True)  # height 1, block 0 readable
