@@ -182,6 +182,27 @@
    JAX package, and exit 0 on SIGTERM; prints each process's start-up,
    envelopes/s into the orderer, committed tx/s at each peer, each
    block's validate ms, the restarted peer's catch-up and B1's launches.
+   Then, before the teardown, the tools pass, each step a process of the
+   port's CLIs: `peer channel fetch config`, `configtxlator proto_decode`
+   of the block, its envelope and payload down to `common.Config`, the
+   Orderer group's BatchSize MaxMessageCount set from 1000 to 500 (the
+   value's bytes built with the port's `orderer` schema), `proto_encode`
+   and `compute_update`, `peer channel signconfigtx` by the orderer org's
+   admin and `peer channel update`; one more worth of 1000 transactions
+   over one `ab.BroadcastStream`; `discover peers` and `discover
+   endorsers` against each peer and `discover config` against one.  Every
+   peer's config sequence must move by one, the worth's blocks hold at
+   most 500 transactions, B1's launches at each peer (from its
+   `tpu.dispatch` spans: `launches_nodes_tools`) equal its chunks with
+   every flush on `cuda:N`, and each peer list itself at the new height
+   with `benchcc` and its endorser.
+   The chaos harness (`phase_netharness`): the JAX package's soak
+   topology (3 orgs x 2 peers, 3 raft orderers, each a process of
+   `python -m fabric_tpu_torch.devtools.netnode`), 240 transactions under
+   its seeded kill schedule (two peers and an orderer SIGKILLed and
+   restarted) with netscope attached, judged by the invariants oracle on
+   every peer; then a `faultfuzz.Campaign(seed=7, plans=5)`.  Both run
+   the harness's fake identity plane, as the JAX package's do: no kernel.
    Key custody (`phase_custody`): a `KeyCustodyServer` thread generates
    and holds 4 keys; a `CustodyCSP` whose local provider is `CUDACSP`
    signs 4000 digests through it (signs/s printed), then verifies them
@@ -189,6 +210,11 @@
    counted) and 1200 lanes over 300 custody keys with 4 signatures
    flipped (B2, counted); each mask must be the planted one, the
    kernel's plain version's on the same packed lanes, and hostref's.
+   Then the daemon as its CLI runs it (`python -m
+   fabric_tpu_torch.cmd.custody` with a token file): 400 digests signed
+   through it, a 100-lane block over 4 keys on B1 and one lane on each
+   of 300 keys on B2 (4 tampered in each), the same checks, and exit 0
+   on SIGTERM (`launches_custody_cli`).
 7. SHA-256 (B4): drives `CUDACSP.hash_batch` at its callers' shapes (a
    block's 1000 per-transaction calls of three endorsement messages, a
    snapshot export's call over its five files), where hashlib answers and
@@ -235,7 +261,11 @@
    verified on the port's P-384 (`csp/hostref384.py`), a flipped
    signature byte and a flipped epoch_pk byte refused.  Prints
    identities/s, proofs/s, nym signs and verifies a second, the CRI's
-   and P-384's sign and verify ms.
+   and P-384's sign and verify ms.  Then `idemixgen`, through its
+   `main()`: `ca-keygen` and four `signerconfig` calls (member and admin,
+   three OUs), the MSP from the issuer key it wrote, and 256 identity
+   proofs of the four signer configs (8 tampered) in one batch on B3, its
+   mask the planted one (`launches_idemixgen`).
 9. The degraded mode (`phase_degraded`): a 4000-lane block through
    `CUDACSP` under faultline plans.  On a card the host answers nothing
    in the device's place, so each fault must reach the caller, counted:
@@ -253,9 +283,10 @@
    if any is not 0.
 10. Prints one JSON line of kernels (B1-B4; B1's with its launches on
    the validator, commit, sharded-commit, SmallBank, bootstrapped-ledger,
-   ordered-commit, joining-peer, custody, raft, endorse, gateway and
-   nodes paths, B2's on custody, raft and endorse, B3's with its launches on the idemix MSP's
-   batch, B4's with its launches at the snapshot's shape), then
+   ordered-commit, joining-peer, custody (and its CLI), raft, endorse,
+   gateway, nodes and tools-pass paths, B2's on custody (and its CLI),
+   raft and endorse, B3's with its launches on the idemix MSP's and
+   idemixgen's batches, B4's with its launches at the snapshot's shape), then
    `{"ok": true, "device": {...}}` as its last line.
 
     python3 chip_smoke.py --commit-ab PARENT_TREE [TURNS]
@@ -292,12 +323,15 @@ the validator's world, `random.Random` for idemix, as its API takes).
 
 from __future__ import annotations
 
+import base64
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import multiprocessing
 import os
@@ -305,6 +339,7 @@ import queue
 import random
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -1860,9 +1895,97 @@ def phase_idemix_msp(device, n: int = MSP_IDENTITIES,
           f"ms, verified in {verify_cri_ms:.2f} ms; a flipped signature "
           f"byte and a flipped epoch_pk byte refused; hostref384 (P-384, "
           f"pure Python) sign {sign_ms:.2f} ms, verify {verify_ms:.2f} ms")
+    gen = idemixgen_pass(device, n)
     return {"launches": launches, "identities_per_s": n / deser_s,
             "nym_verifies_per_s": n_nym / verify_s,
-            "p384_sign_ms": sign_ms, "p384_verify_ms": verify_ms}
+            "p384_sign_ms": sign_ms, "p384_verify_ms": verify_ms,
+            "launches_idemixgen": gen["launches"]}
+
+
+def idemixgen_pass(device, n: int = MSP_IDENTITIES) -> dict:
+    """The idemix material as `idemixgen` writes it: `ca-keygen`, then a
+    `signerconfig` for each of MSP_SIGNERS (member and admin, two OUs and
+    more), through its `main()` as phase_nodes calls cryptogen's; an idemix
+    MSP from the issuer key it wrote (read back by `load_issuer`) and the
+    first signer config, the four signer configs loaded into signing
+    identities, and n identity proofs of those (MSP_TAMPERED's 8
+    tampered) through one `IdemixCSP.verify_batch` on the card (B3,
+    counted).  The mask must be the planted one, and the MSP must take
+    an untampered identity and refuse a tampered one."""
+    from fabric_tpu_torch.cmd import idemixgen
+
+    rng = random.Random(SEED + 1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_idemixgen_") as d:
+        t0 = time.perf_counter()
+        base = os.path.join(d, "idemix-config")
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(idemixgen.main(["ca-keygen", "--output", base]) == 0,
+                  "idemixgen ca-keygen failed")
+            signers = []
+            for k, (ou, role, eid) in enumerate(MSP_SIGNERS):
+                out = os.path.join(d, f"signer{k}")
+                shutil.copytree(os.path.join(base, "ca"),
+                                os.path.join(out, "ca"))
+                argv = ["signerconfig", "--output", out, "--org-unit", ou,
+                        "--enrollment-id", eid]
+                if role == idemixmsp.ROLE_ADMIN:
+                    argv.append("--admin")
+                check(idemixgen.main(argv) == 0,
+                      f"idemixgen signerconfig {k} failed")
+                with open(os.path.join(out, "user", "SignerConfig.pb"),
+                          "rb") as f:
+                    signers.append(mb.IdemixMSPSignerConfig.decode(f.read()))
+        gen_s = time.perf_counter() - t0
+        issuer = idemixgen.load_issuer(os.path.join(base, "ca",
+                                                    "IssuerKey.pkl"))
+    check([(sc.organizational_unit_identifier, sc.role,
+            sc.enrollment_id.decode()) for sc in signers]
+          == [(ou, role, eid) for ou, role, eid in MSP_SIGNERS],
+          "the signer configs carry other attributes than asked")
+    conf = idemixmsp.idemix_msp_config(issuer, "IdemixMSP", signers[0])
+    msp = idemixmsp.IdemixMSP.from_config(mb.MSPConfig.decode(conf.encode()),
+                                          rng=rng)
+    t0 = time.perf_counter()
+    ids = [idemixmsp.IdemixSigningIdentity(
+        "IdemixMSP", int.from_bytes(sc.sk, "big"),
+        Credential.from_bytes(sc.cred), issuer.ipk,
+        sc.organizational_unit_identifier, sc.role, rng=rng)
+        for j in range(n) for sc in (signers[j % len(signers)],)]
+    ids_s = time.perf_counter() - t0
+    step = n // len(MSP_TAMPERED)
+    bad = {j * step + step // 3: how for j, how in enumerate(MSP_TAMPERED)}
+    items = [IdemixVerifyItem(tamper(ident.proof, bad[j]) if j in bad
+                              else ident.proof, b"")
+             for j, ident in enumerate(ids)]
+    csp = new_idemix_csp(rng=random.Random(SEED), device=device)
+    bk.launches_bn254 = 0
+    bk.kernel_launches_bn254 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask = csp.verify_batch(items, msp.ipk)
+    batch_s = time.perf_counter() - t0
+    launches = bk.launches_bn254
+    check([j for j, ok in enumerate(mask) if not ok] == sorted(bad),
+          f"idemixgen batch: rejected "
+          f"{[j for j, ok in enumerate(mask) if not ok]}, planted "
+          f"{sorted(bad)}")
+    check(launches > 0, f"{B3_NAME} did not launch on the idemixgen batch")
+    good = next(j for j in range(n) if j not in bad)
+    back = msp.deserialize_identity(ids[good].serialize())
+    check((back.ou, back.role) == (ids[good].ou, ids[good].role),
+          "the MSP does not take an idemixgen identity")
+    tampered = identity_with(ids[sorted(bad)[0]].serialize(),
+                             "proof:challenge")
+    check(msp_verdicts(msp, [tampered])[0] == [None],
+          "the MSP took a tampered idemixgen identity")
+    print(f"idemixgen: ca-keygen and {len(signers)} signerconfig calls in "
+          f"{gen_s:.2f} s; {n} identities of those signer configs in "
+          f"{ids_s:.2f} s; their proofs ({len(bad)} tampered) through "
+          f"IdemixCSP.verify_batch in {batch_s:.3f} s = {n / batch_s:.1f} "
+          f"proofs/s; mask the planted one; {launches} launches of "
+          f"{B3_NAME}; the MSP takes an identity and refuses a tampered "
+          "one")
+    return {"launches": launches}
 
 
 def b3_bound(packed: dict, n_shared: int) -> tuple[float, str]:
@@ -5956,6 +6079,7 @@ NODES_WINDOW = 64  # envelopes unacknowledged on the broadcast stream
 NODES_WAIT_S = 120.0  # the longest wait for any one step
 NODES_STOP_S = 30.0  # a process must exit this soon after SIGTERM
 NODES_TRACE_EVENTS = 1 << 18  # each peer's flight recorder (FABRIC_TPU_TRACE)
+NODES_TOOLS_COUNT = 500  # the tools pass's BatchSize.MaxMessageCount
 # the endorse cell's five faults, by proposal index of the first worth: a
 # bad creator signature, a creator outside the channel's writers, a
 # chaincode status of 500, too few endorsements (one of the three: the
@@ -6444,6 +6568,221 @@ def phase_nodes(device, tmp: str, n_txs: int = NODES_TXS,
                 stream.close()
             return statuses
 
+        def tool(module, *args, admin=None) -> str:
+            """A run of one of the port's CLIs as its own process, as
+            the client user (or the orderer org's admin); its stdout."""
+            who = user if admin is None else admin
+            r = subprocess.run([sys.executable, "-m", module, *args],
+                               env=env, capture_output=True,
+                               timeout=NODES_WAIT_S)
+            check(r.returncode == 0, f"{module} {' '.join(args[:2])} "
+                  f"({who}): {r.stdout[-300:]!r} {r.stderr[-1500:]!r}")
+            return r.stdout.decode()
+
+        def tools_pass(h0: int) -> dict:
+            """The tools pass (README "Running a network on the port"):
+            `peer channel fetch config`, configtxlator down to the
+            channel's Config, its BatchSize's MaxMessageCount set from
+            ORDER_MAX_COUNT to NODES_TOOLS_COUNT, `proto_encode` and
+            `compute_update`, `peer channel signconfigtx` by the orderer
+            org's admin and `peer channel update`; then one more worth of
+            n_txs transactions through one ab.BroadcastStream, and
+            `discover` against the peers.  Every peer's config sequence
+            moves by one, the worth's blocks hold at most
+            NODES_TOOLS_COUNT transactions, and B1's launches at each
+            peer equal its chunks of device lanes for those blocks."""
+            t0 = time.perf_counter()
+            tdir = os.path.join(root, "tools")
+            os.makedirs(tdir)
+            tls = ["--tls-dir", os.path.join(user, "tls"), *roots]
+            umsp = ["--mspid", "Org1MSP", "--msp-dir",
+                    os.path.join(user, "msp")]
+            oadmin = os.path.join(ordo, "users", "Admin@example.com")
+            lator = "fabric_tpu_torch.cmd.configtxlator"
+            peer_cli = "fabric_tpu_torch.cmd.peer"
+            marks = {p.name: (len(tr.dispatches()), tr) for p, tr in
+                     zip(peers, traces)}
+
+            def decoded(typ, raw, name):
+                src = os.path.join(tdir, f"{name}.pb")
+                with open(src, "wb") as f:
+                    f.write(raw)
+                dst = os.path.join(tdir, f"{name}.json")
+                tool(lator, "proto_decode", "--type", typ, "--input", src,
+                     "--output", dst)
+                with open(dst) as f:
+                    return json.load(f)
+
+            def encoded(typ, js, name):
+                src = os.path.join(tdir, f"{name}.json")
+                with open(src, "w") as f:
+                    json.dump(js, f, indent=2)
+                dst = os.path.join(tdir, f"{name}.pb")
+                tool(lator, "proto_encode", "--type", typ, "--input", src,
+                     "--output", dst)
+                return dst
+
+            cfg_block = os.path.join(tdir, "config.block")
+            tool(peer_cli, "channel", "fetch", "config", cfg_block, "-c", ch,
+                 "--orderer", orderer.endpoint, *umsp, *tls)
+            with open(cfg_block, "rb") as f:
+                blk = decoded("common.Block", f.read(), "block")
+            env_js = decoded("common.Envelope",
+                             base64.b64decode(blk["data"]["data"][0]),
+                             "envelope")
+            pay_js = decoded("common.Payload",
+                             base64.b64decode(env_js["payload"]), "payload")
+            cenv = decoded("common.ConfigEnvelope",
+                           base64.b64decode(pay_js["data"]),
+                           "config_envelope")
+            original = cenv["config"]
+            seq0 = int(original.get("sequence", "0"))
+            updated = copy.deepcopy(original)
+            value = updated["channel_group"]["groups"]["Orderer"]["values"][
+                "BatchSize"]
+            batch = ob.BatchSize.decode(base64.b64decode(value["value"]))
+            check(batch.max_message_count == ORDER_MAX_COUNT,
+                  f"the fetched BatchSize is {batch!r}")
+            batch.max_message_count = NODES_TOOLS_COUNT
+            value["value"] = base64.b64encode(batch.encode()).decode()
+            upd = os.path.join(tdir, "update.pb")
+            tool(lator, "compute_update", "--channel_id", ch, "--original",
+                 encoded("common.Config", original, "original"),
+                 "--updated", encoded("common.Config", updated, "updated"),
+                 "--output", upd)
+            with open(upd, "rb") as f:
+                cu = f.read()
+            # the CONFIG_UPDATE envelope around it, its header the orderer
+            # admin's; signconfigtx adds the admin's config signature and
+            # signs the envelope
+            admin_id = load_signer(os.path.join(oadmin, "msp"), "OrdererMSP")
+            env_path = os.path.join(tdir, "update_envelope.pb")
+            with open(env_path, "wb") as f:
+                f.write(cb.Envelope(payload=pu.make_payload_bytes(
+                    pu.make_channel_header(cb.CONFIG_UPDATE, ch),
+                    pu.make_signature_header(admin_id.serialize(),
+                                             pu.random_nonce()),
+                    cb.ConfigUpdateEnvelope(config_update=cu).encode()
+                )).encode())
+            tool(peer_cli, "channel", "signconfigtx", "-f", env_path,
+                 "--mspid", "OrdererMSP", "--msp-dir",
+                 os.path.join(oadmin, "msp"), admin=oadmin)
+            out = tool(peer_cli, "channel", "update", "-f", env_path,
+                       "--orderer", orderer.endpoint, "--tls-dir",
+                       os.path.join(oadmin, "tls"), *roots, admin=oadmin)
+            check(out.strip() == "update status: 200", f"update: {out!r}")
+            reach(h0 + 1)
+            t_config = time.perf_counter() - t0
+            seqs = {}
+            for p in peers:
+                seek = deliver.make_seek_info_envelope(ch, h0, h0,
+                                                       signer=client)
+                got = [ob.DeliverResponse.decode(fr) for fr in
+                       p.rpc().stream("deliver.Deliver", seek.encode())]
+                cblk = next(r.block for r in got if r.which("Type") ==
+                            "block")
+                seqs[p.name] = cb.ConfigEnvelope.decode(cb.Payload.decode(
+                    cb.Envelope.decode(cblk.data.data[0]).payload).data
+                ).config.sequence
+            check(all(v == seq0 + 1 for v in seqs.values()),
+                  f"config sequences {seqs} after the update (was {seq0})")
+
+            # one more worth, cut by the new count
+            w = n_worths
+            jobs = []
+            for k in range(n_txs):
+                prop, txid, sp = proposal(k, w, None)
+                jobs.append((k, prop, txid, sp, peers))
+            with concurrent.futures.ThreadPoolExecutor(NODES_WORKERS) as pool:
+                done = sorted(pool.map(endorse_one, jobs))
+            envs = [raw for _, _, refused, raw in done if refused is None]
+            check(len(envs) == n_txs, f"tools worth: {len(envs)} endorsed")
+            tb = time.monotonic()
+            statuses = broadcast(envs)
+            check(statuses == [cb.SUCCESS] * n_txs,
+                  f"tools worth: statuses {collections.Counter(statuses)}")
+            n_blocks = -(-n_txs // NODES_TOOLS_COUNT)
+            at = reach(h0 + 1 + n_blocks)
+            rates = {n: n_txs / (t - tb) for n, t in sorted(at.items())}
+            seek = deliver.make_seek_info_envelope(ch, h0 + 1, h0 + n_blocks,
+                                                   signer=client)
+            sizes = [len(ob.DeliverResponse.decode(fr).block.data.data)
+                     for fr in peers[0].rpc().stream("deliver.Deliver",
+                                                     seek.encode())
+                     if ob.DeliverResponse.decode(fr).which("Type")
+                     == "block"]
+            check(len(sizes) == n_blocks and sum(sizes) == n_txs
+                  and max(sizes) <= NODES_TOOLS_COUNT,
+                  f"the tools worth's blocks hold {sizes} transactions")
+            # B1 at each peer, from its tpu.dispatch spans since the pass
+            # began, against the chunks of the blocks it validated since
+            launches = {}
+            for p in peers:
+                first, tr = marks[p.name]
+                tr.poll(p.ops)
+                blocks = tr.blocks()
+                check(set(range(h0 + 1, h0 + 1 + n_blocks)) <= set(blocks),
+                      f"{p.name}: blocks traced {sorted(blocks)[-6:]}")
+                chunks = sum(len(cuda_provider._chunk_plan(
+                    dl, cuda_provider._MAX_CHUNK))
+                    for b, v in blocks.items() if b >= h0
+                    for dl in v["device_lanes"].values() if dl)
+                disp = tr.dispatches()[first:]
+                devs = sorted({str(d.get("device")) for d in disp})
+                n = sum(d.get("launches_keytab", 0) for d in disp)
+                if device.type == "cuda":
+                    check(chunks >= n_blocks and n == chunks and devs and all(
+                        d.startswith("cuda:") for d in devs),
+                          f"{p.name}: tools pass flushes on {devs}, B1 "
+                          f"launched {n} times for {chunks} chunks")
+                else:
+                    check(chunks >= n_blocks and devs == ["cpu"] and n == 0,
+                          f"{p.name}: tools pass flushes on {devs}, {n}")
+                launches[p.name] = n
+
+            # discover: each peer lists itself (a peer node's discovery
+            # answers from its own view) at the new height, with benchcc
+            def discover(cmd, p):
+                extra = ["--chaincode", VALIDATOR_CC] if cmd == "endorsers" \
+                    else []
+                return json.loads(tool(
+                    "fabric_tpu_torch.cmd.discover", cmd, "--channel", ch,
+                    "--peer", p.endpoint, *umsp, *tls, *extra))
+
+            calls = [("peers", p) for p in peers] + [
+                ("endorsers", p) for p in peers] + [("config", peers[0])]
+            with concurrent.futures.ThreadPoolExecutor(len(calls)) as pool:
+                answers = list(pool.map(lambda c: discover(*c), calls))
+            listed = [a for (cmd, _), a in zip(calls, answers)
+                      if cmd == "peers"]
+            endorsers = [a for (cmd, _), a in zip(calls, answers)
+                         if cmd == "endorsers"]
+            height = h0 + 1 + n_blocks
+            check([[(x["endpoint"], x["ledger_height"],
+                     VALIDATOR_CC in x["chaincodes"]) for x in a]
+                   for a in listed]
+                  == [[(p.endpoint, height, True)] for p in peers]
+                  and endorsers == [[p.endpoint] for p in peers]
+                  and answers[-1] == {"msps": []},
+                  f"discover: peers {listed}, endorsers {endorsers}, "
+                  f"config {answers[-1]}")
+            wall = time.perf_counter() - t0
+            print(f"nodes: tools pass: `peer channel fetch config`, "
+                  f"configtxlator (decode to common.Config, encode, "
+                  f"compute_update), signconfigtx and `peer channel update` "
+                  f"in {t_config:.2f} s; config sequence {seq0} -> "
+                  f"{seq0 + 1} at every peer; BatchSize MaxMessageCount "
+                  f"{ORDER_MAX_COUNT} -> {NODES_TOOLS_COUNT}: the next "
+                  f"{n_txs} transactions in blocks of {sizes}; committed "
+                  f"tx/s from the first broadcast: " + ", ".join(
+                      f"{n} {r:.0f}" for n, r in rates.items())
+                  + f"; B1 launches {launches}; discover lists the "
+                  f"{len(peers)} peers at height {height} with "
+                  f"{VALIDATOR_CC}'s endorsers; the pass {wall:.1f} s")
+            return {"launches": sum(launches.values()), "per_peer": launches,
+                    "wall_s": wall, "config_s": t_config, "rates": rates,
+                    "sizes": sizes}
+
         predicted: dict = {}
         refusals: dict = {}
         worth_lines = []
@@ -6595,6 +6934,7 @@ def phase_nodes(device, tmp: str, n_txs: int = NODES_TXS,
             first_s[p.name] = blocks[1]["end_s"] - p.t_first
             later_ms[p.name] = [round(blocks[b]["ms"], 1)
                                 for b in sorted(blocks)[1:]]
+        tools = tools_pass(height)
         status, body = ops_get(orderer.ops, "/healthz")
         check(status == 200, f"orderer /healthz {status} {body!r}")
         exits = {}
@@ -6627,12 +6967,95 @@ def phase_nodes(device, tmp: str, n_txs: int = NODES_TXS,
               "exit on SIGTERM " + ", ".join(
                   f"{n} rc {rc} in {s:.2f} s" for n, (rc, s) in
                   exits.items()) + f"; the phase {wall:.1f} s")
-        out = {"launches": launches, "per_peer": per_peer, "wall_s": wall}
+        out = {"launches": launches, "per_peer": per_peer, "wall_s": wall,
+               "tools": tools}
     finally:
         for p in procs:
             if p.proc is not None and p.proc.poll() is None:
                 p.kill()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The chaos harness: the JAX package's soak topology as processes of the
+# port, and a fault-plan campaign.  Neither touches the card: both run the
+# harness's fake identity plane (netident), as the JAX package's do.
+# ---------------------------------------------------------------------------
+
+SOAK_TXS = 240  # tests/test_netharness.py:496-530, the reference's soak
+SOAK_SEED = 11
+SOAK_SCHEDULE_HEIGHT = 31  # 1 + ceil(240 / 8): the schedule's height span
+CAMPAIGN_SEED = 7
+CAMPAIGN_PLANS = 5
+
+
+def phase_netharness(tmp: str) -> dict:
+    """`Topology(orgs=3, peers_per_org=2, orderers=3, seed=11,
+    max_message_count=8, ops=True)`: three raft orderers and six peers,
+    each a process of `python -m fabric_tpu_torch.devtools.netnode`,
+    SOAK_TXS transactions under `generate_kill_schedule(11, topo, 31,
+    kills=2)` (two peers and an orderer SIGKILLed and restarted), with
+    netscope scraping every node; the verdict must be ok, the state
+    digests equal, one height, no violation and nothing missing.  Then a
+    `faultfuzz.Campaign(seed=7, plans=5)` whose every verdict is green.
+    The harness validates with its fake identity plane (`FakeCSP`): this
+    phase launches no kernel."""
+    from fabric_tpu_torch.devtools import faultfuzz
+    from fabric_tpu_torch.devtools import netharness as nh
+
+    t0 = time.perf_counter()
+    topo = nh.Topology(orgs=3, peers_per_org=2, orderers=3, seed=SOAK_SEED,
+                       max_message_count=8, ops=True)
+    schedule = nh.generate_kill_schedule(SOAK_SEED, topo,
+                                         SOAK_SCHEDULE_HEIGHT, kills=2)
+    check(any(r.node.startswith("orderer") for r in schedule),
+          f"the soak's schedule kills no orderer: {schedule}")
+    with nh.Network(os.path.join(tmp, "netharness"), topo) as net:
+        net.start(timeout=NODES_WAIT_S)
+        t_up = time.perf_counter() - t0
+        scope = nh.attach_netscope(net)
+        try:
+            result = nh.run_stream(net, txs=SOAK_TXS, kill_schedule=schedule,
+                                   settle_timeout_s=240, scope=scope)
+        finally:
+            scope.stop()
+        slo = scope.slo()
+    verdict = nh.verdict_doc(result)
+    check(result["ok"] and result["errors"] == []
+          and result["state_digests_agree"]
+          and len(set(result["heights"].values())) == 1
+          and result["violations"] == {} and result["missing"] == []
+          and verdict["caught_up"] == sorted({r.node for r in schedule}),
+          f"netharness soak: {json.dumps(verdict, sort_keys=True)} "
+          f"errors {result['errors']}")
+    soak_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faultfuzz_") as d:
+        summary = faultfuzz.Campaign(seed=CAMPAIGN_SEED, plans=CAMPAIGN_PLANS,
+                                     workdir=os.path.join(d, "work"),
+                                     out_dir=os.path.join(d, "out")).run()
+    check(summary["verdicts"] == ["pass"] * CAMPAIGN_PLANS,
+          f"faultfuzz campaign: {summary['verdicts']}")
+    campaign_s = time.perf_counter() - t1
+    print(f"netharness: soak topology (3 orgs x 2 peers, 3 raft orderers, "
+          f"processes of devtools.netnode; fake identity plane, no kernel) "
+          f"up in {t_up:.2f} s; {SOAK_TXS} transactions under the kill "
+          f"schedule {[(r.node, r.at_height) for r in schedule]}: ok "
+          f"{verdict['ok']}, state digests agree "
+          f"{verdict['state_digests_agree']}, heights "
+          f"{sorted(set(result['heights'].values()))}, caught up "
+          f"{verdict['caught_up']}, stalled {verdict['stalled_nodes']}, "
+          f"rpcmap_sha256 {verdict['rpcmap_sha256']}; catch-up s "
+          f"{result['catch_up_s']}; elapsed {result['elapsed_s']} s, "
+          f"committed tx/s {result['committed_tx_per_s']}, netscope's "
+          f"sustained tx/s {slo['sustained_tx_per_s']} over {slo['rounds']} "
+          f"rounds; max cross-peer lag {result['max_cross_peer_lag_ms']} ms; "
+          f"rebroadcasts {result['rebroadcasts']}; the soak {soak_s:.1f} s")
+    print(f"netharness: faultfuzz Campaign(seed={CAMPAIGN_SEED}, "
+          f"plans={CAMPAIGN_PLANS}) over {summary['registry_points']} fault "
+          f"points: verdicts {summary['verdicts']}, {summary['trips_total']} "
+          f"trips, in {campaign_s:.1f} s")
+    return {"wall_s": soak_s + campaign_s, "verdict": verdict}
 
 
 # ---------------------------------------------------------------------------
@@ -6746,10 +7169,125 @@ def phase_custody(device, errs: dict) -> dict:
               f"({n / wall:.0f} lanes/s); launches {launches}; mask the "
               "planted one, the plain version's and hostref's")
     print(f"custody: {lanes} lanes held against hostref")
+    cli = custody_cli_pass(device, errs)
     return {"sign_s": sign_s, "launches": {
         B1_NAME: out["block"][1][B1_NAME],
         B2_NAME: out["300-key"][1][B2_NAME]},
-        "block_wall_s": out["block"][0], "wide_wall_s": out["300-key"][0]}
+        "block_wall_s": out["block"][0], "wide_wall_s": out["300-key"][0],
+        "cli": cli}
+
+
+CUSTODY_CLI_BLOCK = 100  # the CLI daemon's block: 100 lanes on 4 keys ...
+CUSTODY_CLI_WIDE = MANY_KEYS  # ... and one lane on each of 300 keys
+CUSTODY_CLI_TAMPERED = 4  # in each
+
+
+def custody_cli_pass(device, errs: dict) -> dict:
+    """The custody daemon as a user runs it: `python -m
+    fabric_tpu_torch.cmd.custody` with a token file, a process of its
+    own.  It generates CUSTODY_KEYS + CUSTODY_CLI_WIDE keys and signs
+    CUSTODY_CLI_BLOCK + CUSTODY_CLI_WIDE digests; a CustodyCSP on CUDACSP
+    verifies a block over the CUSTODY_KEYS keys (B1) and a batch over the
+    CUSTODY_CLI_WIDE keys (B2), CUSTODY_CLI_TAMPERED of each tampered.
+    Each mask must be the planted one and its kernel's plain version's,
+    every lane hostref's; the daemon exits 0 on SIGTERM."""
+    from fabric_tpu_torch.csp.custody import CustodyCSP, load_token
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_custody_cli_") as d:
+        token_file = os.path.join(d, "token")
+        with open(token_file, "wb") as f:
+            f.write(b"chip-smoke-custody-cli\n")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fabric_tpu_torch.cmd.custody",
+             "--keystore", os.path.join(d, "keys"), "--token-file",
+             token_file, "--listen", "127.0.0.1:0"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=repo))
+        try:
+            line = proc.stdout.readline()
+            m = re.match(r"custody daemon on ([\d.]+):(\d+)", line)
+            check(m is not None, f"the custody CLI printed {line!r}")
+            up_s = time.perf_counter() - t0
+            local = RecordingCSP(new_cuda_csp(device=device))
+            csp = CustodyCSP((m.group(1), int(m.group(2))),
+                             load_token(token_file), verify_csp=local)
+            keys = [csp.key_gen() for _ in range(CUSTODY_KEYS)]
+            wide_keys = [csp.key_gen() for _ in range(CUSTODY_CLI_WIDE)]
+            check(len(os.listdir(os.path.join(d, "keys")))
+                  == CUSTODY_KEYS + CUSTODY_CLI_WIDE,
+                  "the CLI daemon does not hold the keys")
+            t1 = time.perf_counter()
+            block = []
+            for i in range(CUSTODY_CLI_BLOCK):
+                key = keys[i % CUSTODY_KEYS]
+                dg = hashlib.sha256(b"custody-cli-%d" % i).digest()
+                block.append(VerifyBatchItem(key, dg, csp.sign(key, dg)))
+            wide = []
+            for i, key in enumerate(wide_keys):
+                dg = hashlib.sha256(b"custody-cli-wide-%d" % i).digest()
+                wide.append(VerifyBatchItem(key, dg, csp.sign(key, dg)))
+            sign_s = time.perf_counter() - t1
+            step = CUSTODY_CLI_BLOCK // CUSTODY_CLI_TAMPERED
+            bad = [step * j + 5 for j in range(CUSTODY_CLI_TAMPERED)]
+            for i in bad:
+                it = block[i]
+                block[i] = VerifyBatchItem(
+                    it.key, bytes([it.digest[0] ^ 1]) + it.digest[1:],
+                    it.signature)
+            wstep = CUSTODY_CLI_WIDE // CUSTODY_CLI_TAMPERED
+            wide_bad = [wstep * j + 3 for j in range(CUSTODY_CLI_TAMPERED)]
+            for i in wide_bad:
+                it = wide[i]
+                wide[i] = VerifyBatchItem(it.key, it.digest, it.signature[:-1]
+                                          + bytes([it.signature[-1] ^ 1]))
+            out = {}
+            for label, batch, planted, name in (
+                    ("block", block, bad, B1_NAME),
+                    ("300-key", wide, wide_bad, B2_NAME)):
+                local.inner.drain()
+                pk.launches_keytab = 0
+                pk.launches_lanekeys = 0
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                mask = csp.verify_batch(batch)
+                wall = time.perf_counter() - t2
+                launches = {B1_NAME: pk.launches_keytab,
+                            B2_NAME: pk.launches_lanekeys}
+                check([i for i, ok in enumerate(mask) if not ok] == planted,
+                      f"custody CLI {label}: rejected "
+                      f"{[i for i, ok in enumerate(mask) if not ok][:20]}")
+                check(launches[name] > 0, f"custody CLI {label}: {name} did "
+                      f"not launch: {launches}")
+                packed = pk.pack_items([VerifyBatchItem(
+                    it.key.public_key(), it.digest, it.signature)
+                    for it in batch])
+                if name == B1_NAME:
+                    packed = pk.dedup_keys(packed)
+                check(compare(name, packed, device, errs) == mask,
+                      f"custody CLI {label}: the card's mask differs from "
+                      "the plain version's")
+                out[label] = (wall, launches, len(batch))
+            lanes = check_mask(local, "custody CLI")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=NODES_STOP_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = None
+            tail = proc.stdout.read()[-600:]
+    check(rc == 0, f"the custody CLI exited {rc} on SIGTERM: {tail!r}")
+    print(f"custody CLI: the daemon process listening after {up_s:.2f} s; "
+          f"{CUSTODY_CLI_BLOCK + CUSTODY_CLI_WIDE} digests signed through "
+          f"it in {sign_s * 1e3:.1f} ms; " + "; ".join(
+              f"{label} batch of {n} lanes in {wall * 1e3:.1f} ms, launches "
+              f"{launches}" for label, (wall, launches, n) in out.items())
+          + f"; masks the planted ones, the plain versions' and hostref's "
+          f"({lanes} lanes); exit 0 on SIGTERM")
+    return {"launches": {B1_NAME: out["block"][1][B1_NAME],
+                         B2_NAME: out["300-key"][1][B2_NAME]}}
 
 
 # ---------------------------------------------------------------------------
@@ -7529,6 +8067,8 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t_cell:.1f} s")
         nodes = phase_nodes(device, tmp)
         host_check("nodes", armed=True)
+        phase_netharness(tmp)
+        host_check("netharness", armed=True)
     b1 = next(row for row in rows if row["name"] == B1_NAME)
     for label, run in (("validator", val), ("commit", com),
                        ("commit_sharded", shc), ("smallbank", sb),
@@ -7544,6 +8084,7 @@ def main(argv=None) -> int:
     b1["launches_smallbank_sharded"] = sb["launches_sharded"][B1_NAME]
     # counted in the peer processes, from their traces
     b1["launches_nodes"] = nodes["launches"]
+    b1["launches_nodes_tools"] = nodes["tools"]["launches"]
     cus = phase_custody(device, errs)
     host_check("custody")
     b2 = next(row for row in rows if row["name"] == B2_NAME)
@@ -7552,6 +8093,7 @@ def main(argv=None) -> int:
     for row in (b1, b2):
         row["launches_fetch"] = fet["launches"][row["name"]]
         row["launches_custody"] = cus["launches"][row["name"]]
+        row["launches_custody_cli"] = cus["cli"]["launches"][row["name"]]
         # custody's comparisons with the plain version count too
         row["max_abs_err"] = errs[row["name"]]["max_abs_err"]
     phase_churn(rng, device)
@@ -7577,6 +8119,7 @@ def main(argv=None) -> int:
     host_check("idemix msp")
     rows.append(phase_b3_kernel(main_b3, errs))
     rows[-1]["launches_idemix_msp"] = msp["launches"]
+    rows[-1]["launches_idemixgen"] = msp["launches_idemixgen"]
     phase_b3_sweep(main_b3["tensors"])
     phase_degraded(rng, device, world)
     workpool.shutdown()

@@ -210,19 +210,30 @@ def cmd_channel_fetch(args) -> int:
         return 2
     signer = _signer(args) if args.msp_dir else None
     pos = args.position
-    start = stop = pos if pos in ("newest", "oldest") else int(pos)
-    env = make_seek_info_envelope(args.channel, start, stop, signer=signer)
-    target = args.peer or args.orderer
     if args.filtered:
-        return _fetch_filtered(args, env)
+        start = stop = pos if pos in ("newest", "oldest") else int(pos)
+        return _fetch_filtered(args, make_seek_info_envelope(
+            args.channel, start, stop, signer=signer))
+    target = args.peer or args.orderer
     method = "deliver.Deliver" if args.peer else "ab.Deliver"
-    blk = None
-    for raw in RPCClient(*parse_endpoint(target), tls=tls_from_args(args)).stream(
-        method, env.encode()
-    ):
-        resp = ob.DeliverResponse.decode(raw)
-        if resp.which("Type") == "block":
-            blk = resp.block
+    client = RPCClient(*parse_endpoint(target), tls=tls_from_args(args))
+
+    def fetch(at):
+        env = make_seek_info_envelope(args.channel, at, at, signer=signer)
+        got = None
+        for raw in client.stream(method, env.encode()):
+            resp = ob.DeliverResponse.decode(raw)
+            if resp.which("Type") == "block":
+                got = resp.block
+        return got
+
+    if pos == "config":
+        # the newest block names the last config block in its metadata
+        # (reference peer channel fetch config)
+        newest = fetch("newest")
+        blk = None if newest is None else fetch(_last_config_index(newest))
+    else:
+        blk = fetch(pos if pos in ("newest", "oldest") else int(pos))
     if blk is None:
         print("no block received", file=sys.stderr)
         return 1
@@ -230,6 +241,14 @@ def cmd_channel_fetch(args) -> int:
         f.write(blk.encode())
     print(f"wrote block {blk.header.number} to {args.out}")
     return 0
+
+
+def _last_config_index(block: cb.Block) -> int:
+    """The LastConfig index of a block's orderer metadata."""
+    meta = cb.Metadata.decode(block.metadata.metadata[cb.SIGNATURES])
+    if not meta.value:
+        return 0
+    return cb.OrdererBlockMetadata.decode(meta.value).last_config.index
 
 
 def _fetch_filtered(args, env) -> int:
@@ -641,7 +660,7 @@ def main(argv=None) -> int:
     info.add_argument("--peer", required=True)
     info.set_defaults(fn=cmd_channel_getinfo)
     fetch = chan.add_parser("fetch", parents=[tlsp])
-    fetch.add_argument("position")  # newest | oldest | block number
+    fetch.add_argument("position")  # newest | oldest | config | block number
     fetch.add_argument("out")
     fetch.add_argument("-c", "--channel", required=True)
     fetch.add_argument("--peer")

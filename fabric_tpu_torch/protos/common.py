@@ -290,7 +290,9 @@ class MSPPrincipal(Message):
     ANONYMITY = 3
     COMBINED = 4
     FIELDS = (
-        Field(1, "principal_classification", ENUM),
+        Field(1, "principal_classification", ENUM, enum={
+            0: "ROLE", 1: "ORGANIZATION_UNIT", 2: "IDENTITY", 3: "ANONYMITY",
+            4: "COMBINED"}),
         Field(2, "principal", BYTES),
     )
 

@@ -210,8 +210,9 @@ class SeekInfo(Message):
     FIELDS = (
         Field(1, "start", MESSAGE, "SeekPosition"),
         Field(2, "stop", MESSAGE, "SeekPosition"),
-        Field(3, "behavior", ENUM),
-        Field(4, "error_response", ENUM),
+        Field(3, "behavior", ENUM,
+              enum={0: "BLOCK_UNTIL_READY", 1: "FAIL_IF_NOT_READY"}),
+        Field(4, "error_response", ENUM, enum={0: "STRICT", 1: "BEST_EFFORT"}),
     )
 
 

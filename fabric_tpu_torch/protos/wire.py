@@ -64,15 +64,16 @@ class Field:
     map field has `key` (a scalar kind) and a `value` kind, with `msg`
     for message values.  `oneof` names the field's oneof group;
     `presence` marks a proto3 scalar whose zero value is still written
-    once set."""
+    once set.  `enum` gives an ENUM field's value names ({number: name}),
+    which only the JSON mapping (`protos/jsonpb.py`) reads."""
 
     __slots__ = ("num", "name", "kind", "repeated", "msg", "oneof",
-                 "presence", "key", "value", "_cls", "_entry")
+                 "presence", "key", "value", "enum", "_cls", "_entry")
 
     def __init__(self, num: int, name: str, kind: int, msg: str | None = None,
                  *, repeated: bool = False, oneof: str | None = None,
                  presence: bool = False, key: int | None = None,
-                 value: int | None = None):
+                 value: int | None = None, enum: dict | None = None):
         self.num = num
         self.name = name
         self.kind = kind
@@ -82,6 +83,7 @@ class Field:
         self.presence = presence or oneof is not None
         self.key = key
         self.value = value
+        self.enum = enum
         self._cls = None
         self._entry = None
 
