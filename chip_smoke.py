@@ -203,6 +203,17 @@
    restarted) with netscope attached, judged by the invariants oracle on
    every peer; then a `faultfuzz.Campaign(seed=7, plans=5)`.  Both run
    the harness's fake identity plane, as the JAX package's do: no kernel.
+   The port's fabriclint (`phase_lint`): `lint_tree(cache=False)` over
+   the port's tree on this machine, clean (files, seconds, suppressions
+   by rule, the guard map and the static lock graph printed); the
+   headline commit and a snapshot `generate()` in a process armed with
+   FABRIC_TPU_LOCKWATCH=1, whose lock-order edges must all be edges of
+   the static graph, with no violation raised, and B1's launches counted
+   from its `tpu.dispatch` spans (`launches_lockwatch`); the soak's
+   verdict pinning `rpcmap_sha256` = `netharness.rpcmap_hash()`, its
+   repro replayed to the same verdict (but for which killed nodes had
+   anything to catch up), and `faultfuzz.export_registry()` equal to the
+   checked-in `faultmap_registry.json`.
    Key custody (`phase_custody`): a `KeyCustodyServer` thread generates
    and holds 4 keys; a `CustodyCSP` whose local provider is `CUDACSP`
    signs 4000 digests through it (signs/s printed), then verifies them
@@ -284,7 +295,8 @@
 10. Prints one JSON line of kernels (B1-B4; B1's with its launches on
    the validator, commit, sharded-commit, SmallBank, bootstrapped-ledger,
    ordered-commit, joining-peer, custody (and its CLI), raft, endorse,
-   gateway, nodes and tools-pass paths, B2's on custody (and its CLI),
+   gateway, nodes, tools-pass and lockwatch-armed paths, B2's on custody
+   (and its CLI),
    raft and endorse, B3's with its launches on the idemix MSP's and
    idemixgen's batches, B4's with its launches at the snapshot's shape), then
    `{"ok": true, "device": {...}}` as its last line.
@@ -315,6 +327,11 @@ flushes on one card and on every card, in turns, and prints lanes/s.
 
 builds the kernels and the host library, then runs `phase_nodes` alone (a
 network of the port's CLIs: the orderer and three peer processes).
+
+    python3 chip_smoke.py --lint
+
+builds the kernels and the host library, makes the validator's world and
+blocks, then runs `phase_netharness` and `phase_lint` alone.
 
 Exits non-zero, before printing any result, on a host without CUDA; any
 failed phase raises.  Inputs are made from a seed (numpy for P-256 and
@@ -4759,6 +4776,9 @@ def raft_cell(device, world, cluster, envs, keys, predicted, admitted,
         for f in committer.store_stream(iter(inbox.get, None), depth=depth):
             flags.append(list(f))
 
+    # fabriclint: allow[thread-hygiene] a phase thread of the card script,
+    # joined with a timeout at the phase's end; a daemon so that a wedged
+    # phase fails the run instead of holding the interpreter
     committing = threading.Thread(target=commit, name="raft-commit",
                                   daemon=True)
     stream = nodes[target].broadcaster()
@@ -4774,6 +4794,8 @@ def raft_cell(device, world, cluster, envs, keys, predicted, admitted,
             sent[0] = j + 1
         stream.drain()
 
+    # fabriclint: allow[thread-hygiene] a phase thread of the card script,
+    # joined with a timeout at the phase's end (as the commit thread above)
     broadcaster = threading.Thread(target=client_thread, name="raft-client",
                                    daemon=True)
     leader_state = {}
@@ -5116,6 +5138,9 @@ class EndorsingPeer:
                                                  depth=1):
                 pass  # the flags are read from the committed blocks
 
+        # fabriclint: allow[thread-hygiene] the gateway peer's commit
+        # thread, joined with a timeout when the peer stops; a daemon so a
+        # wedged peer fails the run instead of holding the interpreter
         self.committing = threading.Thread(target=commit,
                                            name=f"{self.name}-commit",
                                            daemon=True)
@@ -6996,7 +7021,10 @@ def phase_netharness(tmp: str) -> dict:
     SOAK_TXS transactions under `generate_kill_schedule(11, topo, 31,
     kills=2)` (two peers and an orderer SIGKILLed and restarted), with
     netscope scraping every node; the verdict must be ok, the state
-    digests equal, one height, no violation and nothing missing.  Then a
+    digests equal, one height, no violation and nothing missing, the
+    killed peers caught up; then every member, the orderers too, must
+    answer one height (a restarted orderer that reaches the tip after the
+    stream settled is not in the verdict's `caught_up`).  Then a
     `faultfuzz.Campaign(seed=7, plans=5)` whose every verdict is green.
     The harness validates with its fake identity plane (`FakeCSP`): this
     phase launches no kernel."""
@@ -7020,15 +7048,39 @@ def phase_netharness(tmp: str) -> dict:
         finally:
             scope.stop()
         slo = scope.slo()
+        # every member at one height, the orderers too: the stream settles
+        # on the peers', so a restarted orderer that reaches the tip after
+        # it is not among the verdict's caught_up (timing, not recovery)
+        t1 = time.perf_counter()
+        members: dict = {}
+        while True:
+            for name in net.nodes:
+                try:
+                    members[name] = net.status(name)["height"]
+                except Exception:
+                    members[name] = None  # not answering yet
+            if len(set(members.values())) == 1 and None not in members:
+                break
+            check(time.perf_counter() - t1 < NODES_WAIT_S,
+                  f"the soak's members never reached one height: {members}")
+            time.sleep(0.2)
+        level_s = time.perf_counter() - t1
+    # the verdict pins the port's rpcmap hash: a fabriclint pass the
+    # first time, timed apart from the soak
+    t1 = time.perf_counter()
     verdict = nh.verdict_doc(result)
+    hash_s = time.perf_counter() - t1
     check(result["ok"] and result["errors"] == []
           and result["state_digests_agree"]
           and len(set(result["heights"].values())) == 1
           and result["violations"] == {} and result["missing"] == []
-          and verdict["caught_up"] == sorted({r.node for r in schedule}),
+          and {r.node for r in schedule if "peer" in r.node}
+          <= set(verdict["caught_up"]) <= {r.node for r in schedule},
           f"netharness soak: {json.dumps(verdict, sort_keys=True)} "
           f"errors {result['errors']}")
-    soak_s = time.perf_counter() - t0
+    soak_s = time.perf_counter() - t0 - hash_s
+    print(f"netharness: the verdict's rpcmap_hash() in {hash_s:.2f} s (a "
+          "fabriclint pass), outside the soak's seconds")
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_faultfuzz_") as d:
         summary = faultfuzz.Campaign(seed=CAMPAIGN_SEED, plans=CAMPAIGN_PLANS,
@@ -7043,8 +7095,9 @@ def phase_netharness(tmp: str) -> dict:
           f"schedule {[(r.node, r.at_height) for r in schedule]}: ok "
           f"{verdict['ok']}, state digests agree "
           f"{verdict['state_digests_agree']}, heights "
-          f"{sorted(set(result['heights'].values()))}, caught up "
-          f"{verdict['caught_up']}, stalled {verdict['stalled_nodes']}, "
+          f"{sorted(set(result['heights'].values()))} (every member at "
+          f"{sorted(set(members.values()))} {level_s:.2f} s after), caught "
+          f"up {verdict['caught_up']}, stalled {verdict['stalled_nodes']}, "
           f"rpcmap_sha256 {verdict['rpcmap_sha256']}; catch-up s "
           f"{result['catch_up_s']}; elapsed {result['elapsed_s']} s, "
           f"committed tx/s {result['committed_tx_per_s']}, netscope's "
@@ -7055,7 +7108,220 @@ def phase_netharness(tmp: str) -> dict:
           f"plans={CAMPAIGN_PLANS}) over {summary['registry_points']} fault "
           f"points: verdicts {summary['verdicts']}, {summary['trips_total']} "
           f"trips, in {campaign_s:.1f} s")
-    return {"wall_s": soak_s + campaign_s, "verdict": verdict}
+    return {"wall_s": soak_s + campaign_s, "verdict": verdict,
+            "result": result}
+
+
+# the lockwatch-armed headline commit of phase_lint, in a process of its own
+# (FABRIC_TPU_LOCKWATCH=1 in its environment: the port's named locks are
+# watched from their construction, and an inversion or an unguarded access
+# raises): phase_commit on card 0 (its snapshot request, crossed by the
+# commit, generated on the manager's thread), then generate() on the
+# reopened ledger, under a tracing scope whose tpu.dispatch spans give B1's
+# launches (as phase_nodes counts them in the peers)
+LINT_LOCKWATCH = (
+    "import json, os, pickle, sys, torch\n"
+    "import chip_smoke as c\n"
+    "from fabric_tpu_torch.common import tracing\n"
+    "from fabric_tpu_torch.devtools import lockwatch\n"
+    "from fabric_tpu_torch.ledger.kvledger import LedgerProvider\n"
+    "assert lockwatch.enabled() and lockwatch._raise_mode()\n"
+    "c.phase_build()\n"
+    "class Unpickler(pickle.Unpickler):\n"
+    "    # the world was pickled by chip_smoke run as __main__\n"
+    "    def find_class(self, mod, name):\n"
+    "        return super().find_class(\n"
+    "            'chip_smoke' if mod == '__main__' else mod, name)\n"
+    "with open(sys.argv[1], 'rb') as f:\n"
+    "    w, b, e, m = Unpickler(f).load()\n"
+    "root = sys.argv[2]\n"
+    "with tracing.scope(capacity=1 << 16) as rec:\n"
+    "    r = c.phase_commit(torch.device('cuda', 0), w, b, e, m, "
+    "root_dir=root)\n"
+    "    p = LedgerProvider(os.path.join(root, 'ledger'), "
+    "csp=c.new_cuda_csp(device=torch.device('cuda', 0)))\n"
+    "    led = p.open(c.VALIDATOR_CHANNEL)\n"
+    "    made = led.snapshots.generate()\n"
+    "    p.close()\n"
+    "    doc = tracing.export(rec)\n"
+    "c.workpool.shutdown()\n"
+    "spans = [ev['args'] for ev in doc['traceEvents'] "
+    "if ev.get('ph') == 'X' and ev['name'] == 'tpu.dispatch']\n"
+    "print('LOCKWATCH ' + json.dumps({\n"
+    "    'edges': {k: sorted(v) for k, v in lockwatch.edges().items()},\n"
+    "    'violations': lockwatch.violations, 'dispatch': spans,\n"
+    "    'launches': r['launches'], 'wall_s': r['wall_s'],\n"
+    "    'generated': os.path.isdir(made)}))\n"
+)
+
+
+# the registry export of phase_lint, in a process of its own
+LINT_EXPORT = (
+    "import json, time\n"
+    "from fabric_tpu_torch.devtools import faultfuzz\n"
+    "t = time.perf_counter()\n"
+    "reg = faultfuzz.export_registry()\n"
+    "print('EXPORT ' + json.dumps({'registry': reg, "
+    "'s': time.perf_counter() - t}))\n"
+)
+
+
+def phase_lint(device, world: ValidatorWorld, blocks: list, expect: dict,
+               conflicts: dict, harness: dict, tmp: str) -> dict:
+    """The port's fabriclint on this machine, and what it guards on the
+    card.  First, alone on the host, `phase_netharness`'s soak repro is
+    replayed: the same verdict but for which killed nodes had anything
+    to catch up.  (a) `lint_tree(cache=False)` over the port's tree must find
+    nothing unsuppressed; prints the files and the wall time, the
+    suppressed findings by rule, the guard map's size and its
+    `hb-publish` count, the static lock graph's edges and
+    `netharness.rpcmap_hash()`.  (b) The headline commit (`phase_commit`,
+    its snapshot request crossed by the commit) and a `generate()` run in
+    a process of their own with FABRIC_TPU_LOCKWATCH=1: no LockOrderError
+    or unguarded access may be raised, every lock-order edge lockwatch
+    saw must be an edge of the static graph, and B1's launches, counted
+    from the process's `tpu.dispatch` spans (on `cuda:N`), must be above 0
+    (`launches_lockwatch`).  It runs beside the lint passes, which use
+    the host only.  (c) `phase_netharness`'s soak verdict pins
+    `rpcmap_sha256` equal to `rpcmap_hash()`, and
+    `faultfuzz.export_registry()`, in a process of its own beside the
+    commit, equals the checked-in `faultmap_registry.json`."""
+    import pickle
+
+    from fabric_tpu_torch.devtools import lint as flint
+    from fabric_tpu_torch.devtools import netharness as nh
+
+    t0 = time.perf_counter()
+    # (c) first, alone on the host: the soak's repro replayed (a network
+    # of processes whose kills and catch-up are polled)
+    verdict = harness["verdict"]
+    t1 = time.perf_counter()
+    repro = nh.write_repro(harness["result"],
+                           os.path.join(tmp, "soak_repro.json"))
+    replayed = nh.replay_repro(repro,
+                               os.path.join(tmp, "soak_replay"))
+    again = nh.verdict_doc(replayed)
+    # who is reported caught up is timing's (a node killed while
+    # level with the others has nothing to catch up); the rest of
+    # the verdict is the seed's
+    check({k: v for k, v in again.items() if k != "caught_up"}
+          == {k: v for k, v in verdict.items() if k != "caught_up"}
+          and set(again["caught_up"])
+          <= {r["node"] for r in verdict["kill_schedule"]},
+          "the soak's repro replayed to "
+          f"{json.dumps(again, sort_keys=True)}")
+    replay_s = time.perf_counter() - t1
+    pick = os.path.join(tmp, "lint_world.pickle")
+    with open(pick, "wb") as f:
+        pickle.dump((world, blocks, expect, conflicts), f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, FABRIC_TPU_LOCKWATCH="1")
+    log_path = os.path.join(tmp, "lint_lockwatch.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", LINT_LOCKWATCH, pick,
+             os.path.join(tmp, "lint_commit")],
+            cwd=here, env=env, stdout=subprocess.PIPE, stderr=log,
+            text=True)
+        # the registry export (a lint pass and a discovery run) beside
+        export = subprocess.Popen(
+            [sys.executable, "-c", LINT_EXPORT], cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            # (a) on the host, while the card commits
+            t1 = time.perf_counter()
+            report = flint.lint_tree(cache=False)
+            lint_s = time.perf_counter() - t1
+            bad = [str(v) for v in report.unsuppressed]
+            check(not bad, "fabriclint over the port's tree:\n"
+                  + "\n".join(bad))
+            suppressed = collections.Counter(
+                v.rule for v in report.suppressed)
+            guards = report.guard_map()
+            hb = sum(g.get("source") == "hb-publish"
+                     for g in guards.values())
+            static = report.lock_graph()["edges"]
+            n_static = sum(len(d) for d in static.values())
+            print(f"lint: fabriclint over the port's tree on this machine "
+                  f"(Python {sys.version.split()[0]}): {report.files} files "
+                  f"in {lint_s:.2f} s, clean; suppressed by rule "
+                  f"{dict(sorted(suppressed.items()))}; "
+                  f"{len(report.warnings)} advisory (relaxed profile)")
+            print(f"lint: guard map {len(guards)} fields, {hb} hb-publish; "
+                  f"static lock graph {n_static} edges: " + "; ".join(
+                      f"{s} -> {', '.join(sorted(d))}"
+                      for s, d in sorted(static.items())))
+            n_files = report.files
+            # the whole-program model is large: freed here, not in a
+            # collection inside a later phase
+            del report, guards
+            gc.collect()
+            t1 = time.perf_counter()
+            rpc_hash = nh.rpcmap_hash()
+            print(f"lint: rpcmap_hash() {rpc_hash} "
+                  f"({time.perf_counter() - t1:.2f} s)")
+            # (c) the verdict's pin and the registry export
+            check(verdict["rpcmap_sha256"] == rpc_hash,
+                  f"the soak's verdict pins {verdict['rpcmap_sha256']}, "
+                  f"the tree's rpcmap is {rpc_hash}")
+            ex_out, ex_err = export.communicate(timeout=600)
+            check(export.returncode == 0 and "EXPORT " in ex_out,
+                  f"export_registry() exited {export.returncode}: "
+                  f"{ex_err[-3000:]}")
+            got = json.loads(ex_out.split("EXPORT ", 1)[1].splitlines()[0])
+            with open(flint.FAULTMAP_REGISTRY_PATH, encoding="utf-8") as f:
+                pinned = json.load(f)
+            check(got["registry"] == pinned, "export_registry() differs "
+                  "from the checked-in registry: "
+                  f"{sorted(set(got['registry']['points']) ^ set(pinned['points']))}")
+            print(f"lint: the soak's verdict pins rpcmap_sha256 = "
+                  f"rpcmap_hash(); its repro replayed in {replay_s:.1f} s to "
+                  f"the same verdict (caught up {again['caught_up']}, the "
+                  f"soak's {verdict['caught_up']}); export_registry() "
+                  f"equals the checked-in registry "
+                  f"({len(pinned['points'])} points, {got['s']:.1f} s in a "
+                  f"process of its own)")
+            out, _ = proc.communicate(timeout=600)
+        finally:
+            for p in (proc, export):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    if proc.returncode != 0 or "LOCKWATCH " not in out:
+        with open(log_path) as f:
+            print(out[-3000:], f.read()[-6000:], file=sys.stderr)
+        check(False, f"the lockwatch-armed commit exited {proc.returncode}")
+    for line in out.splitlines():
+        if line.startswith("commit:"):
+            print(f"lint: lockwatch-armed {line}")
+    got = json.loads(out.split("LOCKWATCH ", 1)[1].splitlines()[0])
+    check(not got["violations"], f"lockwatch: {got['violations']}")
+    observed = [(s, d) for s, ds in sorted(got["edges"].items())
+                for d in ds]
+    missing = [(s, d) for s, d in observed if d not in static.get(s, {})]
+    check(("kvledger.commit_lock", "snapshot.manager") in observed,
+          f"the armed commit saw no commit -> snapshot order: {observed}")
+    check(not missing, f"runtime lock edges missing from the static "
+          f"graph: {missing}")
+    devices = {a.get("device") for a in got["dispatch"]}
+    launches = sum(a.get("launches_keytab", 0) for a in got["dispatch"])
+    check(devices and all(str(d).startswith("cuda") for d in devices),
+          f"a flush of the armed commit ran on {devices}")
+    check(launches >= got["launches"][B1_NAME] > 0,
+          f"B1's launches from the spans {launches}, in the timed run "
+          f"{got['launches'][B1_NAME]}")
+    check(got["generated"], "generate() made no snapshot directory")
+    wall = time.perf_counter() - t0
+    print(f"lint: lockwatch-armed commit on {sorted(devices)}: "
+          f"{len(observed)} runtime lock edges, all in the static graph's "
+          f"{n_static}: " + "; ".join(f"{s} -> {d}" for s, d in observed)
+          + f"; no violation; B1 launched {launches} times (from "
+          f"{len(got['dispatch'])} tpu.dispatch spans; "
+          f"{got['launches'][B1_NAME]} in the timed run)")
+    print(f"lint: phase_lint {wall:.1f} s")
+    return {"launches": launches, "wall_s": wall, "lint_s": lint_s,
+            "files": n_files, "runtime_edges": len(observed),
+            "static_edges": n_static}
 
 
 # ---------------------------------------------------------------------------
@@ -7960,6 +8226,29 @@ def nodes_only() -> int:
     return 0
 
 
+def lint_only() -> int:
+    """`--lint`: the kernels and the host library built, the validator's
+    world and blocks made, then `phase_netharness` and `phase_lint` (a
+    short call for that phase; card only)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print_device()
+    phase_build()
+    phase_native()
+    world = validator_world(SEED)
+    blocks, expect, conflicts = validator_blocks(
+        world, N_BLOCKS, N_TXS, world.genesis_hash, mvcc=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        harness = phase_netharness(tmp)
+        out = phase_lint(torch.device("cuda", 0), world, blocks, expect,
+                         conflicts, harness, tmp)
+    workpool.shutdown()
+    print(json.dumps({"launches_lockwatch": out["launches"],
+                      "phase_lint_s": out["wall_s"]}))
+    return 0
+
+
 def print_device() -> str:
     """Prints the card's name, and its name and power limit as nvidia-smi
     gives them; returns the name."""
@@ -7987,10 +8276,12 @@ def main(argv=None) -> int:
         return shards_ab(*(int(a) for a in argv[1:]))
     if argv == ["--nodes"]:
         return nodes_only()
+    if argv == ["--lint"]:
+        return lint_only()
     if argv:
         print("usage: chip_smoke.py [--commit-ab PARENT_TREE [TURNS] | "
               "--multi-card | --shards-ab [TURNS] | --raft-orderer SPEC | "
-              "--nodes]", file=sys.stderr)
+              "--nodes | --lint]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8067,8 +8358,11 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t_cell:.1f} s")
         nodes = phase_nodes(device, tmp)
         host_check("nodes", armed=True)
-        phase_netharness(tmp)
+        harness = phase_netharness(tmp)
         host_check("netharness", armed=True)
+        lnt = phase_lint(device, world, blocks, expect, conflicts, harness,
+                         tmp)
+        host_check("lint", armed=True)
     b1 = next(row for row in rows if row["name"] == B1_NAME)
     for label, run in (("validator", val), ("commit", com),
                        ("commit_sharded", shc), ("smallbank", sb),
@@ -8085,6 +8379,8 @@ def main(argv=None) -> int:
     # counted in the peer processes, from their traces
     b1["launches_nodes"] = nodes["launches"]
     b1["launches_nodes_tools"] = nodes["tools"]["launches"]
+    # counted in the lockwatch-armed process, from its traces
+    b1["launches_lockwatch"] = lnt["launches"]
     cus = phase_custody(device, errs)
     host_check("custody")
     b2 = next(row for row in rows if row["name"] == B2_NAME)

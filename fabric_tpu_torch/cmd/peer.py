@@ -215,10 +215,10 @@ def cmd_channel_fetch(args) -> int:
         return _fetch_filtered(args, make_seek_info_envelope(
             args.channel, start, stop, signer=signer))
     target = args.peer or args.orderer
-    method = "deliver.Deliver" if args.peer else "ab.Deliver"
     client = RPCClient(*parse_endpoint(target), tls=tls_from_args(args))
 
     def fetch(at):
+        method = "deliver.Deliver" if args.peer else "ab.Deliver"
         env = make_seek_info_envelope(args.channel, at, at, signer=signer)
         got = None
         for raw in client.stream(method, env.encode()):

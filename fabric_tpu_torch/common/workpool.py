@@ -30,7 +30,7 @@ import threading
 from concurrent.futures import wait as _wait
 
 from fabric_tpu_torch.common import profile, tracing
-from fabric_tpu_torch.devtools import clockskew
+from fabric_tpu_torch.devtools import clockskew, knob_registry
 from fabric_tpu_torch.devtools.lockwatch import tracked_executor
 
 _FALSY = ("0", "false", "off", "no")
@@ -101,11 +101,7 @@ def _auto_width() -> int:
 def stage_width(env: str) -> int:
     """A stage's fan-out width: its knob, else the auto width; 0 keeps the
     stage serial."""
-    # the ledger's knob registry (imported here: the ledger imports this
-    # module)
-    from fabric_tpu_torch.ledger.kvstore import knob
-
-    raw = knob(env).strip().lower()
+    raw = knob_registry.raw(env).strip().lower()
     if not raw:
         return _auto_width()
     if raw in _FALSY:

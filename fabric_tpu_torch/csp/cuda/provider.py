@@ -644,6 +644,9 @@ class _FlushResult:
         (time.monotonic(), None = no limit)."""
         for ev in self._events:
             if until is None:
+                # fabriclint: allow[device-hygiene] one wait a chunk of one
+                # flush (the loop runs over its few chunks, never its lanes):
+                # the flush's completion, not a per-item sync
                 ev.synchronize()
                 continue
             while not ev.query():

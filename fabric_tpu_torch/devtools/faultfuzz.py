@@ -926,18 +926,90 @@ class Campaign:
 
 
 def export_registry(blocks: int = DEFAULT_BLOCKS, comm: bool = True) -> dict:
-    """The pinned chaos-coverage registry that fabriclint's
-    chaos-coverage rule cross-checks its static faultmap against
-    (observer-plan discovery unioned with every seam a pinned plan rule
-    of the tree can arm).  It needs fabriclint's static faultmap of the
-    port's tree, and the port has no fabriclint yet: this raises
-    `NotImplementedError` until it does.  `Campaign` needs none of it:
-    it samples the live registry (`Campaign.discover`)."""
-    raise NotImplementedError(
-        "export_registry needs fabriclint's static faultmap of the "
-        "port's tree (fabric_tpu_torch/devtools/lint.py), which is not "
-        "ported yet; Campaign.discover() gives the live registry"
+    """Build the pinned chaos-coverage registry that the port's
+    fabriclint chaos-coverage rule cross-checks its static faultmap
+    against: observer-plan discovery on the canned campaign workload,
+    unioned with every seam some pinned plan rule in the tree (exact
+    name or prefix wildcard — the bare ``"*"`` soak rule deliberately
+    proves nothing) can arm.
+
+    Only statically enumerated seams are eligible, so the registry is
+    a subset of the faultmap by construction — the export can record
+    coverage, never invent it.  Refresh with ``python -m
+    fabric_tpu_torch.devtools.faultfuzz --export-registry`` after adding
+    a seam plus the chaos test that arms it."""
+    import shutil
+    import tempfile
+
+    from . import lint as lintmod
+
+    root = tempfile.mkdtemp(prefix="faultmap-")
+    try:
+        runtime = Campaign(
+            seed=0, plans=0, blocks=blocks, comm=comm
+        ).discover(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fm = lintmod.lint_tree(cache=False).faultmap()
+    seam_kinds: dict = {}
+    for s in fm["seams"]:
+        seam_kinds.setdefault(s["name"], set()).add(s["kind"])
+    exact = set()
+    prefixes = []
+    for rule in fm["plans"]:
+        if rule["wildcard"]:
+            if rule["point"] != "*":
+                prefixes.append(rule["point"][:-1])  # "x.*" -> "x."
+        else:
+            exact.add(rule["point"])
+    points = {}
+    for name, kinds in sorted(seam_kinds.items()):
+        armable = (
+            name in runtime
+            or name in exact
+            or any(name.startswith(p) for p in prefixes)
+        )
+        if armable:
+            points[name] = {"kinds": sorted(kinds)}
+    return {"points": points}
+
+
+def main(argv=None) -> int:
+    """``python -m fabric_tpu_torch.devtools.faultfuzz --export-registry
+    [PATH]``: refresh the pinned chaos-coverage registry (the port's
+    counterpart of the JAX package's ``scripts/chaos.py
+    --export-registry``) and print one JSON line."""
+    import argparse
+
+    from . import lint as lintmod
+
+    ap = argparse.ArgumentParser(
+        prog="python -m fabric_tpu_torch.devtools.faultfuzz",
+        description="the port's chaos-coverage registry export",
     )
+    ap.add_argument("--export-registry", nargs="?", default=None,
+                    const="", metavar="PATH",
+                    help="refresh the pinned chaos-coverage registry "
+                         "(observer-plan discovery on the canned "
+                         "workload unioned with every seam a pinned "
+                         "plan rule can arm, restricted to statically "
+                         "enumerated seams) and exit; PATH defaults to "
+                         "the in-tree fabric_tpu_torch/devtools/"
+                         "faultmap_registry.json that the port's "
+                         "chaos-coverage rule cross-checks")
+    args = ap.parse_args(argv)
+    if args.export_registry is None:
+        ap.error("nothing to do: pass --export-registry [PATH]")
+    path = args.export_registry or lintmod.FAULTMAP_REGISTRY_PATH
+    reg = export_registry()
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(json.dumps(reg, indent=2, sort_keys=True) + "\n")
+    print(json.dumps({
+        "experiment": "faultmap-registry",
+        "path": path,
+        "points": len(reg["points"]),
+    }, sort_keys=True))
+    return 0
 
 
 __all__ = [
@@ -955,3 +1027,7 @@ __all__ = [
     "Campaign",
     "export_registry",
 ]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

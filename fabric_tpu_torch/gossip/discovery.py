@@ -45,6 +45,9 @@ class DiscoveryCore:
         self._alive_every = alive_interval_ticks
         self._expire_after = expiration_ticks
         self._peers: dict[bytes, PeerState] = {}
+        # fabriclint: allow[taint] the incarnation is the process's start
+        # time by protocol (as the JAX package's): peers order one
+        # member's alive messages by it and never recompute it
         self._inc = int(time.time() * 1000)  # incarnation: process start
         self._seq = 0
         self._tick = 0

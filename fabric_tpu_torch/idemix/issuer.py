@@ -79,6 +79,8 @@ class IssuerPublicKey:
     def hash(self) -> bytes:
         import hashlib
 
+        # fabriclint: allow[csp-seam] idemix issuer-key fingerprint,
+        # part of the BN254 credential domain, not the P-256 seam
         return hashlib.sha256(self.digest_material()).digest()
 
     def to_dict(self) -> dict:

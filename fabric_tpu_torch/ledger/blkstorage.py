@@ -39,8 +39,8 @@ import struct
 import threading
 
 from fabric_tpu_torch import protoutil
-from fabric_tpu_torch.devtools import faultline
-from fabric_tpu_torch.ledger.kvstore import KVStore, MemKVStore, NamedDB, knob
+from fabric_tpu_torch.devtools import faultline, knob_registry
+from fabric_tpu_torch.ledger.kvstore import KVStore, MemKVStore, NamedDB
 from fabric_tpu_torch.protos import common as cb
 from fabric_tpu_torch.protos.wire import DecodeError
 
@@ -60,7 +60,7 @@ def segment_size(override: int | None = None) -> int:
     (k and m suffixes accepted; default 16 MiB, at least 4 KiB)."""
     if override is not None:
         return max(_MIN_SEGMENT, int(override))
-    raw = knob("FABRIC_TPU_STORE_SEGMENT").strip().lower()
+    raw = knob_registry.raw("FABRIC_TPU_STORE_SEGMENT").strip().lower()
     if not raw:
         return DEFAULT_SEGMENT
     mult = 1

@@ -32,7 +32,7 @@ import time
 
 from fabric_tpu_torch import protoutil
 from fabric_tpu_torch.common import tracing
-from fabric_tpu_torch.devtools import faultline
+from fabric_tpu_torch.devtools import faultline, knob_registry
 from fabric_tpu_torch.devtools.lockwatch import guarded, named_rlock
 from fabric_tpu_torch.ledger import snapshot as snap
 from fabric_tpu_torch.ledger.blkstorage import BlockStore, BlockStoreError
@@ -42,7 +42,6 @@ from fabric_tpu_torch.ledger.kvstore import (
     KVStore,
     NamedDB,
     WriteBatchCollector,
-    knob,
     open_store_root,
     wipe_prefix,
 )
@@ -137,7 +136,7 @@ def _history_writes(rwsets: list, flags: list[int],
 def _recovery_group_size() -> int:
     """Blocks replayed per KV transaction on recovery
     (FABRIC_TPU_RECOVERY_GROUP, default 32, at least 1)."""
-    raw = knob("FABRIC_TPU_RECOVERY_GROUP").strip()
+    raw = knob_registry.raw("FABRIC_TPU_RECOVERY_GROUP").strip()
     if not raw:
         return 32
     try:
@@ -304,6 +303,10 @@ class KVLedger:
                     "another commit group holds unflushed blocks for "
                     f"ledger {self.ledger_id!r}")
             try:
+                # fabriclint: allow[lock-discipline] the faultline stage
+                # points inside may inject delays under the commit lock BY
+                # DESIGN (chaos latency testing); with no plan armed they
+                # are zero-overhead no-ops
                 self._commit_into(block, pvt_data, missing_pvt, rwsets,
                                   assist, g)
             except BaseException as exc:

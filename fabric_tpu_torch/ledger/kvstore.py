@@ -22,24 +22,8 @@ import time
 import zlib
 from typing import Iterator
 
-from fabric_tpu_torch.devtools import faultline
+from fabric_tpu_torch.devtools import faultline, knob_registry
 from fabric_tpu_torch.devtools.lockwatch import guarded, named_lock, named_rlock
-
-# the environment variables the port's ledger and commit path read (as the
-# JAX package does, with the same defaults and errors)
-KNOBS = ("FABRIC_TPU_SQLITE_SYNC", "FABRIC_TPU_WAL_CHECKPOINT",
-         "FABRIC_TPU_STORE_SEGMENT", "FABRIC_TPU_RECOVERY_GROUP",
-         "FABRIC_TPU_STORE_SHARDS", "FABRIC_TPU_STORE_POOL",
-         "FABRIC_TPU_MVCC_POOL", "FABRIC_TPU_COLLECT_POOL")
-
-
-def knob(name: str) -> str:
-    """The raw value of one of `KNOBS` in the environment, "" when unset;
-    the callers parse it."""
-    if name not in KNOBS:
-        raise KeyError(f"{name} is not a ledger setting of the port")
-    return os.environ.get(name, "")
-
 
 class KVStore:
     """Ordered byte-key store. Iteration is over a half-open [start, end)
@@ -119,7 +103,7 @@ def sqlite_sync_level() -> str:
     """PRAGMA synchronous: FABRIC_TPU_SQLITE_SYNC, else NORMAL (in WAL mode NORMAL may lose the last transactions on
     power loss but never corrupts; the block files are written first, so
     recovery replays what the KV store lost)."""
-    raw = knob("FABRIC_TPU_SQLITE_SYNC").strip().upper()
+    raw = knob_registry.raw("FABRIC_TPU_SQLITE_SYNC").strip().upper()
     if not raw:
         return "NORMAL"
     if raw not in _SQLITE_SYNC_LEVELS:
@@ -133,7 +117,7 @@ def sqlite_sync_level() -> str:
 def sqlite_wal_checkpoint() -> int:
     """wal_autocheckpoint in pages: FABRIC_TPU_WAL_CHECKPOINT, else
     sqlite's 1000; 0 turns automatic checkpoints off."""
-    raw = knob("FABRIC_TPU_WAL_CHECKPOINT").strip()
+    raw = knob_registry.raw("FABRIC_TPU_WAL_CHECKPOINT").strip()
     if not raw:
         return 1000
     try:
@@ -403,7 +387,7 @@ def store_shards(override: int | None = None) -> int:
     says then."""
     if override is not None:
         return max(1, min(int(override), _MAX_SHARDS))
-    raw = knob("FABRIC_TPU_STORE_SHARDS").strip()
+    raw = knob_registry.raw("FABRIC_TPU_STORE_SHARDS").strip()
     if not raw:
         return 1
     try:
@@ -726,7 +710,7 @@ def open_store_root(root_dir: str | None) -> KVStore:
 
 
 __all__ = [
-    "KNOBS", "knob", "KVStore", "MemKVStore", "SqliteKVStore",
+    "KVStore", "MemKVStore", "SqliteKVStore",
     "ShardedKVStore", "WriteBatchCollector", "NamedDB", "wipe_prefix",
     "open_kvstore", "open_store_root", "store_shards", "shard_of_namespace",
     "state_shard", "sqlite_sync_level", "sqlite_wal_checkpoint",

@@ -21,8 +21,8 @@ export files:
 
 The files' digests come from one `hash_batch` call of the caller's CSP
 (`CUDACSP.hash_batch` on the card, whose route picks B4 or hashlib; the
-host's hashlib when no CSP is given, as the JAX package's software
-provider).  `verify_snapshot` computes them again on import and refuses
+`common.hashing` seam when no CSP is given, as the JAX package's
+fallback).  `verify_snapshot` computes them again on import and refuses
 a tampered directory.
 
 Requests are kept under the ledger's bookkeeping/snapshot-request
@@ -45,7 +45,6 @@ is the fault point of a torn stream).
 
 from __future__ import annotations
 
-import hashlib
 import json
 import logging
 import os
@@ -202,7 +201,8 @@ def load_metadata(snapshot_dir: str) -> dict:
 
 def _hash_files(snapshot_dir: str, names, csp=None) -> dict[str, str]:
     """Each file's SHA-256 (hex) from one `csp.hash_batch` call over all
-    of them; without a CSP, the host's hashlib."""
+    of them; without a CSP, the `common.hashing` seam's `sha256_many`
+    (the same digests)."""
     blobs = []
     for name in names:
         path = os.path.join(snapshot_dir, name)
@@ -213,7 +213,9 @@ def _hash_files(snapshot_dir: str, names, csp=None) -> dict[str, str]:
     if csp is not None:
         digests = csp.hash_batch(blobs)
     else:
-        digests = [hashlib.sha256(b).digest() for b in blobs]
+        from fabric_tpu_torch.common.hashing import sha256_many
+
+        digests = sha256_many(blobs)
     return {name: d.hex() for name, d in zip(names, digests)}
 
 

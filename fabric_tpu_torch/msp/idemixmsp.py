@@ -70,6 +70,8 @@ class IdemixIdentity:
         return self._serialized
 
     def get_identifier(self) -> str:
+        # fabriclint: allow[csp-seam] pseudonym fingerprint over a BN254
+        # G1 point — idemix credential domain, not the P-256 seam
         return hashlib.sha256(bn.g1_to_bytes(self.nym)).hexdigest()
 
     @property

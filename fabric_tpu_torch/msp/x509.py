@@ -441,6 +441,9 @@ def verify_signed(issuer_key: P256PublicKey, tbs: bytes, signature: bytes,
         return False
     if not (0 < r < P256_N and 0 < s < P256_N):
         return False
+    # fabriclint: allow[csp-seam] the certificate parser's own signature
+    # digest, where the JAX package's `cryptography` X.509 verify hashes
+    # internally: certificate checks never batched through the CSP
     digest = hashlib.sha256(tbs).digest()
     # (r, s) and (r, n - s) verify alike; hostref holds the low one
     return hostref.verify_rs(issuer_key.x, issuer_key.y, digest, r,

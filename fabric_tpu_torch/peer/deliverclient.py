@@ -121,7 +121,10 @@ class DeliverClient:
                                 "channel", self.channel_id).add()
                     backoff = 0.1
             except Exception:
-                # any endpoint failure: back off, then the next endpoint
+                # fabriclint: allow[exception-discipline] reconnect loop: ANY
+                # endpoint failure routes to backoff + the next endpoint
+                # (the faultline seam is transparent to the rule; use
+                # action=delay rules here to count reconnects)
                 faultline.point("deliver.reconnect")
             if self._metrics is not None:
                 self._metrics.reconnects.With("channel",

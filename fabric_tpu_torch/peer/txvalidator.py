@@ -45,9 +45,8 @@ import numpy as np
 from fabric_tpu_torch import native, protoutil
 from fabric_tpu_torch.common import tracing, workpool
 from fabric_tpu_torch.csp.api import VerifyBatchItem
-from fabric_tpu_torch.devtools import faultline
+from fabric_tpu_torch.devtools import faultline, knob_registry
 from fabric_tpu_torch.ledger.kvledger import CommitAssist
-from fabric_tpu_torch.ledger.kvstore import knob
 from fabric_tpu_torch.peer.validation_plugins import (
     IllegalWritesetError,
     PluginRegistry,
@@ -168,7 +167,7 @@ class TxValidator:
             self._collect_width = 0
         elif collect_width is not None:
             self._collect_width = max(0, collect_width)
-        elif knob("FABRIC_TPU_COLLECT_POOL").strip():
+        elif knob_registry.raw("FABRIC_TPU_COLLECT_POOL").strip():
             self._collect_width = workpool.stage_width(
                 "FABRIC_TPU_COLLECT_POOL")
         else:

@@ -37,7 +37,8 @@ def _compile(policy: cb.SignaturePolicy, identities, deserializer):
                 try:
                     deserializer.satisfies_principal(ident, principal)
                 except Exception:
-                    # a principal mismatch is the expected per-lane outcome
+                    # fabriclint: allow[exception-discipline] principal
+                    # mismatch is the expected per-lane outcome, not an error
                     continue
                 used[pos] = True
                 return True

@@ -45,6 +45,8 @@ def make_channel_header(header_type: int, channel_id: str, tx_id: str = "",
                         epoch: int = 0, extension: bytes = b"",
                         version: int = 0,
                         timestamp: float | None = None) -> cb.ChannelHeader:
+    # fabriclint: allow[determinism] client-side tx-authoring timestamp;
+    # validators never recompute or compare it against their own clocks
     ts = time.time() if timestamp is None else timestamp
     return cb.ChannelHeader(
         type=header_type, version=version, channel_id=channel_id,

@@ -30,6 +30,7 @@ from fabric_tpu_torch.common.channelconfig import (
 )
 from fabric_tpu_torch import protoutil as port_pu
 from fabric_tpu_torch.csp.cuda.provider import CUDACSP
+from fabric_tpu_torch.devtools import knob_registry
 from fabric_tpu_torch.ledger import kvstore
 from fabric_tpu_torch.ledger.kvledger import LedgerProvider
 from fabric_tpu_torch.peer.committer import Committer
@@ -251,7 +252,7 @@ def test_the_sharded_store_and_a_missing_sqlite3_raise(tmp_path, monkeypatch):
         LedgerProvider(str(tmp_path / "nosqlite"))
     assert not os.path.exists(tmp_path / "nosqlite" / "index.sqlite")
     with pytest.raises(KeyError):
-        kvstore.knob("FABRIC_TPU_NOT_A_SETTING")
+        knob_registry.raw("FABRIC_TPU_NOT_A_SETTING")
 
 
 def test_txids_repeated_depth_blocks_later_are_caught_while_commits_land(

@@ -17,12 +17,15 @@ package's.
   equal.
 - One multi-process run in each package: `Topology(orgs=1,
   peers_per_org=2, orderers=1, seed=7)` (its batch timer at 1 s, so that
-  only the count cuts blocks), 80 transactions, one peer SIGKILLed.  The verdicts are equal but for `rpcmap_sha256`, and the
-  final state digests are equal; the port's repro replays to the same
-  verdict, and every node exits 0 on SIGTERM.
-- The pinned divergences: the port's verdict carries `rpcmap_sha256:
-  null` (no fabriclint on the port yet), its `replay_repro` refuses a
-  repro that pins a hash, and its `export_registry` raises.
+  only the count cuts blocks), 80 transactions, one peer SIGKILLed.  The verdicts are equal but for `rpcmap_sha256` (each
+  package's hash of its own tree's static RPC map), and the final state
+  digests are equal; the port's repro, which pins the port's hash,
+  replays to the same verdict, and every node exits 0 on SIGTERM.
+- fabriclint's two harness functions: the port's verdict pins the sha256
+  of the port's fabriclint rpcmap, `replay_repro` replays a repro that
+  pins it and refuses (`NetError`) one that pins another (a pinned
+  divergence: the JAX package's replays any), and `export_registry`
+  gives the checked-in `faultmap_registry.json`.
 """
 
 from __future__ import annotations
@@ -423,8 +426,15 @@ def test_faultfuzz_registry_and_campaign_as_the_reference(tmp_path):
 
 
 def test_export_registry_raises_until_the_ports_fabriclint():
-    with pytest.raises(NotImplementedError, match="fabriclint"):
-        pff.export_registry()
+    """(The port's fabriclint is in: the export runs, and it is the
+    checked-in registry, which the JAX package's registry equals.)"""
+    from fabric_tpu_torch.devtools import lint as plint
+
+    exported = pff.export_registry()
+    with open(plint.FAULTMAP_REGISTRY_PATH, encoding="utf-8") as f:
+        pinned = json.load(f)
+    assert exported == pinned
+    assert len(pinned["points"]) == 40
 
 
 # ---------------------------------------------------------------------------
@@ -467,36 +477,67 @@ def test_a_kill9_run_gives_the_references_verdict_and_state(tmp_path):
     pres, pdig, rcs = _network_run("port", str(tmp_path / "port"))
     assert pres["errors"] == [] and pres["ok"], pres
     jv, pv = jnh.verdict_doc(jres), pnh.verdict_doc(pres)
-    assert pv.pop("rpcmap_sha256") is None
+    assert pv.pop("rpcmap_sha256") == pnh.rpcmap_hash()
     jv.pop("rpcmap_sha256")
     assert json.dumps(pv, sort_keys=True) == json.dumps(jv, sort_keys=True)
     assert pv["caught_up"] == ["org1-peer1"]
     assert len(set(pdig.values())) == 1
     assert pdig == jdig
     assert rcs == {"orderer1": 0, "org1-peer0": 0, "org1-peer1": 0}
-    # the port's repro (its pin null) replays to the same verdict
+    # the port's repro (it pins the port's hash) replays to the same
+    # verdict
     path = pnh.write_repro(pres, str(tmp_path / "repro.json"))
     replayed = pnh.replay_repro(path, str(tmp_path / "replay"))
     assert pnh.verdict_doc(replayed) == pnh.verdict_doc(pres)
 
 
+_RESULT = {"seed": 7, "topology": pnh.Topology().as_dict(),
+           "kill_schedule": [], "txs": 10, "ok": True,
+           "state_digests_agree": True, "stalled_nodes": [],
+           "violations": {}, "missing": [], "catch_up_s": {},
+           "partition_schedule": [], "partition_checks": [],
+           "heal_catch_up_s": {}}
+
+
+def test_the_verdict_pins_the_ports_rpcmap_and_a_repro_pinning_it_replays(
+        tmp_path, monkeypatch):
+    """The verdict keeps every key of the reference's and pins the sha256
+    of the port's canonical-JSON static rpcmap; a repro that pins it gets
+    past the drift check to the network (stood in for here: the kill9
+    test replays a real one)."""
+    import hashlib
+
+    from fabric_tpu_torch.devtools.lint import lint_tree
+
+    digest = pnh.rpcmap_hash()
+    want = hashlib.sha256(json.dumps(
+        lint_tree().rpcmap(), sort_keys=True,
+        separators=(",", ":")).encode()).hexdigest()
+    assert digest == want and len(digest) == 64
+    verdict = pnh.verdict_doc(_RESULT)
+    assert set(verdict) == set(jnh.verdict_doc(_RESULT))
+    assert verdict["rpcmap_sha256"] == digest
+    path = pnh.write_repro(_RESULT, str(tmp_path / "r.json"))
+    monkeypatch.setattr(pnh, "Network", _no_network)
+    with pytest.raises(_Started):
+        pnh.replay_repro(path, str(tmp_path / "replay"))
+
+
+class _Started(Exception):
+    """A replay got past its checks to the network."""
+
+
+def _no_network(*a, **k):
+    raise _Started
+
+
 def test_the_ports_verdict_pins_no_rpcmap_and_replay_refuses_a_pin(
-        tmp_path):
-    """The temporary divergence until the port's fabriclint: the verdict
-    keeps every key of the reference's with `rpcmap_sha256` null, and a
-    repro that pins a hash (as every reference repro does) is refused
-    before any node starts."""
-    assert pnh.rpcmap_hash() is None
-    result = {"seed": 7, "topology": pnh.Topology().as_dict(),
-              "kill_schedule": [], "txs": 10, "ok": True,
-              "state_digests_agree": True, "stalled_nodes": [],
-              "violations": {}, "missing": [], "catch_up_s": {},
-              "partition_schedule": [], "partition_checks": [],
-              "heal_catch_up_s": {}}
-    verdict = pnh.verdict_doc(result)
-    assert set(verdict) == set(jnh.verdict_doc(result))
-    assert verdict["rpcmap_sha256"] is None
-    path = pnh.write_repro(result, str(tmp_path / "r.json"))
+        tmp_path, monkeypatch):
+    """A repro that pins another tree's rpcmap hash is refused
+    (`NetError`) before any node starts: the RPC surface it certified
+    has drifted.  A pinned divergence: the JAX package's `replay_repro`
+    goes on to the network whatever the pin."""
+    path = pnh.write_repro(dict(_RESULT), str(tmp_path / "r.json"))
     with open(path) as f:
         doc = json.load(f)
     doc["verdict"]["rpcmap_sha256"] = "ab" * 32
@@ -505,3 +546,6 @@ def test_the_ports_verdict_pins_no_rpcmap_and_replay_refuses_a_pin(
     with pytest.raises(pnh.NetError, match="drifted"):
         pnh.replay_repro(path, str(tmp_path / "replay"))
     assert not os.path.exists(str(tmp_path / "replay"))
+    monkeypatch.setattr(jnh, "Network", _no_network)
+    with pytest.raises(_Started):
+        jnh.replay_repro(path, str(tmp_path / "jax-replay"))

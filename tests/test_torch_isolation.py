@@ -418,7 +418,9 @@ def test_no_file_of_the_port_imports_forbidden_modules():
         "cmd/idemixgen.py", "devtools/invariants.py",
         "devtools/netident.py", "devtools/netnode.py",
         "devtools/netharness.py", "devtools/netscope.py",
-        "devtools/faultfuzz.py"} <= scanned
+        "devtools/faultfuzz.py", "devtools/dataflow.py",
+        "devtools/lint.py", "devtools/guards.py", "devtools/allowlist.py",
+        "devtools/lintci.py"} <= scanned
     bad = []
     for path in _port_files():
         for name in _imported(path):

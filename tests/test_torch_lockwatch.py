@@ -9,6 +9,11 @@ exactly.  Both run in the mode the test session arms
 (FABRIC_TPU_LOCKWATCH=1, FABRIC_TPU_THREADWATCH=1); each script's roles
 and threads carry a prefix of their own, and the fixture takes them out
 of both modules' graphs and ledgers afterwards.
+
+The last test is the counterpart of the JAX package's
+`tests/test_lockwatch.py` runtime-in-static check: a CPU commit and
+snapshot session of the port, whose every lock-order edge lockwatch
+observed must be an edge of the port's fabriclint static lock graph.
 """
 
 import threading
@@ -222,3 +227,48 @@ def test_the_watch_is_armed_by_the_same_knobs(monkeypatch):
         assert type(lw.spawn_thread(lambda: None)) is threading.Thread
     monkeypatch.setenv("FABRIC_TPU_LOCKWATCH", "record")
     assert not port_lw._raise_mode() and not jax_lw._raise_mode()
+
+
+def test_runtime_lock_graph_is_subgraph_of_static(tmp_path):
+    """Every acquisition-order edge the port's lockwatch observes during
+    a live commit and snapshot session (8 blocks of 10 through the
+    committer, a snapshot request the commit crosses, then `generate()`)
+    is an edge of the port's static lock-order graph."""
+    import chip_smoke
+    from fabric_tpu_torch.common import workpool
+    from fabric_tpu_torch.common.channelconfig import bundle_from_genesis
+    from fabric_tpu_torch.csp.cuda.provider import CUDACSP
+    from fabric_tpu_torch.devtools.lint import lint_tree
+    from fabric_tpu_torch.ledger.kvledger import LedgerProvider
+    from fabric_tpu_torch.peer.committer import Committer
+    from fabric_tpu_torch.peer.txvalidator import TxValidator
+    from fabric_tpu_torch.protos import common as cb
+
+    assert port_lw.enabled() and port_lw._raise_mode()
+    world = chip_smoke.validator_world(17)
+    blocks, _, _ = chip_smoke.validator_blocks(
+        world, 8, 10, world.genesis_hash, mvcc=True)
+    csp = CUDACSP(device="cpu", min_device_batch=1 << 30)
+    provider = LedgerProvider(str(tmp_path / "ledger"), csp=csp)
+    try:
+        ledger = provider.create(cb.Block.decode(world.genesis))
+        mgr = ledger.snapshots
+        mgr.submit_request(chip_smoke.SNAP_BLOCK)
+        committer = Committer(TxValidator(
+            chip_smoke.VALIDATOR_CHANNEL, ledger,
+            bundle_from_genesis(world.genesis), csp), ledger)
+        list(committer.store_stream(blocks, depth=3))
+        assert mgr.wait_idle(timeout=30)
+        mgr.generate()
+    finally:
+        provider.close()
+        workpool.shutdown()
+    observed = [(s, d) for s, ds in sorted(port_lw.edges().items())
+                for d in sorted(ds) if not s.startswith(PFX)]
+    assert ("kvledger.commit_lock", "snapshot.manager") in observed
+    assert not _violations(port_lw) and not [
+        v for v in port_lw.violations if not _mine(v)]
+    static = lint_tree().lock_graph()["edges"]
+    missing = [(s, d) for s, d in observed if d not in static.get(s, {})]
+    assert not missing, (
+        f"runtime lockwatch edges missing from the static graph: {missing}")
