@@ -531,9 +531,44 @@ HASH_ROUTE_SHAPES = ((55, 256), (55, 1024), (55, 2048), (55, 8192),
 # lengths up to 120); the 1 MiB edge messages and the snapshot's public
 # state are held against hashlib.
 HASH_PLAIN_MAX_BYTES = 4500
-# 32-bit integer operations of one compression: 64 rounds of ~25 and 48
-# schedule steps of ~13
-SHA_OPS_PER_COMPRESSION = 64 * 25 + 48 * 13
+# B4's bound counts one compression's instructions on this card's
+# instruction set, where a rotate is one funnel shift (SHF.R.W), logic of
+# three inputs one LOP3 and an add of three one IADD3.  A round: Sigma1
+# and Sigma0 (3 rotates and a LOP3 each), Ch and Maj (a LOP3 each): 10
+# logic; T1 = h + Sigma1 + Ch + (K + W) (2 adds), e = d + T1 and
+# a = T1 + Sigma0 + Maj: 4 adds.  A schedule step: sigma0 and sigma1 (2
+# rotates, a shift and a LOP3 each): 8 logic; W (2 adds) and K + W: 3
+# adds.  The first 16 K + W and the state's 8 adds end it.  So 1,024
+# logic and 424 adds, 1,448 in all.
+SHA_LOGIC_PER_COMPRESSION = 64 * 10 + 48 * 8
+SHA_ADDS_PER_COMPRESSION = 64 * 4 + 48 * 3 + 16 + 8
+# The rates they meet, from the CUDA C++ Programming Guide's throughput
+# table for compute capability 9.0: 64 results a clock an SM for 32-bit
+# shifts and bitwise operations (the integer pipe), and an add may go
+# as an integer multiply-add (IMAD, 64 a clock an SM, on the FMA pipe),
+# as the compiler does with part of them; the four schedulers of an SM
+# dispatch at most 4 x 32 results a clock in all.  Times the SMs and the max
+# SM clock that nvidia-smi reports.  (OPS_PER_S_32BIT, the float32 FMA
+# rate counting an FMA as two, stays for B1-B3's IMAD.WIDE.)
+INT32_RESULTS_PER_CLOCK_SM = 64
+DISPATCH_RESULTS_PER_CLOCK_SM = 4 * 32
+# The count the bound used before (source operations: 5 for each Sigma,
+# Ch 4, Maj 5, every add apart; 64 rounds of ~25, 48 steps of ~13) over
+# OPS_PER_S_32BIT, printed beside it once
+SHA_SOURCE_OPS_PER_COMPRESSION = 64 * 25 + 48 * 13
+# B4's alignment set: a message starting at every address mod 16, at each
+# of these lengths (the padding edges and a few full blocks), and the
+# ragged warp: one long message among 31 empty ones in one warp pair
+HASH_ALIGN_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 200)
+HASH_RAGGED_BYTES = 1 << 20
+HASH_RAGGED_WARP = 32
+# Messages of the batch wider than the card holds at once
+HASH_MANY = (8192, 55)
+# concurrent hash_batch callers on one provider, and their calls each
+HASH_THREADS = 2
+HASH_THREAD_CALLS = 4
+# kernel_ms: bare launches between one pair of CUDA events
+KERNEL_COUNT = 20
 
 # BN254 field multiplications: a mixed add 11, a full add 16, a doubling
 # 7; a CIOS product at R = 2^256 is 64 32x32->64-bit multiply-adds for
@@ -763,6 +798,64 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(launch, reps: int = TIMING_REPS,
+              count: int = KERNEL_COUNT) -> float:
+    """A kernel's own milliseconds a launch: `launch` is the bare launch
+    its wrapper makes (a prepared ctypes call on the current stream,
+    returning the CUDA error code).  After a checked warm-up, `count`
+    launches go back to back between one pair of CUDA events, behind a
+    spin of the card long enough for the host to queue them all, so no
+    host gap falls inside the window; the median of `reps` such windows,
+    divided by `count`."""
+    check(launch() == 0, "the kernel's launch failed")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(count * 40_000)  # ~20 us a launch to queue
+        start.record()
+        for _ in range(count):
+            launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    return statistics.median(times)
+
+
+def profiler_ms(launch, count: int = KERNEL_COUNT):
+    """The device time a launch that torch.profiler's key_averages() give
+    for `count` bare launches (ms), or None when it shows no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(count):
+            launch()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        total_us += (getattr(evt, "self_device_time_total", 0)
+                     or getattr(evt, "self_cuda_time_total", 0) or 0)
+    return total_us / count / 1e3 if total_us > 0 else None
+
+
+def timed_row(name: str, launch, wrapper, reps: int = TIMING_REPS) -> dict:
+    """A kernel's kernel-only ms (`kernel_ms`), its profiler ms and its
+    ms a wrapper call (CUDA events around one wrapper call), printed."""
+    ms = kernel_ms(launch, reps)
+    prof = profiler_ms(launch)
+    wrapper_ms = cuda_ms(wrapper, reps)
+    shown = "no device time" if prof is None else f"{prof:.4f} ms"
+    print(f"{name}: kernel-only {ms:.4f} ms a launch ({KERNEL_COUNT} bare "
+          f"launches between CUDA events, median of {reps}); profiler "
+          f"{shown}; a wrapper call {wrapper_ms:.4f} ms")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "profiler_ms": prof}
 
 
 def bound_muls(packed: dict) -> int:
@@ -1007,6 +1100,19 @@ def phase_edges(rng, device, errs: dict, n: int = EDGE_LANES) -> None:
           f"({n - sum(expect)} rejected)")
 
 
+def spread_items(rng, n: int, many_keys: int = MANY_KEYS) -> list:
+    """n lanes signed by many_keys keys in turn: the batch that overflows
+    the key table and takes the per-lane-key kernel."""
+    many = [hostref.key_gen(rng) for _ in range(many_keys)]
+    spread = []
+    for i in range(n):
+        key = many[i % many_keys]
+        digest = hashlib.sha256(b"spread-%d" % i).digest()
+        spread.append(VerifyBatchItem(
+            key.public_key(), digest, hostref.sign(key, digest, rng)))
+    return spread
+
+
 def phase_main(rng, device, n_txs: int = N_TXS, n_blocks: int = N_BLOCKS,
                many_keys: int = MANY_KEYS):
     """The main path, counted; returns what the kernel timings need."""
@@ -1014,13 +1120,7 @@ def phase_main(rng, device, n_txs: int = N_TXS, n_blocks: int = N_BLOCKS,
     t0 = time.perf_counter()
     block = block_items(rng, client, peers[:ENDORSERS], n_txs)
     bad_block, bad = plant_bad(block)
-    many = [hostref.key_gen(rng) for _ in range(many_keys)]
-    spread = []
-    for i in range(n_txs * (1 + ENDORSERS)):
-        key = many[i % many_keys]
-        digest = hashlib.sha256(b"spread-%d" % i).digest()
-        spread.append(VerifyBatchItem(
-            key.public_key(), digest, hostref.sign(key, digest, rng)))
+    spread = spread_items(rng, n_txs * (1 + ENDORSERS), many_keys)
     print(f"signing: {time.perf_counter() - t0:.1f} s for "
           f"{len(block) + len(spread)} lanes")
     sample = list(range(0, len(block), len(block) // 32))
@@ -1106,7 +1206,9 @@ def phase_kernels(device, launches: dict, shapes: dict, errs: dict,
     for name, packed in shapes.items():
         compare(name, packed, device, errs)
         t = pk.upload(packed, device)
-        ms = cuda_ms(lambda: pk.verify_packed(t), reps)
+        timed = timed_row(name, pk.launcher(t)[0],
+                          lambda: pk.verify_packed(t), reps)
+        ms = timed["ms"]
         plain_ms = cuda_ms(lambda: pk.verify_packed_plain(t), plain_reps)
         bound_ms, bound_by = bound(packed, name.endswith("keytab"))
         lanes = packed["d1"].shape[1]
@@ -1129,6 +1231,8 @@ def phase_kernels(device, launches: dict, shapes: dict, errs: dict,
             "launches": launches[name],
             "max_abs_err": seen["max_abs_err"],
             "ms": ms,
+            "wrapper_ms": timed["wrapper_ms"],
+            "profiler_ms": timed["profiler_ms"],
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
@@ -2082,7 +2186,9 @@ def phase_b3_kernel(main: dict, errs: dict, reps: int = TIMING_REPS,
                     plain_reps: int = PLAIN_REPS) -> dict:
     t = main["tensors"]
     compare_b3(t, errs)
-    ms = cuda_ms(lambda: bk.commitments(t), reps)
+    timed = timed_row(B3_NAME, bk.launcher(t)[0], lambda: bk.commitments(t),
+                      reps)
+    ms = timed["ms"]
     plain_ms = cuda_ms(lambda: bk.commitments_plain(t), plain_reps)
     bound_ms, bound_by = b3_bound(main["packed"], main["n_shared"])
     per_lane, longest, longest_reduce = b3_kernel_muls(main["packed"],
@@ -2114,6 +2220,8 @@ def phase_b3_kernel(main: dict, errs: dict, reps: int = TIMING_REPS,
         "launches": main["launches"],
         "max_abs_err": seen["max_abs_err"],
         "ms": ms,
+        "wrapper_ms": timed["wrapper_ms"],
+        "profiler_ms": timed["profiler_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -2141,17 +2249,41 @@ def random_messages(rng, lens) -> list[bytes]:
     return [raw[e - int(n):e] for e, n in zip(ends, lens)]
 
 
-def b4_bound(msgs) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") for hashing `msgs`: the
-    messages and their offsets read once and the digests written once over
-    the HBM rate, against the compressions they need times the integer
-    operations of one over the 32-bit peak."""
+def sm_clocks() -> tuple[float, float]:
+    """The SM clock now and its max (MHz), as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    now, top = (float(v) for v in out.split(","))
+    return now, top
+
+
+def b4_bound(msgs, device) -> tuple[float, str, float]:
+    """(least ms, "bytes" or "operations", the figure the bound gave
+    before) for hashing `msgs`: the messages and their offsets read once
+    and the digests written once over the HBM rate, against the
+    compressions they need, each SHA_LOGIC_PER_COMPRESSION shifts and
+    logic on the integer pipe and SHA_ADDS_PER_COMPRESSION adds that may
+    go to the FMA pipe: the larger of logic over
+    INT32_RESULTS_PER_CLOCK_SM and all of them over
+    DISPATCH_RESULTS_PER_CLOCK_SM, in clocks of an SM, over the SMs and the
+    max SM clock.  The third figure is SHA_SOURCE_OPS_PER_COMPRESSION
+    over OPS_PER_S_32BIT."""
     lens = np.array([len(m) for m in msgs], np.int64)
-    compressions = int(((lens + 9 + 63) // 64).sum())
-    t_ops = compressions * SHA_OPS_PER_COMPRESSION / OPS_PER_S_32BIT * 1e3
+    comps = int(((lens + 9 + 63) // 64).sum())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clocks = max(SHA_LOGIC_PER_COMPRESSION / INT32_RESULTS_PER_CLOCK_SM,
+                 (SHA_LOGIC_PER_COMPRESSION + SHA_ADDS_PER_COMPRESSION)
+                 / DISPATCH_RESULTS_PER_CLOCK_SM)
+    t_ops = comps * clocks / (sms * sm_clocks()[1] * 1e6) * 1e3
     nbytes = int(lens.sum()) + 8 * (len(msgs) + 1) + 32 * len(msgs)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    before = max(comps * SHA_SOURCE_OPS_PER_COMPRESSION / OPS_PER_S_32BIT
+                 * 1e3, t_bytes)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", before
+    return t_bytes, "bytes", before
 
 
 def host_ms(fn, reps: int) -> float:
@@ -2172,11 +2304,20 @@ def hashlib_digests(msgs) -> list[bytes]:
 
 
 def upload_messages(msgs, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's inputs: the messages joined on the card, their
+    """The kernel's inputs: the messages joined on the card (a fresh
+    allocation, so a message's offset mod 16 is its address's), their
     offsets pinned on the host."""
     buf, offs = sha.join_messages(msgs)
     return (torch.as_tensor(buf.copy(), device=device),
             torch.from_numpy(offs).pin_memory())
+
+
+def b4_launch(msgs, device):
+    """(B4's bare launch on `msgs`, the digests it writes): the messages
+    and offsets on the card, as the wrapper hands them to the kernel."""
+    t_buf, t_offs = upload_messages(msgs, device)
+    out = torch.empty((len(msgs), 32), dtype=torch.uint8, device=device)
+    return sha.launcher(t_buf, t_offs.to(device), out), out
 
 
 def compare_b4(name: str, msgs, device, errs: dict) -> list[bytes]:
@@ -2211,6 +2352,117 @@ def compare_b4(name: str, msgs, device, errs: dict) -> list[bytes]:
     return digests
 
 
+def aligned_messages(rng, lengths=HASH_ALIGN_LENGTHS) -> list[bytes]:
+    """A message of each length starting at every offset mod 16 of the
+    joined buffer: between them, filler messages of 0-15 bytes (hashed
+    and checked too) set where the next one starts."""
+    lens = []
+    pos = 0
+    for start in range(16):
+        for n in lengths:
+            filler = (start - pos) % 16
+            lens += [filler, n]
+            pos += filler + n
+    return random_messages(rng, np.array(lens))
+
+
+def ragged_warp(rng, n_bytes: int = HASH_RAGGED_BYTES,
+                lanes: int = HASH_RAGGED_WARP) -> list[bytes]:
+    """One long message among lanes - 1 empty ones: one warp pair whose
+    lanes but one are done after their first block."""
+    msgs = [b""] * lanes
+    msgs[lanes // 2 + 1] = random_messages(rng, np.array([n_bytes]))[0]
+    return msgs
+
+
+def hash_threads(csp: CUDACSP, batches: list,
+                 calls: int = HASH_THREAD_CALLS) -> int:
+    """Each batch hashed `calls` times through one provider by a thread of
+    its own, all at once; every answer must be hashlib's.  Returns B4's
+    launches."""
+    want = [hashlib_digests(m) for m in batches]
+    got: list = [None] * len(batches)
+    errors: list = []
+
+    def work(j):
+        try:
+            got[j] = [csp.hash_batch(batches[j]) for _ in range(calls)]
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    sha.launches_sha256 = 0
+    threads = [threading.Thread(target=work, args=(j,))
+               for j in range(len(batches))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"concurrent hash_batch raised: {errors[:1]}")
+    for j, runs in enumerate(got):
+        check(all(r == want[j] for r in runs),
+              f"concurrent hash_batch, thread {j}: != hashlib")
+    return sha.launches_sha256
+
+
+def route_split(msgs, device, reps: int = TIMING_REPS) -> dict:
+    """`CUDACSP.hash_batch`'s card route (`sha256_batch`) on `msgs` split
+    by stage (each ending in a synchronise): stage (the messages written
+    into a pinned tensor, the offsets), upload, kernel (the wrapper:
+    offsets checked and copied, the launch), readback, digests (the list
+    of bytes); ms, the median of `reps` runs after a warm-up."""
+    runs = []
+    for _ in range(reps + 1):
+        times: dict = {}
+        sha.sha256_batch(msgs, device, times)
+        runs.append(times)
+    return {k: statistics.median(r[k] for r in runs[1:]) * 1e3
+            for k in runs[0]}
+
+
+def wrapper_split(device, reps: int = 200) -> None:
+    """Where a call of `sha256_digests` on one empty message spends its
+    host time: each step's median microseconds over `reps` calls
+    (perf_counter, a synchronise after each call), then the profiler's
+    CPU ops over 20 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_buf, t_offs = upload_messages([b""], device)
+    steps = collections.defaultdict(list)
+    for _ in range(reps):
+        t = [time.perf_counter()]
+        n = sha._check(t_buf, t_offs)
+        t.append(time.perf_counter())
+        d_offs = t_offs.to(device, non_blocking=True)
+        t.append(time.perf_counter())
+        out = torch.empty((n, 32), dtype=torch.uint8, device=device)
+        t.append(time.perf_counter())
+        launch = sha.launcher(t_buf, d_offs, out)
+        t.append(time.perf_counter())
+        launch()
+        t.append(time.perf_counter())
+        sha.sha256_digests(t_buf, t_offs)
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        for name, a, b in zip(("check", "offsets to the card", "output",
+                               "launcher (library, stream, pointers)",
+                               "the launch (ctypes)", "a whole call"),
+                              t, t[1:]):
+            steps[name].append((b - a) * 1e6)
+    print(f"{B4_NAME} wrapper, one empty message, host us a step (median "
+          f"of {reps}): " + ", ".join(
+              f"{k} {statistics.median(v):.1f}" for k, v in steps.items()))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            sha.sha256_digests(t_buf, t_offs)
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.cpu_time_total)
+    print(f"{B4_NAME} wrapper, profiler over 20 calls (us a call): " +
+          ", ".join(f"{e.key} cpu {e.cpu_time_total / 20:.1f} device "
+                    f"{(getattr(e, 'device_time_total', 0) or 0) / 20:.1f}"
+                    for e in rows[:8]))
+
+
 def phase_hash_callers(rng, csp: CUDACSP, n_txs: int = HASH_TXS,
                        files=HASH_SNAPSHOT_FILES,
                        reps: int = TIMING_REPS) -> None:
@@ -2241,10 +2493,11 @@ def phase_hash_callers(rng, csp: CUDACSP, n_txs: int = HASH_TXS,
 
 
 def phase_hash_route(rng, device, shapes=HASH_ROUTE_SHAPES,
-                     reps: int = TIMING_REPS) -> None:
+                     reps: int = TIMING_REPS) -> int:
     """hash_batch's routing rule (`provider.hash_on_card`) against both
-    routes' times, the card's (`sha256_batch`: join, upload, B4,
-    readback) and hashlib's, on batches either side of its boundary."""
+    routes' times, the card's (`sha256_batch`: stage, upload, B4,
+    readback) and hashlib's, on batches either side of its boundary;
+    returns the shapes where the rule took the slower route."""
     wrong = 0
     for length, n in shapes:
         msgs = random_messages(rng, np.full(n, length))
@@ -2257,8 +2510,10 @@ def phase_hash_route(rng, device, shapes=HASH_ROUTE_SHAPES,
         print(f"hash route: {n} x {length} bytes ({n * blocks} "
               f"compressions, longest {blocks}): card {card:.3f} ms, "
               f"hashlib {lib:.3f} ms; rule takes {rule}, {faster} faster")
-    print(f"hash route: the rule took the slower route on {wrong} of "
-          f"{len(shapes)} shapes")
+    print(f"hash route: the rule (HASH_WIDTH {cuda_provider.HASH_WIDTH}, "
+          f"HASH_FIXED {cuda_provider.HASH_FIXED}) took the slower route "
+          f"on {wrong} of {len(shapes)} shapes")
+    return wrong
 
 
 def phase_sha256(rng, device, errs: dict, n_wide: int = HASH_WIDE_MSGS,
@@ -2266,12 +2521,14 @@ def phase_sha256(rng, device, errs: dict, n_wide: int = HASH_WIDE_MSGS,
                  files=HASH_SNAPSHOT_FILES, reps: int = TIMING_REPS,
                  plain_reps: int = PLAIN_REPS) -> dict:
     """B4: hash_batch at its callers' shapes (hashlib answers); the wide
-    batch through `CUDACSP.hash_batch` on the card, counted; the kernel
-    against hashlib and sha256_plain on the edge lengths, the wide batch
-    and the snapshot's files; the kernel (CUDA events), the whole
-    hash_batch call and hashlib timed on the wide batch, the kernel and
-    hashlib on the snapshot's files; the routing rule against both
-    routes.  Returns the kernels-line row."""
+    batch through `CUDACSP.hash_batch` on the card, counted; two threads
+    through one provider at once; the kernel against hashlib and
+    sha256_plain on the edge lengths, the alignment set, a ragged warp,
+    the wide batch and the snapshot's files; the kernel timed apart from
+    its wrapper (kernel_ms) and with it, hash_batch split by stage beside
+    hashlib on the wide batch, the kernel and hashlib on the snapshot's
+    files; the routing rule against both routes.  Returns
+    the kernels-line row."""
     csp = new_cuda_csp(device=device)
     phase_hash_callers(rng, csp)
     edge = random_messages(rng, np.array(edge_lengths))
@@ -2291,27 +2548,52 @@ def phase_sha256(rng, device, errs: dict, n_wide: int = HASH_WIDE_MSGS,
     print(f"hash card route: CUDACSP.hash_batch of {n_wide} messages "
           f"({sum(map(len, wide))} bytes) in {wall * 1e3:.1f} ms, "
           f"{launches} launches of {B4_NAME}; == hashlib")
+    halves = [wide[:n_wide // 2], wide[n_wide // 2:]]
+    check(all(hash_on_card(h) for h in halves), "a half of the wide batch "
+          "does not take the card route")
+    both = hash_threads(csp, halves[:HASH_THREADS])
+    print(f"hash card route: {HASH_THREADS} threads x {HASH_THREAD_CALLS} "
+          f"hash_batch calls of {len(halves[0])} messages through one "
+          f"provider at once: == hashlib, {both} launches of {B4_NAME}")
     compare_b4("edges", edge, device, errs)
+    compare_b4("alignment", aligned_messages(rng), device, errs)
+    compare_b4("ragged warp", ragged_warp(rng), device, errs)
     compare_b4("wide", wide, device, errs)
     compare_b4("snapshot files", snapshot, device, errs)
 
     t_buf, t_offs = upload_messages(wide, device)
-    ms = cuda_ms(lambda: sha.sha256_digests(t_buf, t_offs), reps)
+    timed = timed_row(f"{B4_NAME} wide", b4_launch(wide, device)[0],
+                      lambda: sha.sha256_digests(t_buf, t_offs), reps)
+    ms = timed["ms"]
     call_ms = host_ms(lambda: csp.hash_batch(wide), reps)
     lib_ms = host_ms(lambda: hashlib_digests(wide), reps)
-    bound_ms, bound_by = b4_bound(wide)
+    split = route_split(wide, device, reps)
+    bound_ms, bound_by, fp32_ms = b4_bound(wide, device)
     nbytes = sum(map(len, wide))
     print(f"{B4_NAME} wide: {n_wide} messages, {nbytes} bytes: kernel "
-          f"{ms:.3f} ms ({nbytes / ms / 1e6:.2f} GB/s), hash_batch "
-          f"{call_ms:.3f} ms, hashlib {lib_ms:.3f} ms "
-          f"({nbytes / lib_ms / 1e6:.2f} GB/s), bound {bound_ms:.4f} ms "
-          f"({bound_by}, {ms / bound_ms:.0f}x)")
+          f"{ms:.4f} ms ({nbytes / ms / 1e6:.2f} GB/s), a wrapper call "
+          f"{timed['wrapper_ms']:.4f} ms, hash_batch {call_ms:.3f} ms, "
+          f"hashlib {lib_ms:.3f} ms ({nbytes / lib_ms / 1e6:.2f} GB/s), "
+          f"bound {bound_ms:.4f} ms ({bound_by}: instructions on the "
+          f"integer and FMA pipes; {ms / bound_ms:.1f}x), {fp32_ms:.4f} ms "
+          f"by the source operations at the float32 rate used before")
+    print(f"{B4_NAME} wide: hash_batch's card route by stage (ms, median "
+          f"of {reps}, a synchronise after each): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in split.items()) +
+          f"; {sum(split.values()):.3f} in all, hashlib {lib_ms:.3f}")
+    wrapper_split(device)
+    for label, msgs in (("lone 4500 bytes", [bytes(4500)]),
+                        ("2048 x 55 bytes", [bytes(55)] * 2048),
+                        (f"{HASH_MANY[0]} x {HASH_MANY[1]} bytes",
+                         [bytes(HASH_MANY[1])] * HASH_MANY[0])):
+        kms = kernel_ms(b4_launch(msgs, device)[0], reps)
+        print(f"{B4_NAME} {label}: kernel-only {kms:.4f} ms")
     s_buf, s_offs = upload_messages(snapshot, device)
-    s_ms = cuda_ms(lambda: sha.sha256_digests(s_buf, s_offs), reps)
+    s_ms = kernel_ms(b4_launch(snapshot, device)[0], reps)
     s_lib = host_ms(lambda: hashlib_digests(snapshot), reps)
     print(f"{B4_NAME} snapshot files: {len(snapshot)} files, "
           f"{sum(map(len, snapshot))} bytes: kernel {s_ms:.3f} ms, hashlib "
-          f"{s_lib:.3f} ms (one thread a file; hash_batch takes hashlib)")
+          f"{s_lib:.3f} ms (a lane a file; hash_batch takes hashlib)")
     words, nblk = sha.pad_messages(wide)
     t_words = torch.as_tensor(words.astype(np.int64), device=device)
     t_nblk = torch.as_tensor(nblk, device=device)
@@ -2332,63 +2614,77 @@ def phase_sha256(rng, device, errs: dict, n_wide: int = HASH_WIDE_MSGS,
         "launches": launches,
         "max_abs_err": seen["max_abs_err"],
         "ms": ms,
+        "wrapper_ms": timed["wrapper_ms"],
+        "profiler_ms": timed["profiler_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_ms_fp32_rate": fp32_ms,
         "library_ms": None,  # no single PyTorch call computes SHA-256
         "hashlib_ms": lib_ms,
+        "hash_batch_ms": call_ms,
         "chain_floor_ms": chain,
+        "launches_threads": both,
     }
 
 
-def largest_loop(instrs: list[str]) -> list[str]:
-    """The instructions of the longest backward branch's loop (all of
-    them when there is none)."""
+def sass_spans(instrs: list[str]) -> list[list[str]]:
+    """Every backward branch's span of a kernel's SASS, from its target
+    to the branch."""
     addr = [int(i[2:i.index("*/")], 16) for i in instrs]
-    best = instrs
-    span = -1
+    spans = []
     for k, instr in enumerate(instrs):
         m = re.search(r"\bBRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", instr)
         if m and int(m.group(1), 16) < addr[k]:
-            start = addr.index(int(m.group(1), 16))
-            if k - start > span:
-                span = k - start
-                best = instrs[start:k + 1]
-    return best
+            spans.append(instrs[addr.index(int(m.group(1), 16)):k + 1])
+    return spans
+
+
+def b4_sass(path) -> tuple[list[str], list[str]]:
+    """The kernel's two loops in the built library `path`, told
+    apart by what they hold: (the consumer's block loop, with its shared
+    loads, LDS; the producer's, with its shared stores, STS).  A span
+    holding both is a barrier's retry branch, placed after both."""
+    kernels = build.sass(path)
+    name = next(k for k in kernels if "sha256_pair_kernel" in k)
+    spans = sass_spans(kernels[name])
+
+    def only(op, other):
+        return max((sp for sp in spans
+                    if any(opcode(i).startswith(op) for i in sp)
+                    and not any(opcode(i).startswith(other) for i in sp)),
+                   key=len)
+
+    return only("LDS", "STS"), only("STS", "LDS")
 
 
 def b4_chain_floor(wide, device, reps: int = TIMING_REPS) -> float:
-    """B4's serial-chain floor: one message is one thread's chain of
-    compressions, so a batch takes at least its longest message's
-    compressions times one compression's dependent chain.  That chain is
-    timed on the card with a lone thread (one message of the longest
-    length against one of 0 bytes, CUDA events), and set beside the SASS
-    of the compression loop and the SM clock; returns the floor in ms."""
+    """B4's serial-chain floor: a message's compressions are one chain,
+    so a batch takes at least its longest message's compressions times
+    one compression's latency.  That latency is timed on the card with a
+    lone message (one of the longest length against one of 0 bytes,
+    kernel-only), and set beside the SASS of the consumer's and the
+    producer's loops and the SM clock; returns the floor in ms."""
     longest = max(len(m) for m in wide)
     n_long = (longest + 72) >> 6  # compressions, padding in
-    msgs = {"long": [bytes(longest)], "short": [b""]}
-    t = {}
-    for name, m in msgs.items():
-        buf, offs = upload_messages(m, device)
-        t[name] = cuda_ms(lambda: sha.sha256_digests(buf, offs), reps)
+    t = {name: kernel_ms(b4_launch(m, device)[0], reps)
+         for name, m in (("long", [bytes(longest)]), ("short", [b""]))}
     per = (t["long"] - t["short"]) / (n_long - 1)
     floor = n_long * per
-    clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    max_mhz = float(clocks.split(",")[1])
-    ((_, instrs),) = build.sass(build.build_all()["sha256"]).items()
-    body = largest_loop(instrs)
-    cycles = per * 1e-3 * max_mhz * 1e6
-    print(f"{B4_NAME} serial chain: one thread, {longest} bytes ({n_long} "
-          f"compressions) {t['long']:.4f} ms, 0 bytes (1) {t['short']:.4f} "
-          f"ms: {per * 1e3:.3f} us a compression; the compression loop is "
-          f"{len(body)} SASS instructions ({sass_summary(body)}); SM clock "
-          f"{clocks} MHz (now, max): ~{cycles:.0f} cycles a compression at "
-          f"the max clock, {cycles / len(body):.2f} a loop instruction; "
-          f"floor {n_long} x {per * 1e3:.3f} us = {floor:.4f} ms for the "
-          f"wide batch's longest message")
+    now, top = sm_clocks()
+    consumer, producer = b4_sass(build.build_all()["sha256"])
+    cycles = per * 1e-3 * top * 1e6
+    print(f"{B4_NAME} serial chain: one message, {longest} bytes "
+          f"({n_long} compressions) {t['long']:.4f} ms, 0 bytes (1) "
+          f"{t['short']:.4f} ms, kernel-only: {per * 1e3:.3f} us a "
+          f"compression; the consumer's loop is {len(consumer)} SASS "
+          f"instructions ({sass_summary(consumer)}), the producer's "
+          f"{len(producer)} ({sass_summary(producer)}), "
+          f"{len(consumer) + len(producer)} in all a compression; SM clock "
+          f"{now:.0f}, {top:.0f} MHz (now, max): ~{cycles:.0f} cycles a "
+          f"compression at the max clock, {cycles / len(consumer):.2f} a "
+          f"consumer instruction; floor {n_long} x {per * 1e3:.3f} us = "
+          f"{floor:.4f} ms for the wide batch's longest message")
     return floor
 
 
@@ -5572,8 +5868,52 @@ class GossipPeer:
             store_ttl_ticks=GATEWAY_TTL_TICKS,
             leader_timeout_ticks=GATEWAY_LEADER_TIMEOUT,
             election_startup_ticks=GATEWAY_STARTUP_TICKS)
+        self.watch_commits()
         self.runner = GossipRunner(self.service, GATEWAY_TICK_S)
         self.runner.start()
+
+    def watch_commits(self) -> None:
+        """Times each pass of the state layer's ordered commit that
+        committed a block, (start, end, the thread's name) into `drains`,
+        and each leadership declaration's arrival into `declarations`:
+        the report sets the two side by side."""
+        self.drains: list = []
+        self.declarations: list = []
+        state = self.handle.state
+        drain = state._drain
+
+        def timed_drain():
+            t0, h0 = time.perf_counter(), self.coordinator.height
+            drain()
+            if self.coordinator.height > h0:
+                self.drains.append((t0, time.perf_counter(),
+                                    threading.current_thread().name))
+
+        def heard(rm):
+            m = rm.msg
+            if (m.which("content") == "leadership_msg"
+                    and m.leadership_msg.is_declaration):
+                self.declarations.append(time.perf_counter())
+
+        state._drain = timed_drain
+        self.comm.subscribe(heard)
+
+    def commit_report(self) -> str:
+        """Where the state layer's commits ran (the state worker, a
+        connection's reader, the deliver client), the longest of each in
+        s, and the declarations heard while the state worker committed."""
+        by: dict = collections.defaultdict(list)
+        for t0, t1, name in self.drains:
+            by[name].append(t1 - t0)
+        worker = [(t0, t1) for t0, t1, name in self.drains
+                  if name == "gossip-state-commit"]
+        during = sum(any(a <= d <= b for a, b in worker)
+                     for d in self.declarations)
+        return (f"{self.name}: commits " + ", ".join(
+            f"{name} {len(v)} (longest {max(v):.3f} s)"
+            for name, v in sorted(by.items())) +
+            f"; {len(self.declarations)} declarations heard, {during} of "
+            f"them while the state worker committed")
 
     @property
     def height(self) -> int:
@@ -6017,6 +6357,8 @@ def gateway_cell(world: ValidatorWorld, cluster: RaftCluster, peers: list,
         else:
             running_at.discard(k)
     leaders = sorted({k for _, k, what in events if what == "start"})
+    for p in [*peers, gone]:
+        print(f"gateway: {p.commit_report()}")
     check(not overlap and leaders == [0],
           f"deliver clients {sorted(events)}")
     check(late.client.delivered == 0 and gone.client.delivered == 0
@@ -8249,6 +8591,43 @@ def lint_only() -> int:
     return 0
 
 
+def hash_only() -> int:
+    """`--hash`: the kernels built, `phase_sha256`, then the kernel-only
+    and wrapper-call times of the other kernels' rows at their main
+    path's shapes (B1 on a flush of two blocks, B2 on the 300-key batch,
+    B3 on a 1024-signature batch; card only)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    print_device()
+    phase_build()
+    rng = np.random.default_rng(SEED)
+    errs: dict = {}
+    rows = {B4_NAME: phase_sha256(rng, device, errs)}
+    host_check("sha256")
+    client, peers = block_world(rng)
+    block = block_items(rng, client, peers[:ENDORSERS], N_TXS)
+    spread = spread_items(rng, len(block))
+    for name, items in ((B1_NAME, block + block), (B2_NAME, spread)):
+        t = pk.upload(pk.dedup_keys(pk.pack_items(items)), device)
+        rows[name] = timed_row(name, pk.launcher(t)[0],
+                               lambda t=t: pk.verify_packed(t))
+    world = idemix_world(SEED)
+    sigs = [sig for sig, _ in idemix_lanes(world, IDEMIX_LANES, b"main")]
+    n_attrs = len(world.ipk.h_attrs)
+    pts, scs, ok = bb.prepare_sigs(sigs, n_attrs)
+    t = bk.upload(bk.pack(pts, scs, ok, *bb.term_layout(n_attrs)),
+                  bb.shared_comb(bb.shared_points(world.ipk)), device)
+    rows[B3_NAME] = timed_row(B3_NAME, bk.launcher(t)[0],
+                              lambda: bk.commitments(t))
+    workpool.shutdown()
+    print(json.dumps({"kernel_times": {
+        name: {k: row[k] for k in ("ms", "wrapper_ms", "profiler_ms")}
+        for name, row in rows.items()}}))
+    return 0
+
+
 def print_device() -> str:
     """Prints the card's name, and its name and power limit as nvidia-smi
     gives them; returns the name."""
@@ -8278,10 +8657,12 @@ def main(argv=None) -> int:
         return nodes_only()
     if argv == ["--lint"]:
         return lint_only()
+    if argv == ["--hash"]:
+        return hash_only()
     if argv:
         print("usage: chip_smoke.py [--commit-ab PARENT_TREE [TURNS] | "
               "--multi-card | --shards-ab [TURNS] | --raft-orderer SPEC | "
-              "--nodes | --lint]", file=sys.stderr)
+              "--nodes | --lint | --hash]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -389,6 +389,39 @@ def _check(t: dict, device: torch.device) -> tuple[int, int, int]:
     return n_terms, n_shared, n
 
 
+def launcher(t: dict) -> tuple:
+    """The kernel's launch on the CUDA tensors `t`, prepared: (a call with
+    no arguments that launches its two phases once on the current stream,
+    with the term partials in a scratch tensor, and returns the CUDA error
+    code; the (75, B) int32 output it writes; the CUDA kernels a call
+    launches).  The tensors are checked here; the call counts nothing
+    (the wrapper counts its launches) and a timing calls it bare.  With
+    B = 0 the call is None."""
+    from fabric_tpu_torch.csp.cuda import build
+
+    dev = t["lanes"].device
+    lib = build.load("bn254_commit")
+    n_terms, n_shared, n = _check(t, dev)
+    out = torch.empty((OUT_ROWS, n), dtype=torch.int32, device=dev)
+    if n == 0:
+        return None, out, 0
+    part = torch.empty((PART_ROWS * n_terms, n), dtype=torch.int32,
+                       device=dev)
+    ptr = ctypes.c_void_p
+    args = [
+        ptr(t["lanes"].data_ptr()), ptr(t["laneinf"].data_ptr()),
+        ptr(t["digits"].data_ptr()), ptr(t["termmeta"].data_ptr()),
+        ctypes.c_int(n_terms),
+        ptr(t["comb_xy"].data_ptr()), ptr(t["comb_inf"].data_ptr()),
+        ctypes.c_int(n_shared), ptr(part.data_ptr()),
+        ptr(out.data_ptr()), ctypes.c_int(n),
+        ptr(torch.cuda.current_stream(dev).cuda_stream),
+    ]
+    return (build.Launch(lib.bn254_commitments, args,
+                         (*t.values(), part, out)),
+            out, 2 if n_terms else 1)
+
+
 def commitments(t: dict) -> torch.Tensor:
     """(75, B) int32 commitments for the tensors `t` (see `upload`).
 
@@ -402,31 +435,18 @@ def commitments(t: dict) -> torch.Tensor:
         return commitments_plain(t)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from fabric_tpu_torch.csp.cuda import build
-
-    lib = build.load("bn254_commit")
-    n_terms, n_shared, n = _check(t, dev)
-    out = torch.empty((OUT_ROWS, n), dtype=torch.int32, device=dev)
-    if n == 0:
+    launch, out, kernels = launcher(t)
+    if launch is None:
         return out
-    part = torch.empty((PART_ROWS * n_terms, n), dtype=torch.int32,
-                       device=dev)
-    ptr = ctypes.c_void_p
-    rc = lib.bn254_commitments(
-        ptr(t["lanes"].data_ptr()), ptr(t["laneinf"].data_ptr()),
-        ptr(t["digits"].data_ptr()), ptr(t["termmeta"].data_ptr()),
-        ctypes.c_int(n_terms),
-        ptr(t["comb_xy"].data_ptr()), ptr(t["comb_inf"].data_ptr()),
-        ctypes.c_int(n_shared), ptr(part.data_ptr()),
-        ptr(out.data_ptr()), ctypes.c_int(n),
-        ptr(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    rc = launch()
     launches_bn254 += 1
-    kernel_launches_bn254 += 2 if n_terms else 1
+    kernel_launches_bn254 += kernels
     if rc != 0:
+        from fabric_tpu_torch.csp.cuda import build
+
         raise RuntimeError(
             f"bn254 commitments kernel launch failed: CUDA error {rc} "
-            f"({lib.bn254_error_string(rc).decode()})"
+            f"({build.load('bn254_commit').bn254_error_string(rc).decode()})"
         )
     return out
 
@@ -443,5 +463,6 @@ __all__ = [
     "term_partials_plain",
     "reduce_plain",
     "commitments_plain",
+    "launcher",
     "commitments",
 ]

@@ -75,6 +75,21 @@ class KernelBuildError(RuntimeError):
     its place."""
 
 
+class Launch:
+    """A prepared kernel launch: a call launches it once, with the
+    arguments it was prepared with, and returns the CUDA error code.  It
+    holds the tensors whose addresses those arguments pass, so their
+    memory lives as long as the launch does."""
+
+    def __init__(self, fn, args, tensors):
+        self._fn = fn
+        self._args = tuple(args)
+        self._tensors = tuple(tensors)
+
+    def __call__(self) -> int:
+        return self._fn(*self._args)
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}

@@ -1,19 +1,32 @@
-// SHA-256 of one message (FIPS 180-4), for the card and for the host.
+// SHA-256 (FIPS 180-4), for the card and for the host.
 //
-// The compression and the message walk of csrc/sha256.cu's kernel, in a
-// header that builds under nvcc (__host__ __device__) and under a plain
-// C++ compiler (csrc/sha256_host_check.cpp), so that tests without a GPU
-// hold the kernel's own code against hashlib.
+// The arithmetic of csrc/sha256.cu's kernel, in a header that builds
+// under nvcc (__host__ __device__) and under a plain C++ compiler
+// (csrc/sha256_host_check.cpp), so that tests without a GPU hold the
+// kernel's own code against hashlib.  It is split along the kernel's
+// two warps:
 //
-// A message is read straight from a byte buffer: its full 64-byte blocks
-// as big-endian words, then one final block, or two when fewer than 9
-// bytes are left for the 0x80 byte and the 64-bit bit length, formed in
-// registers.  The 64 rounds are unrolled, so the round constants and the
-// rolling 16-word schedule window index at compile time: the constants
-// become constant-bank operands and the window stays in registers.
+// - `block_words` forms the 16 big-endian words of one block of a
+//   message: a full 64-byte block read by `load_block` with aligned
+//   16-byte loads and put together with byte permutes, or the final
+//   block or two, whose padding (0x80, zeros, the 64-bit bit length) is
+//   formed in registers by `pad_block`;
+// - `schedule_kw` expands the 16 words into the 64 round inputs
+//   K[i] + W[i], which depend on the message alone;
+// - `rounds` runs the 64 rounds on them and adds the result into the
+//   state: the only dependent chain of a compression.
+//
+// `compress` is the textbook compression (schedule and rounds in one
+// loop), kept as the reference the split is tested against; `digest`
+// hashes a whole message from the split pieces, as the kernel's pair of
+// warps does between them.  The loops here are unrolled, so the round
+// constants and the word indices are known at compile time: constants
+// become immediate or constant-bank operands and the arrays stay in
+// registers.
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #define SHA256_FN __host__ __device__ __forceinline__
@@ -41,7 +54,7 @@
 namespace sha256 {
 
 // The round constants: in constant memory on the card (each read is an
-// operand of the unrolled round), a plain table on the host.
+// operand of the unrolled loop), a plain table on the host.
 #if defined(__CUDACC__)
 __constant__ uint32_t kRoundDev[64] = {SHA256_K_VALUES};
 #endif
@@ -63,6 +76,25 @@ SHA256_FN uint32_t rotr(uint32_t x, int n) {
 #endif
 }
 
+// __byte_perm (PRMT): byte n of the result is byte s[4n+2:4n] of the
+// eight bytes y:x (x's bytes 0-3, y's 4-7).  The host twin computes the
+// same for the selectors used here (no sign-replicating nibble).
+SHA256_FN uint32_t byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(x, y, s);
+#else
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n) {
+    const int k = (int)((s >> (4 * n)) & 7);
+    r |= (uint32_t)((v >> (8 * k)) & 0xff) << (8 * n);
+  }
+  return r;
+#endif
+}
+
+SHA256_FN uint32_t bswap(uint32_t x) { return byte_perm(x, 0, 0x0123); }
+
 SHA256_FN void init(uint32_t h[8]) {
   h[0] = 0x6a09e667u;
   h[1] = 0xbb67ae85u;
@@ -74,27 +106,138 @@ SHA256_FN void init(uint32_t h[8]) {
   h[7] = 0x5be0cd19u;
 }
 
-// One compression of the 16 big-endian words w into h.  w is the
-// schedule window and is overwritten.
-SHA256_FN void compress(uint32_t h[8], uint32_t w[16]) {
+// The 16-byte chunk at `chunk` (16-byte aligned) as four little-endian
+// words.  On the card one 16-byte load through the read-only path; the
+// caller loads only chunks that hold a byte of [lo, hi), and every such
+// chunk lies inside the allocation that holds those bytes (CUDA's
+// allocations start and end on 256-byte boundaries).  The host twin
+// reads the bytes of [lo, hi) alone and puts 0xa5 in the others, so
+// that the host tests catch a byte used that should have been masked.
+SHA256_FN void load16(const uint8_t* chunk, const uint8_t* lo,
+                      const uint8_t* hi, uint32_t out[4]) {
+#if defined(__CUDA_ARCH__)
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(chunk));
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+#else
+  uint8_t b[16];
+  const uintptr_t c = (uintptr_t)chunk;
+  for (int k = 0; k < 16; ++k) {
+    const uintptr_t a = c + k;
+    b[k] = (a >= (uintptr_t)lo && a < (uintptr_t)hi) ? chunk[k] : 0xa5;
+  }
+  memcpy(out, b, 16);  // the host is little-endian, as the card is
+#endif
+}
+
+// The 16 big-endian words of the 64 bytes at p, any byte address, of
+// which the first nvalid (0-64) belong to the message: bytes from nvalid
+// on are unspecified (pad_block masks them).  Reads the aligned 16-byte
+// chunks that hold those bytes (at most 5), moves them down by p's
+// whole-word offset in two selects a word, and builds each word from two
+// neighbours with one byte permute that also swaps it to big-endian.
+SHA256_FN void load_block(const uint8_t* p, int nvalid, uint32_t w[16]) {
+  const int m = (int)((uintptr_t)p & 15);
+  const uint8_t* base = p - m;
+  const uint8_t* end = p + nvalid;
+  uint32_t u[20];
+  SHA256_UNROLL
+  for (int c = 0; c < 5; ++c) {
+    if ((uintptr_t)(base + 16 * c) < (uintptr_t)end) {
+      load16(base + 16 * c, p, end, &u[4 * c]);
+    } else {
+      u[4 * c] = u[4 * c + 1] = u[4 * c + 2] = u[4 * c + 3] = 0;
+    }
+  }
+  const int q = m >> 2;  // whole words between the chunk and p
+  SHA256_UNROLL
+  for (int j = 0; j < 18; ++j) u[j] = (q & 2) ? u[j + 2] : u[j];
+  SHA256_UNROLL
+  for (int j = 0; j < 17; ++j) u[j] = (q & 1) ? u[j + 1] : u[j];
+  const uint32_t o = (uint32_t)(m & 3);  // p's byte within its word
+  const uint32_t sel = (o + 3) | ((o + 2) << 4) | ((o + 1) << 8) | (o << 12);
+  SHA256_UNROLL
+  for (int i = 0; i < 16; ++i) w[i] = byte_perm(u[i], u[i + 1], sel);
+}
+
+// The padding of a final block: k bytes of the message are left at its
+// start (k < 64, and k < 0 for a second padding block), then 0x80 and
+// zeros; the last block ends in the 64-bit bit length.
+SHA256_FN void pad_block(uint32_t w[16], int k, uint64_t bits, bool last) {
+  SHA256_UNROLL
+  for (int i = 0; i < 16; ++i) {
+    const int r = k - 4 * i;  // message bytes left at word i
+    const uint32_t keep =
+        r >= 4 ? 0xffffffffu : (r <= 0 ? 0u : 0xffffffffu << (32 - 8 * r));
+    const uint32_t one = (r >= 0 && r < 4) ? 0x80000000u >> (8 * r) : 0u;
+    w[i] = (w[i] & keep) | one;
+  }
+  if (last) {
+    w[14] = (uint32_t)(bits >> 32);
+    w[15] = (uint32_t)bits;
+  }
+}
+
+// Compressions of a len-byte message, padding in.
+SHA256_FN int64_t n_blocks(int64_t len) { return (len + 72) >> 6; }
+
+// The 16 words of block b (0 <= b < n_blocks(len)) of the len bytes at
+// msg: a full block, or a final one with its padding.
+SHA256_FN void block_words(const uint8_t* msg, int64_t len, int64_t b,
+                           uint32_t w[16]) {
+  const int64_t left = len - (b << 6);  // message bytes from here on
+  if (left > 0) {
+    load_block(msg + (b << 6), left >= 64 ? 64 : (int)left, w);
+  } else {
+    SHA256_UNROLL
+    for (int i = 0; i < 16; ++i) w[i] = 0;
+  }
+  if (left < 64) {
+    pad_block(w, (int)left, (uint64_t)len << 3, b == n_blocks(len) - 1);
+  }
+}
+
+SHA256_FN uint32_t small_sigma0(uint32_t x) {
+  return rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3);
+}
+
+SHA256_FN uint32_t small_sigma1(uint32_t x) {
+  return rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10);
+}
+
+// The message schedule of one block: kw[i] = K[i] + W[i] for the 64
+// rounds.  w is the rolling window and is overwritten.
+SHA256_FN void schedule_kw(uint32_t w[16], uint32_t kw[64]) {
+  SHA256_UNROLL
+  for (int i = 0; i < 16; ++i) kw[i] = w[i] + round_k(i);
+  SHA256_UNROLL
+  for (int i = 16; i < 64; ++i) {
+    const uint32_t wi = w[i & 15] + small_sigma0(w[(i - 15) & 15]) +
+                        w[(i - 7) & 15] + small_sigma1(w[(i - 2) & 15]);
+    w[i & 15] = wi;
+    kw[i] = wi + round_k(i);
+  }
+}
+
+SHA256_FN uint32_t big_sigma0(uint32_t a) {
+  return rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+}
+
+SHA256_FN uint32_t big_sigma1(uint32_t e) {
+  return rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+}
+
+// The 64 rounds on kw, added into h: the compression's dependent chain
+// and nothing else.
+SHA256_FN void rounds(uint32_t h[8], const uint32_t kw[64]) {
   uint32_t a = h[0], b = h[1], c = h[2], d = h[3];
   uint32_t e = h[4], f = h[5], g = h[6], hh = h[7];
   SHA256_UNROLL
   for (int i = 0; i < 64; ++i) {
-    uint32_t wi;
-    if (i < 16) {
-      wi = w[i];
-    } else {
-      const uint32_t w15 = w[(i - 15) & 15], w2 = w[(i - 2) & 15];
-      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
-      wi = w[i & 15] + s0 + w[(i - 7) & 15] + s1;
-      w[i & 15] = wi;
-    }
-    const uint32_t t1 = hh + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) +
-                        ((e & f) ^ (~e & g)) + round_k(i) + wi;
-    const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) +
-                        ((a & b) ^ (a & c) ^ (b & c));
+    const uint32_t t1 = hh + kw[i] + ((e & f) ^ (~e & g)) + big_sigma1(e);
+    const uint32_t t2 = big_sigma0(a) + ((a & b) ^ (a & c) ^ (b & c));
     hh = g;
     g = f;
     f = e;
@@ -114,56 +257,73 @@ SHA256_FN void compress(uint32_t h[8], uint32_t w[16]) {
   h[7] += hh;
 }
 
-// The digest of the len bytes at msg, as 32 big-endian bytes into out.
-SHA256_FN void digest(const uint8_t* __restrict__ msg, int64_t len,
-                      uint8_t* __restrict__ out) {
-  uint32_t h[8];
-  init(h);
-  uint32_t w[16];
-  const int64_t full = len >> 6;
-  for (int64_t blk = 0; blk < full; ++blk) {
-    const uint8_t* p = msg + (blk << 6);
-    SHA256_UNROLL
-    for (int i = 0; i < 16; ++i) {
-      w[i] = ((uint32_t)p[4 * i] << 24) | ((uint32_t)p[4 * i + 1] << 16) |
-             ((uint32_t)p[4 * i + 2] << 8) | (uint32_t)p[4 * i + 3];
-    }
-    compress(h, w);
-  }
-  // the tail: rem bytes, then 0x80, zeros, and the bit length in the last
-  // 8 bytes of the last block
-  const int rem = (int)(len - (full << 6));
-  const uint8_t* tail = msg + (full << 6);
-  const uint64_t bits = (uint64_t)len << 3;
-  const int last = rem < 56 ? 0 : 1;
-  for (int f = 0; f <= last; ++f) {
-    SHA256_UNROLL
-    for (int i = 0; i < 16; ++i) {
-      uint32_t word = 0;
-      SHA256_UNROLL
-      for (int k = 0; k < 4; ++k) {
-        const int pos = 64 * f + 4 * i + k;  // byte of the tail region
-        uint32_t byte = 0;
-        if (pos < rem) {
-          byte = tail[pos];
-        } else if (pos == rem) {
-          byte = 0x80;
-        } else if (f == last && 4 * i + k >= 56) {
-          byte = (uint32_t)(bits >> (8 * (63 - 4 * i - k))) & 0xff;
-        }
-        word = (word << 8) | byte;
-      }
-      w[i] = word;
-    }
-    compress(h, w);
-  }
+// One compression of the 16 big-endian words w into h, schedule and
+// rounds in one loop (the textbook form).  w is overwritten.
+SHA256_FN void compress(uint32_t h[8], uint32_t w[16]) {
+  uint32_t a = h[0], b = h[1], c = h[2], d = h[3];
+  uint32_t e = h[4], f = h[5], g = h[6], hh = h[7];
   SHA256_UNROLL
+  for (int i = 0; i < 64; ++i) {
+    uint32_t wi;
+    if (i < 16) {
+      wi = w[i];
+    } else {
+      wi = w[i & 15] + small_sigma0(w[(i - 15) & 15]) + w[(i - 7) & 15] +
+           small_sigma1(w[(i - 2) & 15]);
+      w[i & 15] = wi;
+    }
+    const uint32_t t1 =
+        hh + big_sigma1(e) + ((e & f) ^ (~e & g)) + round_k(i) + wi;
+    const uint32_t t2 = big_sigma0(a) + ((a & b) ^ (a & c) ^ (b & c));
+    hh = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = b;
+    b = a;
+    a = t1 + t2;
+  }
+  h[0] += a;
+  h[1] += b;
+  h[2] += c;
+  h[3] += d;
+  h[4] += e;
+  h[5] += f;
+  h[6] += g;
+  h[7] += hh;
+}
+
+// The digest h as 32 big-endian bytes at out (16-byte aligned on the
+// card: two 16-byte stores).
+SHA256_FN void put_digest(const uint32_t h[8], uint8_t* out) {
+#if defined(__CUDA_ARCH__)
+  uint4* o = reinterpret_cast<uint4*>(out);
+  o[0] = make_uint4(bswap(h[0]), bswap(h[1]), bswap(h[2]), bswap(h[3]));
+  o[1] = make_uint4(bswap(h[4]), bswap(h[5]), bswap(h[6]), bswap(h[7]));
+#else
   for (int i = 0; i < 8; ++i) {
     out[4 * i] = (uint8_t)(h[i] >> 24);
     out[4 * i + 1] = (uint8_t)(h[i] >> 16);
     out[4 * i + 2] = (uint8_t)(h[i] >> 8);
     out[4 * i + 3] = (uint8_t)h[i];
   }
+#endif
+}
+
+// The digest of the len bytes at msg into out, one block after another.
+SHA256_FN void digest(const uint8_t* __restrict__ msg, int64_t len,
+                      uint8_t* __restrict__ out) {
+  uint32_t h[8];
+  init(h);
+  const int64_t nb = n_blocks(len);
+  for (int64_t b = 0; b < nb; ++b) {
+    uint32_t w[16], kw[64];
+    block_words(msg, len, b, w);
+    schedule_kw(w, kw);
+    rounds(h, kw);
+  }
+  put_digest(h, out);
 }
 
 }  // namespace sha256

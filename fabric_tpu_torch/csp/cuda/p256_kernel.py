@@ -444,27 +444,23 @@ def _check(t: dict, keytab: bool, device: torch.device) -> int:
     return b
 
 
-def verify_packed(t: dict) -> torch.Tensor:
-    """(B,) bool verdicts for the packed tensors `t` (see `upload`).
-
-    CUDA tensors launch the hand-written kernel on the current stream
-    and return without synchronising; CPU tensors run
-    `verify_packed_plain`.  A launch error raises."""
-    global launches_keytab, launches_lanekeys
-    dev = t["d1"].device
-    if dev.type == "cpu":
-        return verify_packed_plain(t)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+def launcher(t: dict) -> tuple:
+    """The kernel's launch on the packed CUDA tensors `t`, prepared:
+    (a call with no arguments that launches it once on the current stream
+    and returns the CUDA error code, the (B,) bool output it writes).
+    The tensors are checked here; the call counts nothing (the wrapper
+    counts its launches) and a timing calls it bare.  With B = 0 the call
+    is None."""
     from fabric_tpu_torch.csp.cuda import build
 
+    dev = t["d1"].device
     lib = build.load()
     keytab = "kidx" in t
     gq = _gqtab(str(dev))
     b = _check({**t, "gqtab": gq}, keytab, dev)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
-        return out
+        return None, out
     ptr = ctypes.c_void_p
     common = [
         ptr(t["d1"].data_ptr()),
@@ -478,21 +474,43 @@ def verify_packed(t: dict) -> torch.Tensor:
         ptr(torch.cuda.current_stream(dev).cuda_stream),
     ]
     if keytab:
-        rc = lib.p256_verify_keytab(
-            ptr(t["qtab"].data_ptr()), ptr(t["keybad"].data_ptr()),
-            ptr(t["kidx"].data_ptr()), *common, ptr(gq.data_ptr()), *tail,
-        )
+        fn = lib.p256_verify_keytab
+        args = [ptr(t["qtab"].data_ptr()), ptr(t["keybad"].data_ptr()),
+                ptr(t["kidx"].data_ptr()), *common, ptr(gq.data_ptr()),
+                *tail]
+    else:
+        fn = lib.p256_verify_lanekeys
+        args = [ptr(t["qx"].data_ptr()), ptr(t["qy"].data_ptr()), *common,
+                ptr(gq.data_ptr()), *tail]
+    return build.Launch(fn, args, (*t.values(), gq, out)), out
+
+
+def verify_packed(t: dict) -> torch.Tensor:
+    """(B,) bool verdicts for the packed tensors `t` (see `upload`).
+
+    CUDA tensors launch the hand-written kernel on the current stream
+    and return without synchronising; CPU tensors run
+    `verify_packed_plain`.  A launch error raises."""
+    global launches_keytab, launches_lanekeys
+    dev = t["d1"].device
+    if dev.type == "cpu":
+        return verify_packed_plain(t)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    launch, out = launcher(t)
+    if launch is None:
+        return out
+    rc = launch()
+    if "kidx" in t:
         launches_keytab += 1
     else:
-        rc = lib.p256_verify_lanekeys(
-            ptr(t["qx"].data_ptr()), ptr(t["qy"].data_ptr()), *common,
-            ptr(gq.data_ptr()), *tail,
-        )
         launches_lanekeys += 1
     if rc != 0:
+        from fabric_tpu_torch.csp.cuda import build
+
         raise RuntimeError(
             f"p256 verify kernel launch failed: CUDA error {rc} "
-            f"({lib.p256_error_string(rc).decode()})"
+            f"({build.load().p256_error_string(rc).decode()})"
         )
     return out
 
@@ -511,5 +529,6 @@ __all__ = [
     "dedup_keys",
     "upload",
     "verify_packed_plain",
+    "launcher",
     "verify_packed",
 ]

@@ -21,8 +21,9 @@ numpy `p256_kernel.prepare_packed` is its plain version.
 
 `hash_batch` hashes on the card (`sha256.sha256_digests`, kernel B4) from
 `min_device_batch` messages up, as `TPUCSP.hash_batch` does, but only for
-a batch wide enough that one thread a message beats hashlib
-(`hash_on_card`); hashlib answers the rest, and `hash` of one message.
+a batch wide enough that hashing its messages side by side, a lane
+each, beats hashlib (`hash_on_card`); hashlib answers the rest, and
+`hash` of one message.
 
 Degraded mode, after `TPUCSP`'s.  A runtime device fault (a dispatch or
 a collect that raises after the kernel has loaded, a faultline fault at
@@ -96,18 +97,21 @@ BUILD_ERRORS = (build.KernelBuildError, native.NativeBuildError)
 _MAX_CHUNK = 8192
 
 
-# hash_batch's route.  B4 hashes each message on one thread, so a launch
-# lasts as long as the longest message's chain of compressions (~2.6 us
-# each), while hashlib's time is the sum of every message's (~0.06 us
-# each, and ~0.8 us a message); the card's route also pays for the join,
-# the pinned copy, the upload and the readback (~0.2 ms, then ~0.4 us a
-# message and ~0.02-0.04 us a compression).  The card takes a batch only
-# when its compressions outnumber the longest message's HASH_WIDTH times
-# over, plus HASH_FIXED; where the two routes come close, hashlib keeps
-# the batch.  (NVIDIA H100 80GB HBM3, 700 W: `chip_smoke.py`'s routing
-# check, PERF.md.)
-HASH_WIDTH = 192
-HASH_FIXED = 1024
+# hash_batch's route.  B4 hashes the messages side by side, each one's
+# compressions in a chain of ~1.08 us, so a launch lasts about as long as
+# the longest message's chain, while hashlib's time is the sum of every
+# message's (~0.07 us a compression and ~0.5-0.9 us a message); the
+# card's route also pays for writing the messages into a pinned tensor,
+# the upload, the wrapper and the readback (~0.3-0.45 ms, then ~0.5-0.6 us
+# a message and ~0.02-0.03 us a compression).  The card takes a batch
+# only when its compressions outnumber the longest message's HASH_WIDTH
+# times over, plus HASH_FIXED.  hashlib's cost a message moved by half
+# between two calls on the card machine, so batches of short messages
+# near the boundary go either way; HASH_FIXED keeps them on hashlib up to
+# ~4000 one-block messages.  (NVIDIA H100 80GB HBM3, 700.00 W:
+# `chip_smoke.py`'s routing check, `phase_hash_route`, PERF.md.)
+HASH_WIDTH = 48
+HASH_FIXED = 4096
 
 
 def hash_on_card(msgs: Sequence[bytes], min_device_batch: int = 16) -> bool:

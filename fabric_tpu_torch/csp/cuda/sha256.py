@@ -8,20 +8,23 @@ common number of 64-byte blocks, `(B, n_blocks, 16)` big-endian words
 and the per-message block count `nblk`.  That layout existed because XLA
 needs static shapes.  The kernel (`csrc/sha256.cu`, replacing
 `sha256.sha256_kernel`) takes the messages as they are instead: one
-buffer of the messages concatenated, `(B+1,)` int64 offsets into it, and
-one thread a message that reads its words from the buffer and forms its
-own final padding block or two.  It writes the 32 digest bytes of each
-message, so the host only slices.
+buffer of the messages concatenated and `(B+1,)` int64 offsets into it.
+A pair of warps serves 32 messages: a producer that reads each block and
+expands its schedule into shared memory, and a consumer that runs the
+rounds; it forms each message's padding itself and writes the 32 digest
+bytes, so the host only slices.
 
 `sha256_digests` takes the buffer on its device and the offsets on the
 host, where it checks them; it launches the kernel for a CUDA buffer, in
 launches of at most `MAX_LAUNCH` messages, and runs `sha256_plain` only
 for a CPU one.  A launch error raises; there is no hashlib fallback.
+`launcher` gives the bare launch that it makes, for timing the kernel
+apart from the wrapper.  `sha256_batch` is the provider's card route.
 """
 
 from __future__ import annotations
 
-import ctypes
+import time
 
 import numpy as np
 import torch
@@ -170,6 +173,57 @@ def _digests_plain(buf: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _check(buf: torch.Tensor, offs: torch.Tensor) -> int:
+    """Raises unless `buf` is a contiguous (N,) uint8 tensor and `offs`
+    contiguous (B+1,) int64 offsets into it, non-decreasing within
+    [0, N], on the host; returns B."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
+        raise ValueError("buf: expected a contiguous 1-D uint8 tensor")
+    if (offs.device.type != "cpu" or offs.dtype != torch.int64
+            or offs.dim() != 1 or offs.numel() < 1
+            or not offs.is_contiguous()):
+        raise ValueError("offs: expected a contiguous (B+1,) int64 tensor "
+                         "on the host")
+    o = offs.numpy()
+    if o[0] < 0 or o[-1] > buf.numel() or (o[1:] < o[:-1]).any():
+        raise ValueError("offs: not offsets into buf")
+    return offs.numel() - 1
+
+
+def launcher(buf: torch.Tensor, d_offs: torch.Tensor,
+             out: torch.Tensor):
+    """The kernel's launch on CUDA tensors, prepared: a call with no
+    arguments that launches it once on the current stream over the
+    messages buf[d_offs[i]:d_offs[i+1]] (offsets on buf's device, at most
+    MAX_LAUNCH messages) into `out` ((B, 32) uint8, 16-byte aligned), and
+    returns the CUDA error code.  Nothing is checked and nothing counted:
+    the wrapper does both, and a timing calls this bare."""
+    from fabric_tpu_torch.csp.cuda import build
+
+    lib = build.load("sha256")
+    args = (buf.data_ptr(), d_offs.data_ptr(), d_offs.numel() - 1,
+            out.data_ptr(), torch.cuda.current_stream(buf.device).cuda_stream)
+    return build.Launch(lib.sha256_digests, args, (buf, d_offs, out))
+
+
+def _launch(buf: torch.Tensor, d_offs: torch.Tensor,
+            out: torch.Tensor) -> None:
+    """The kernel over every message, MAX_LAUNCH at a time, counted; a
+    launch error raises."""
+    global launches_sha256
+    n = d_offs.numel() - 1
+    for lo in range(0, n, MAX_LAUNCH):
+        take = min(MAX_LAUNCH, n - lo)
+        rc = launcher(buf, d_offs[lo:lo + take + 1], out[lo:lo + take])()
+        launches_sha256 += 1
+        if rc != 0:
+            from fabric_tpu_torch.csp.cuda import build
+
+            raise RuntimeError(
+                f"sha256 kernel launch failed: CUDA error {rc} "
+                f"({build.load('sha256').sha256_error_string(rc).decode()})")
+
+
 def sha256_digests(buf: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     """(B, 32) uint8 digests of the messages buf[offs[i]:offs[i+1]].
 
@@ -181,62 +235,68 @@ def sha256_digests(buf: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     kernel launches on the current stream and the call returns without
     synchronising; on the CPU `sha256_plain` runs.  A launch error
     raises."""
-    global launches_sha256
     dev = buf.device
-    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
-        raise ValueError("buf: expected a contiguous 1-D uint8 tensor")
-    if (offs.device.type != "cpu" or offs.dtype != torch.int64
-            or offs.dim() != 1 or offs.numel() < 1
-            or not offs.is_contiguous()):
-        raise ValueError("offs: expected a contiguous (B+1,) int64 tensor "
-                         "on the host")
-    o = offs.numpy()
-    if o[0] < 0 or (np.diff(o) < 0).any() or o[-1] > buf.numel():
-        raise ValueError("offs: not offsets into buf")
-    n = offs.numel() - 1
-    if dev.type == "cuda":
-        from fabric_tpu_torch.csp.cuda import build
-
-        lib = build.load("sha256")
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        offs = offs.to(dev, non_blocking=True)
-    elif dev.type != "cpu":
+    n = _check(buf, offs)
+    if dev.type == "cpu":
+        out = torch.empty((n, 32), dtype=torch.uint8)
+        for lo in range(0, n, MAX_LAUNCH):
+            take = min(MAX_LAUNCH, n - lo)
+            out[lo:lo + take] = _digests_plain(buf, offs[lo:lo + take + 1])
+        return out
+    if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((n, 32), dtype=torch.uint8, device=dev)
-    for lo in range(0, n, MAX_LAUNCH):
-        take = min(MAX_LAUNCH, n - lo)
-        if dev.type == "cpu":
-            out[lo:lo + take] = _digests_plain(buf, offs[lo:lo + take + 1])
-            continue
-        ptr = ctypes.c_void_p
-        rc = lib.sha256_digests(
-            ptr(buf.data_ptr()), ptr(offs[lo:].data_ptr()),
-            ctypes.c_int(take), ptr(out[lo:].data_ptr()), stream)
-        launches_sha256 += 1
-        if rc != 0:
-            raise RuntimeError(
-                f"sha256 kernel launch failed: CUDA error {rc} "
-                f"({lib.sha256_error_string(rc).decode()})")
+    _launch(buf, offs.to(dev, non_blocking=True), out)
     return out
 
 
-def sha256_batch(msgs, device="cuda") -> list[bytes]:
-    """32-byte digests of `msgs` on `device`: the messages go up as one
-    pinned buffer and their offsets, the digests come back as one array."""
+def sha256_batch(msgs, device="cuda", times: dict | None = None
+                 ) -> list[bytes]:
+    """32-byte digests of `msgs` on `device`.  Each message is written
+    once, straight into a host tensor (pinned for a card, and taken from
+    PyTorch's caching host allocator, which reuses it once its copies are
+    done); the messages go up in one copy, `sha256_digests` hashes them,
+    and the digests come back in one copy into a pinned tensor.  With
+    `times`, each stage ends in a synchronise and its seconds are added
+    into times[stage]: stage, upload, kernel, readback, digests."""
     if not msgs:
         return []
     dev = torch.device(device)
-    buf, offs = join_messages(msgs)
-    t_offs = torch.from_numpy(offs)
-    if dev.type == "cuda":
-        host = torch.empty(buf.shape[0], dtype=torch.uint8, pin_memory=True)
-        host.numpy()[:] = buf
-        t_buf = host.to(dev, non_blocking=True)
-        t_offs = t_offs.pin_memory()
-    else:
-        t_buf = torch.from_numpy(buf.copy())
-    raw = sha256_digests(t_buf, t_offs).cpu().numpy().tobytes()
-    return [raw[i:i + 32] for i in range(0, len(raw), 32)]
+    cuda = dev.type == "cuda"
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        if times is not None:
+            if cuda:
+                torch.cuda.synchronize(dev)
+            clock.append(time.perf_counter())
+            times[name] = times.get(name, 0.0) + clock[-1] - clock[-2]
+
+    n = len(msgs)
+    offs = torch.empty(n + 1, dtype=torch.int64, pin_memory=cuda)
+    o = offs.numpy()
+    o[0] = 0
+    np.cumsum(np.fromiter(map(len, msgs), np.int64, n), out=o[1:])
+    buf = torch.empty(max(int(o[n]), 1), dtype=torch.uint8, pin_memory=cuda)
+    view = memoryview(buf.numpy())
+    starts, ends = o[:-1].tolist(), o[1:].tolist()
+    for m, a, b in zip(msgs, starts, ends):
+        view[a:b] = m
+    lap("stage")
+    if cuda:
+        buf = buf.to(dev, non_blocking=True)
+    lap("upload")
+    out = sha256_digests(buf, offs)
+    lap("kernel")
+    if cuda:
+        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+        out = host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+    lap("readback")
+    raw = out.numpy().tobytes()
+    digests = [raw[i:i + 32] for i in range(0, n * 32, 32)]
+    lap("digests")
+    return digests
 
 
 __all__ = [
@@ -245,6 +305,7 @@ __all__ = [
     "digest_to_bytes",
     "join_messages",
     "sha256_plain",
+    "launcher",
     "sha256_digests",
     "sha256_batch",
 ]

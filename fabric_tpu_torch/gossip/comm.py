@@ -249,6 +249,9 @@ class TCPGossipComm(GossipComm):
     certificate its TLS layer authenticated, so a handshake replayed over
     another session is refused (reference gossip/comm/crypto.go)."""
 
+    # every message is delivered on its connection's reader thread, in
+    # order: a subscriber that commits moves it off (gossip.state)
+    delivers_on_reader = True
     # a peer declaring a larger frame is cut off (the RPC transport's cap)
     _MAX_FRAME = 100 * 1024 * 1024
 

@@ -10,6 +10,14 @@ Anti-entropy asks the peer advertising the greatest height for the first
 missing range (RemoteStateRequest / RemoteStateResponse), skipping blocks
 already buffered, and a response that made progress chains the next
 request at once (one level a thread).
+
+Where the transport delivers on a connection's reader thread (TCP), a
+block from a peer (a push or a state response) is buffered there and
+committed by a worker of the provider's own, as the reference's state
+provider commits on a goroutine of its own: a commit on the reader would
+hold back every later message of that sender, its alive and leadership
+messages too.  The in-process transport delivers on the sender's stack
+and commits there, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -17,8 +25,9 @@ from __future__ import annotations
 import collections
 import threading
 
+from fabric_tpu_torch.common.flogging import must_get_logger
 from fabric_tpu_torch.devtools import faultline
-from fabric_tpu_torch.devtools.lockwatch import named_lock
+from fabric_tpu_torch.devtools.lockwatch import named_lock, spawn_thread
 from fabric_tpu_torch.protos import common as cb
 from fabric_tpu_torch.protos import gossip as gpb
 
@@ -59,6 +68,12 @@ class StateProvider:
         # the in-process transport dispatches on the sender's stack: one
         # level of chained catch-up a thread keeps it from recursing
         self._chaining = threading.local()
+        # a peer's blocks commit on the worker where the comm delivers on
+        # a reader thread; _kicked asks the worker for one more pass
+        self._apart = getattr(comm, "delivers_on_reader", False)
+        self._kick_lock = named_lock("gossip.state.kick")
+        self._kicked = False
+        self._worker = False
         self._metrics = None  # common.metrics.GossipMetrics
         self.requests_sent = 0
         # the last (start, end) ranges requested
@@ -76,22 +91,28 @@ class StateProvider:
     def add_payload(self, seq: int, block_bytes: bytes,
                     from_orderer: bool = False) -> None:
         """A block from the deliver client (ordered) or a peer."""
-        if seq < self._committer.height:
+        if not self._accept(seq, block_bytes):
             return
-        # every path a block takes into the peer passes here or through
-        # _on_gossip_block
-        faultline.point("gossip.state.payload", seq=seq)
-        self._buffer.push(seq, block_bytes)
         if from_orderer:
             self._gossip.add_block(seq, block_bytes)  # disseminate it
         self._drain()
 
     def _on_gossip_block(self, seq: int, block_bytes: bytes) -> None:
-        if seq < self._committer.height:
+        if not self._accept(seq, block_bytes):
             return
+        if self._apart:
+            self._kick()
+        else:
+            self._drain()
+
+    def _accept(self, seq: int, block_bytes: bytes) -> bool:
+        """Buffers a block not yet committed; False for one that is."""
+        if seq < self._committer.height:
+            return False
+        # every path a block takes into the peer passes here
         faultline.point("gossip.state.payload", seq=seq)
         self._buffer.push(seq, block_bytes)
-        self._drain()
+        return True
 
     # -- ordered commit ----------------------------------------------------
 
@@ -117,6 +138,38 @@ class StateProvider:
                     for _flags in self._committer.store_stream(
                             cb.Block.decode(r) for r in run):
                         pass
+
+    def _kick(self) -> None:
+        """Has the worker commit what is buffered, starting it if it is
+        not running; it ends once a pass finds no new kick."""
+        with self._kick_lock:
+            self._kicked = True
+            if self._worker:
+                return
+            self._worker = True
+        # fabriclint: allow[thread-lifecycle] a bounded worker: it returns
+        # once a pass finds no new kick, and a kick after that starts another
+        spawn_thread(target=self._commit_apart, name="gossip-state-commit",
+                     kind="worker").start()
+
+    def _commit_apart(self) -> None:
+        try:
+            while True:
+                with self._kick_lock:
+                    if not self._kicked:
+                        self._worker = False
+                        return
+                    self._kicked = False
+                before = self._committer.height
+                self._drain()
+                # a pass that made progress chains the next request now
+                if self._committer.height > before:
+                    self._request_missing()
+        except Exception:
+            with self._kick_lock:
+                self._worker = False
+            must_get_logger("gossip.state").warning(
+                "committing buffered blocks raised", exc_info=True)
 
     # -- anti-entropy ------------------------------------------------------
 
@@ -171,6 +224,14 @@ class StateProvider:
                     channel=self._chan,
                     state_response=gpb.RemoteStateResponse(
                         payloads=payloads)))
+        elif kind == "state_response" and self._apart:
+            for dm in msg.state_response.payloads:
+                if dm.seq_num >= self._committer.height \
+                        and dm.seq_num not in self._buffer:
+                    self.blocks_received += 1
+                self._accept(dm.seq_num, dm.block)
+            if msg.state_response.payloads:
+                self._kick()
         elif kind == "state_response":
             before = self._committer.height
             for dm in msg.state_response.payloads:

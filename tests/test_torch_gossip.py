@@ -17,6 +17,10 @@
 - `TCPGossipComm` over mutual TLS carries a block from a JAX node to a
   port node and back, and in both packages a handshake replayed over
   another TLS session is refused.
+- A deliberate divergence, pinned on TCP: the port's state provider
+  commits a state response's blocks on a worker of its own (as Fabric's
+  does), so a leadership message sent after the response is delivered
+  while the commit runs; the JAX package's commits on the reader.
 - A reference fault, matched and pinned: a node healed from a partition
   rejoins the bootstrap's view alone.  A deliberate divergence, pinned:
   the port's pull requests no block below its ledger height, so blocks
@@ -49,6 +53,7 @@ from fabric_tpu.gossip import comm as jax_comm
 from fabric_tpu.gossip import core as jax_core
 from fabric_tpu.gossip import identity as jax_identity
 from fabric_tpu.gossip import privdata as jax_privdata
+from fabric_tpu.gossip import state as jax_state
 from fabric_tpu.ledger import kvstore as jax_kv
 from fabric_tpu.ledger.kvledger import LedgerProvider as JaxProvider
 from fabric_tpu.ledger.transientstore import TransientStore as JaxTransient
@@ -73,6 +78,7 @@ from fabric_tpu_torch.gossip import comm as port_comm
 from fabric_tpu_torch.gossip import core as port_core
 from fabric_tpu_torch.gossip import identity as port_identity
 from fabric_tpu_torch.gossip import privdata as port_privdata
+from fabric_tpu_torch.gossip import state as port_state
 from fabric_tpu_torch.ledger import kvstore as port_kv
 from fabric_tpu_torch.ledger.kvledger import LedgerProvider as PortProvider
 from fabric_tpu_torch.ledger.transientstore import TransientStore
@@ -466,6 +472,80 @@ def test_tcp_gossip_carries_blocks_between_the_packages(tls_ca):
         assert b.identity_of(a.pki_id) == b"id-jax"
         assert a.identity_of(b.pki_id) == b"id-port"
     finally:
+        a.close()
+        b.close()
+
+
+class _GatedCommitter(FakeCommitter):
+    """A committer whose store_block waits for `release`."""
+
+    def __init__(self):
+        super().__init__()
+        self.busy, self.release = threading.Event(), threading.Event()
+
+    def store_block(self, blk) -> None:
+        self.busy.set()
+        self.release.wait(10)
+        super().store_block(blk)
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_a_state_response_commits_off_the_tcp_reader(pkg, tls_ca):
+    """A deliberate divergence, pinned: over TCP the port's state
+    provider buffers a state response's blocks on the connection's reader
+    and commits them on a worker of its own, as Fabric's commits on a
+    goroutine of its own, so a leadership message sent after the response
+    is delivered while the commit still runs; the JAX package's commits
+    on the reader, and the declaration waits for the commit.  Both commit
+    the blocks in order."""
+    g = PKG[pkg].gpb
+    a = _tcp(pkg, tls_ca, "peer-a", b"id-a")
+    b = _tcp(pkg, tls_ca, "peer-b", b"id-b")
+    committer = _GatedCommitter()
+    gossip = types.SimpleNamespace(
+        best_peer_height=lambda: (None, 0), add_block=lambda *_: None,
+        store={}, _endpoint_for=lambda _: None)
+    (jax_state if pkg == "jax" else port_state).StateProvider(
+        "ch", gossip, committer, b)
+    leaders = []
+
+    def on_message(rm):
+        kind = (rm.msg.WhichOneof("content") if pkg == "jax"
+                else rm.msg.which("content"))
+        if kind == "leadership_msg":
+            leaders.append(rm.msg.leadership_msg.is_declaration)
+
+    b.subscribe(on_message)
+    if pkg == "jax":
+        response = g.GossipMessage(channel=b"ch")
+        for seq in (0, 1):
+            response.state_response.payloads.add(seq_num=seq,
+                                                 block=_block(seq))
+        declaration = g.GossipMessage(channel=b"ch")
+        declaration.leadership_msg.pki_id = a.pki_id
+        declaration.leadership_msg.is_declaration = True
+    else:
+        response = g.GossipMessage(
+            channel=b"ch", state_response=g.RemoteStateResponse(payloads=[
+                g.DataMessage(seq_num=seq, block=_block(seq))
+                for seq in (0, 1)]))
+        declaration = g.GossipMessage(
+            channel=b"ch", leadership_msg=g.LeadershipMessage(
+                pki_id=a.pki_id, is_declaration=True))
+    try:
+        a.send(b.endpoint, response)
+        a.send(b.endpoint, declaration)
+        assert committer.busy.wait(10)
+        if pkg == "port":
+            assert _wait(lambda: leaders == [True])
+        else:
+            assert not _wait(lambda: leaders, timeout=1.0)
+        assert not committer.blocks
+        committer.release.set()
+        assert _wait(lambda: sorted(committer.blocks) == [0, 1]
+                     and leaders == [True])
+    finally:
+        committer.release.set()
         a.close()
         b.close()
 

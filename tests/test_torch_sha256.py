@@ -106,6 +106,10 @@ def host_lib(tmp_path_factory):
     vp = ctypes.c_void_p
     lib.sha256_host_digests.argtypes = [vp, vp, ctypes.c_int, vp]
     lib.sha256_host_digests.restype = None
+    lib.sha256_host_load_block.argtypes = [vp, ctypes.c_int, vp]
+    lib.sha256_host_load_block.restype = None
+    lib.sha256_host_compress.argtypes = [vp, vp, ctypes.c_int]
+    lib.sha256_host_compress.restype = None
     return lib
 
 
@@ -128,6 +132,153 @@ def test_host_built_kernel_source_matches_hashlib(case, host_lib):
     assert _host_digests(host_lib, buf.copy(), offs) == _hashlib(msgs)
     shifted = np.concatenate([np.full(3, 0xEE, np.uint8), buf])
     assert _host_digests(host_lib, shifted, offs + 3) == _hashlib(msgs)
+
+
+def _compress(lib, h: np.ndarray, w: np.ndarray, split: bool) -> np.ndarray:
+    out = h.copy()
+    lib.sha256_host_compress(ctypes.c_void_p(out.ctypes.data),
+                             ctypes.c_void_p(w.ctypes.data), int(split))
+    return out
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_schedule_kw_then_rounds_equals_compress(seed, host_lib):
+    """The kernel's split compression (schedule_kw on the producer's warp,
+    rounds on the consumer's) equals the textbook loop on random states
+    and blocks, and on the padded blocks of the parity cases chained from
+    the initial state, where both give the JAX package's digests."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    w = rng.integers(0, 2**32, 16, dtype=np.uint32)
+    np.testing.assert_array_equal(_compress(host_lib, h, w, True),
+                                  _compress(host_lib, h, w, False))
+    msgs = CASES[sorted(CASES)[seed % len(CASES)]]()
+    words, nblk = sha.pad_messages(msgs)
+    want = np.asarray(jsha._jit_sha()(words, nblk))
+    for i, m in enumerate(msgs):
+        state = sha._H0.copy()
+        for b in range(nblk[i]):
+            state = _compress(host_lib, state,
+                              np.ascontiguousarray(words[i, b]), True)
+        np.testing.assert_array_equal(state, want[i])
+        assert state.astype(">u4").tobytes() == hashlib.sha256(m).digest()
+
+
+def test_host_built_digests_match_jax_kernel(host_lib):
+    """The kernel's whole message walk (block_words, schedule_kw, rounds)
+    on every case equals the JAX sha256_kernel's digests word for word."""
+    msgs = sum((CASES[c]() for c in sorted(CASES)), [])
+    buf, offs = sha.join_messages(msgs)
+    words, nblk = sha.pad_messages(msgs)
+    want = np.asarray(jsha._jit_sha()(words, nblk))
+    got = _host_digests(host_lib, buf.copy(), offs)
+    assert got == jsha.digest_to_bytes(want) == _hashlib(msgs)
+
+
+# load_block's lengths: the padding edges and a few full blocks
+ALIGN_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 200)
+
+
+@pytest.mark.parametrize("length", ALIGN_LENGTHS)
+def test_load_block_at_every_alignment(length, host_lib):
+    """A message of each length starting at every address mod 16 hashes
+    to hashlib's digest: load_block reads whole aligned 16-byte chunks,
+    shifts them by the start's words and permutes its bytes (the host
+    twin of the chunk load puts 0xa5 in every byte outside the message,
+    so a byte that escaped the mask would show); its full blocks come
+    back as the big-endian words of their bytes."""
+    rng = np.random.default_rng(length)
+    buf = rng.integers(0, 256, length + 256, dtype=np.uint8)
+    base = buf.ctypes.data
+    for start in range(16):
+        off = 32 + (start - base) % 16
+        assert (base + off) % 16 == start
+        offs = np.array([off, off + length], np.int64)
+        want = hashlib.sha256(buf[off:off + length].tobytes()).digest()
+        assert _host_digests(host_lib, buf, offs) == [want]
+        if length >= 64:
+            w = np.zeros(16, np.uint32)
+            host_lib.sha256_host_load_block(
+                ctypes.c_void_p(base + off), 64, ctypes.c_void_p(w.ctypes.data))
+            np.testing.assert_array_equal(
+                w, buf[off:off + 64].view(">u4").astype(np.uint32))
+
+
+def test_sha256_batch_splits_its_stages_and_matches_hashlib():
+    """The card route on the CPU (plain tensors, sha256_plain): its
+    digests are hashlib's, and with `times` it names its stages in order
+    and adds into them."""
+    msgs = _mixed_cases()
+    times = {}
+    assert sha.sha256_batch(msgs, "cpu", times) == _hashlib(msgs)
+    assert list(times) == ["stage", "upload", "kernel", "readback",
+                           "digests"]
+    first = dict(times)
+    assert sha.sha256_batch([b""], "cpu", times) == _hashlib([b""])
+    assert all(times[k] >= first[k] for k in first)
+    assert sha.sha256_batch([], "cpu") == []
+
+
+def test_a_prepared_launch_holds_its_tensors():
+    """A prepared launch keeps the tensors whose addresses it passes
+    alive as long as it lives, so a timing that keeps only the launch
+    writes into no freed memory."""
+    import weakref
+
+    from fabric_tpu_torch.csp.cuda import build
+
+    out = torch.empty(4)
+    ref = weakref.ref(out)
+    launch = build.Launch(lambda *args: sum(args), (1, 2), (out,))
+    del out
+    assert ref() is not None and launch() == 3
+    del launch
+    assert ref() is None
+
+
+def test_hash_batch_from_two_threads_at_once():
+    """Two threads hashing wide batches through one provider at once,
+    each call on buffers of its own: every answer is hashlib's."""
+    import threading
+
+    csp = CUDACSP(device="cpu")
+    batches = [_wide_batch(), _wide_batch()[::-1]]
+    got = [None, None]
+
+    def work(j):
+        got[j] = [csp.hash_batch(batches[j]) for _ in range(2)]
+
+    threads = [threading.Thread(target=work, args=(j,)) for j in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for j in range(2):
+        assert got[j] == [_hashlib(batches[j])] * 2
+
+
+def test_bare_launchers_need_the_built_libraries(tmp_path, monkeypatch):
+    """The prepared launches that the kernel timings call bind the built
+    libraries: without nvcc each raises KernelBuildError, and nothing is
+    counted."""
+    from fabric_tpu_torch.csp.cuda import bn254_kernel as bk
+    from fabric_tpu_torch.csp.cuda import build
+    from fabric_tpu_torch.csp.cuda import p256_kernel as pk
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(build, "_libs", {})
+    buf = torch.zeros(4, dtype=torch.uint8)
+    offs = torch.zeros(2, dtype=torch.int64)
+    before = sha.launches_sha256
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        sha.launcher(buf, offs, torch.empty((1, 32), dtype=torch.uint8))
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        pk.launcher({"d1": torch.zeros(1)})
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        bk.launcher({"lanes": torch.zeros(1)})
+    assert sha.launches_sha256 == before
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_on_the_raw_layout():
@@ -168,9 +319,12 @@ def _short_messages(n: int, seed: int = 7) -> list[bytes]:
 
 def _wide_batch() -> list[bytes]:
     """The parity cases (up to 4 compressions) among enough one-block
-    messages for the card route: 1,800 compressions in all."""
-    msgs = _short_messages(1800 - 91) + _parity_cases()
-    assert sum((len(m) + 72) >> 6 for m in msgs) == 1800
+    messages for the card route: HASH_WIDTH x 4 + HASH_FIXED compressions
+    in all, the fewest the routing rule sends to the card."""
+    need = prov.HASH_WIDTH * 4 + prov.HASH_FIXED
+    msgs = _short_messages(need - 91) + _parity_cases()
+    assert sum((len(m) + 72) >> 6 for m in msgs) == need
+    assert prov.hash_on_card(msgs) and not prov.hash_on_card(msgs[1:])
     return msgs
 
 
@@ -186,7 +340,7 @@ def test_hash_on_card_rule():
     assert not on_card([bytes(n) for n in (23898, 0, 0, 2411560, 79800)])
     assert not on_card([bytes(1 << 20)] * 32)
     assert not on_card([bytes(1 << 20)] * width)
-    assert on_card([bytes(1 << 20)] * (width + 1))  # 16385 x 193 >= +1024
+    assert on_card([bytes(1 << 20)] * (width + 1))  # the extra 16385 >= fixed
     assert not on_card([b""] * (width + fixed - 1))
     assert on_card([b""] * (width + fixed))
     # 119 bytes take two compressions, the longest: 2 x width + fixed
